@@ -1,0 +1,203 @@
+"""Layer base (port of ``analytics_zoo_tpu.keras.engine.base``).
+
+As in the JAX package, a layer records weight *specs* in ``build()``,
+materialises a parameter dict in ``init_params``, and computes
+``call(params, x)`` from that dict. The dict keeps the JAX package's leaf
+names and layouts (a Dense ``kernel`` is ``(in, out)``), so the weight map
+between the two packages is 1:1. Layers are ``nn.Module``s so that a model's
+sub-layers register as its children.
+
+Initializers draw from an explicit ``torch.Generator``. They cannot
+reproduce ``jax.random`` draws; parity tests carry the JAX weights over
+instead (``analytics_zoo_tpu_torch.interop``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+Shape = Tuple[Optional[int], ...]
+
+# ---------------------------------------------------------------------------
+# Initializers: fn(generator, shape, dtype) -> tensor
+# ---------------------------------------------------------------------------
+
+
+def _fans(shape: Sequence[int]) -> Tuple[int, int]:
+    if len(shape) == 0:
+        return 1, 1
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def glorot_uniform(generator, shape, dtype=torch.float32):
+    """Glorot/Xavier uniform: U(-L, L), L = sqrt(6/(fan_in+fan_out))."""
+    fan_in, fan_out = _fans(shape)
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(shape, dtype=dtype).uniform_(-limit, limit,
+                                                    generator=generator)
+
+
+def normal_init(stddev=0.05, mean=0.0):
+    """Factory: N(mean, stddev) initializer (keras-1 "normal")."""
+    def init(generator, shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype).normal_(mean, stddev,
+                                                       generator=generator)
+
+    return init
+
+
+def zeros_init(generator, shape, dtype=torch.float32):
+    """All-zeros initializer."""
+    return torch.zeros(shape, dtype=dtype)
+
+
+def ones_init(generator, shape, dtype=torch.float32):
+    """All-ones initializer."""
+    return torch.ones(shape, dtype=dtype)
+
+
+_INITS: Dict[str, Callable] = {
+    "glorot_uniform": glorot_uniform,
+    "normal": normal_init(),
+    "zeros": zeros_init,
+    "ones": ones_init,
+}
+
+
+def get_initializer(init) -> Callable:
+    """Resolve an ``init`` spec (name or callable)."""
+    if callable(init):
+        return init
+    try:
+        return _INITS[init]
+    except KeyError:
+        raise ValueError(
+            f"Unknown initializer '{init}'. Known: {sorted(_INITS)}") from None
+
+
+# ---------------------------------------------------------------------------
+# Weight specs
+# ---------------------------------------------------------------------------
+
+
+class WeightSpec:
+    """One parameter declaration of a layer: name, shape, initializer,
+    trainability and dtype."""
+    __slots__ = ("name", "shape", "init", "trainable", "dtype")
+
+    def __init__(self, name, shape, init, trainable=True,
+                 dtype=torch.float32):
+        self.name = name
+        self.shape = tuple(int(s) for s in shape)
+        self.init = get_initializer(init)
+        self.trainable = trainable
+        self.dtype = dtype
+
+
+def materialize(specs: Dict, generator: torch.Generator) -> Dict:
+    """Draw a (nested) ``{name: WeightSpec}`` tree into tensors, in the
+    tree's order, from one generator."""
+    out = {}
+    for name, spec in specs.items():
+        if isinstance(spec, dict):
+            out[name] = materialize(spec, generator)
+        else:
+            out[name] = spec.init(generator, spec.shape, spec.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Naming
+# ---------------------------------------------------------------------------
+
+_NAME_COUNTS: Dict[str, int] = {}
+
+
+def unique_name(base: str) -> str:
+    """Globally-counted layer naming (``dense_1``, ``dense_2``, ...)."""
+    _NAME_COUNTS[base] = _NAME_COUNTS.get(base, 0) + 1
+    return f"{base}_{_NAME_COUNTS[base]}"
+
+
+def reset_name_counts() -> None:
+    """Reset the global name counters."""
+    _NAME_COUNTS.clear()
+
+
+# ---------------------------------------------------------------------------
+# KerasLayer
+# ---------------------------------------------------------------------------
+
+
+class KerasLayer(nn.Module):
+    """Base class for all layers.
+
+    Lifecycle:
+      1. construct (records hyperparams; ``input_shape`` excludes batch)
+      2. ``build(full_input_shape)`` registers :class:`WeightSpec`s
+      3. ``init_params(generator)`` materialises the parameter dict
+      4. ``call(params, x, ...)`` computes the output from that dict
+    """
+
+    has_state = False
+
+    def __init__(self, input_shape: Optional[Sequence[int]] = None,
+                 name: Optional[str] = None):
+        super().__init__()
+        self.name = name or unique_name(type(self).__name__.lower())
+        self._user_input_shape = (tuple(input_shape)
+                                  if input_shape is not None else None)
+        self.built = False
+        self.input_shape: Optional[Shape] = None
+        self.output_shape: Optional[Shape] = None
+        self.weight_specs: List[WeightSpec] = []
+
+    def add_weight(self, name, shape, init="glorot_uniform", trainable=True,
+                   dtype=torch.float32) -> None:
+        """Declare one parameter; called from ``build``."""
+        self.weight_specs.append(
+            WeightSpec(name, shape, init, trainable, dtype))
+
+    def ensure_built(self, input_shape: Shape) -> Shape:
+        """Build once for ``input_shape`` (no-op when already built)."""
+        if not self.built:
+            self.input_shape = tuple(input_shape)
+            self.build(self.input_shape)
+            self.built = True
+            self.output_shape = self.compute_output_shape(self.input_shape)
+        return self.output_shape
+
+    def build(self, input_shape: Shape) -> None:  # override
+        """Shape-dependent setup: declare weights for ``input_shape``."""
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:  # override
+        """Batch-free output shape for a batch-free input shape."""
+        return tuple(input_shape)
+
+    def param_specs(self) -> Dict:
+        """``{name: WeightSpec}``, mirroring ``init_params``'s structure.
+        Layers with nested parameter dicts override this."""
+        return {spec.name: spec for spec in self.weight_specs}
+
+    def init_params(self, generator: torch.Generator) -> Dict:
+        """Initialize this layer's parameter dict from a generator."""
+        return materialize(self.param_specs(), generator)
+
+    def call(self, params, x, **kwargs):  # override
+        """The layer computation: ``(params, x, ...) -> output``."""
+        raise NotImplementedError
+
+    def forward(self, params, x, **kwargs):
+        return self.call(params, x, **kwargs)
+
+    def __repr__(self):
+        return f"<{type(self).__name__} {self.name} out={self.output_shape}>"
