@@ -6,10 +6,13 @@ The port imports torch and numpy only; it never imports jax or the JAX
 package. Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 
-Ported so far: BERT-base serving — the context, the layer base, Dense,
-the attention stack, ``BERTClassifierNet`` and ``InferenceModel`` — with
-attention on a hand-written CUDA flash-attention forward kernel
-(``csrc/flash_attention_fwd.cu``).
+Ported so far: BERT-base serving and training — the context, the layer
+base, Dense, the attention stack, ``BERTClassifierNet``, ``InferenceModel``,
+and the training surface (objectives, SGD/Adam, metrics, triggers, feature
+sets, ``Estimator.train``, ``KerasNet.compile``/``fit``) — with attention on
+hand-written CUDA flash-attention kernels, forward
+(``csrc/flash_attention_fwd.cu``) and backward (``csrc/flash_attention_bwd.cu``:
+dq; dk, dv and dbias).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Runtime bring-up (port of ``analytics_zoo_tpu.common.nncontext``).
 
 One global context, created idempotently under a lock, holding the device,
-the dtype policy and a root ``torch.Generator`` seeded from the config.
+the dtype policy, a root ``torch.Generator`` seeded from the config (the
+parameters' draws) and the step generator (the training draws, dropout).
 The default device is ``cuda``; without a card, ``init_nncontext()`` raises
 rather than carrying on quietly on the CPU. Pass ``device="cpu"`` to run
 there on purpose.
@@ -31,7 +32,8 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 class NNContext:
-    """Global runtime context: device + dtype policy + root generator."""
+    """Global runtime context: device + dtype policy + root and step
+    generators."""
 
     def __init__(self, conf: Optional[ZooConfig] = None):
         self.conf = conf or ZooConfig()
@@ -49,6 +51,12 @@ class NNContext:
         # A CPU generator: the same seed gives the same weights whichever
         # device the model is served on.
         self.generator = torch.Generator().manual_seed(int(self.conf.seed))
+        # The stream of training draws, standing in for the JAX package's
+        # next_rng_key(s): one generator on the device, so a dropout mask
+        # is drawn where it is used; its position is saved and restored
+        # with step_generator.get_state() / set_state().
+        self.step_generator = torch.Generator(
+            device=self.device).manual_seed(int(self.conf.seed))
         logger.info("Initialized NNContext on %s", self.device)
 
 

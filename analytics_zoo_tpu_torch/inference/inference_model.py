@@ -21,14 +21,7 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+from analytics_zoo_tpu_torch.common.tree import tree_map
 
 
 class InferenceModel:
@@ -48,16 +41,18 @@ class InferenceModel:
 
     def do_load_keras(self, keras_net) -> "InferenceModel":
         """Adopt an in-memory KerasNet: its ``params`` (drawn from the
-        context's generator if it has none) are copied to the device, and
-        cast once to the model's compute dtype for the forward."""
+        context's generator if it has none; after ``fit`` or
+        ``Estimator.train``, the trained parameters that the estimator
+        wrote back) are copied to the device, and cast once to the model's
+        compute dtype for the forward."""
         keras_net.ensure_params()
         device = get_nncontext().device
-        params = _tree_map(lambda t: t.to(device, copy=True),
+        params = tree_map(lambda t: t.to(device, copy=True),
                            keras_net.params)
         cd = getattr(keras_net, "compute_dtype", None)
         if cd:
             dt = getattr(torch, cd)
-            exec_params = _tree_map(
+            exec_params = tree_map(
                 lambda t: t.to(dt) if t.dtype == torch.float32 else t, params)
         else:
             exec_params = params
@@ -98,7 +93,7 @@ class InferenceModel:
             xs = (list(map(to_device, x)) if isinstance(x, (list, tuple))
                   else to_device(x))
             y, _ = model.apply(params, state, xs, training=False, rng=None)
-            return _tree_map(
+            return tree_map(
                 lambda t: t.float() if t.is_floating_point() else t, y)
 
     def do_optimize(self, example_input) -> "InferenceModel":
@@ -128,7 +123,7 @@ class InferenceModel:
     def do_fetch(self, out):
         """Materialize a :meth:`do_dispatch` output as host numpy arrays
         (waits for the device)."""
-        return _tree_map(lambda t: t.cpu().numpy(), out)
+        return tree_map(lambda t: t.cpu().numpy(), out)
 
     predict = do_predict
 

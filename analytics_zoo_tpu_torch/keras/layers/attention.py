@@ -2,10 +2,14 @@
 MultiHeadAttention, TransformerBlock, TransformerLayer (GPT-style) and BERT.
 
 Attention goes through ``ops.attention.scaled_dot_product_attention``: the
-flash kernel on the card. The QKV, projection, FFN and pooler matmuls are
-plain ``torch.matmul``. This slice serves: ``training=True`` raises, as do
-sequence parallelism, pipeline parallelism and rematerialization, which
-come with later slices.
+flash kernels on the card, forward and backward. The QKV, projection, FFN
+and pooler matmuls are plain ``torch.matmul``. With ``training=True`` and a
+``torch.Generator`` as ``rng`` the layers apply the JAX package's dropout:
+attention probabilities (which takes the reference path), the attention
+output projection, the FFN output and the embeddings; the masks come from
+that one generator in call order, not from ``jax.random.fold_in`` streams.
+Sequence parallelism, pipeline parallelism and rematerialization raise;
+they come with later slices.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ from analytics_zoo_tpu_torch.keras.engine.base import (
     unique_name,
 )
 from analytics_zoo_tpu_torch.keras.layers.core import get_activation
-from analytics_zoo_tpu_torch.ops.attention import scaled_dot_product_attention
+from analytics_zoo_tpu_torch.ops.attention import (
+    dropout,
+    scaled_dot_product_attention,
+)
 
 
 def _layer_norm(x, gamma, beta, eps: float):
@@ -35,10 +42,12 @@ def _layer_norm(x, gamma, beta, eps: float):
     return (y * gamma + beta).to(x.dtype)
 
 
-def _inference_only(training: bool) -> None:
-    if training:
-        raise NotImplementedError(
-            "training (dropout) comes with the training slice of the port")
+def _maybe_dropout(x, rate: float, training: bool, rng):
+    """The JAX package's ``training and rate > 0 and rng is not None``
+    dropout, drawn from the generator ``rng``."""
+    if training and rate > 0 and rng is not None:
+        return dropout(x, rate, rng)
+    return x
 
 
 def _not_yet(feature: str, value) -> None:
@@ -114,7 +123,18 @@ class MultiHeadAttention(KerasLayer):
         b, n = t.shape[0], self.n_head
         return t.reshape(b, s, n, self.hidden_size // n).transpose(1, 2)
 
-    def _call_cross(self, params, x):
+    def _attend(self, q, k, v, bias, training, rng):
+        drop = training and self.attn_dropout > 0 and rng is not None
+        return scaled_dot_product_attention(
+            q, k, v, bias=bias, causal=self.causal,
+            dropout_rate=self.attn_dropout if drop else 0.0,
+            dropout_generator=rng if drop else None)
+
+    def _project(self, params, out, training, rng):
+        y = out @ params["proj_kernel"] + params["proj_bias"]
+        return _maybe_dropout(y, self.resid_dropout, training, rng)
+
+    def _call_cross(self, params, x, training, rng):
         if not isinstance(x, (list, tuple)) or len(x) != 2:
             raise ValueError(
                 f"{self.name}: cross=True takes [query, kv] inputs")
@@ -124,16 +144,14 @@ class MultiHeadAttention(KerasLayer):
         q = q_in @ params["q_kernel"] + params["q_bias"]
         kv = kv_in @ params["kv_kernel"] + params["kv_bias"]
         k, v = kv.chunk(2, dim=-1)
-        out = scaled_dot_product_attention(
-            self._heads(q, s_q), self._heads(k, s_kv), self._heads(v, s_kv),
-            causal=self.causal)
+        out = self._attend(self._heads(q, s_q), self._heads(k, s_kv),
+                           self._heads(v, s_kv), None, training, rng)
         out = out.transpose(1, 2).reshape(b, s_q, self.hidden_size)
-        return out @ params["proj_kernel"] + params["proj_bias"]
+        return self._project(params, out, training, rng)
 
-    def call(self, params, x, training=False, mask=None, **kw):
-        _inference_only(training)
+    def call(self, params, x, training=False, rng=None, mask=None, **kw):
         if self.cross:
-            return self._call_cross(params, x)
+            return self._call_cross(params, x, training, rng)
         if isinstance(x, (list, tuple)):
             if len(x) != 2 or mask is not None:
                 raise ValueError(
@@ -155,11 +173,10 @@ class MultiHeadAttention(KerasLayer):
                 # standard padding-mask form: exclude pad KEYS (B, 1, 1, S)
                 bias = (1.0 - m[:, None, None, :]) * -1e9
             bias = bias.to(x.dtype)
-        out = scaled_dot_product_attention(
-            self._heads(q, s), self._heads(k, s), self._heads(v, s),
-            bias=bias, causal=self.causal)
+        out = self._attend(self._heads(q, s), self._heads(k, s),
+                           self._heads(v, s), bias, training, rng)
         out = out.transpose(1, 2).reshape(b, s, h)
-        return out @ params["proj_kernel"] + params["proj_bias"]
+        return self._project(params, out, training, rng)
 
 
 class TransformerBlock(KerasLayer):
@@ -199,14 +216,14 @@ class TransformerBlock(KerasLayer):
         self.add_weight("ln2_gamma", (h,), "ones")
         self.add_weight("ln2_beta", (h,), "zeros")
 
-    def call(self, params, x, training=False, mask=None, **kw):
-        _inference_only(training)
-        a = self.attn.call(params, x, mask=mask)
+    def call(self, params, x, training=False, rng=None, mask=None, **kw):
+        a = self.attn.call(params, x, training=training, rng=rng, mask=mask)
         x = _layer_norm(x + a, params["ln1_gamma"], params["ln1_beta"],
                         self.eps)
         f = self.activation(x @ params["ffn_in_kernel"]
                             + params["ffn_in_bias"])
         f = f @ params["ffn_out_kernel"] + params["ffn_out_bias"]
+        f = _maybe_dropout(f, self.hidden_drop, training, rng)
         return _layer_norm(x + f, params["ln2_gamma"], params["ln2_beta"],
                            self.eps)
 
@@ -258,16 +275,17 @@ class TransformerLayer(KerasLayer):
                 else input_shape)
         return (base[0], base[1], self.hidden_size)
 
-    def call(self, params, x, training=False, **kw):
-        _inference_only(training)
+    def call(self, params, x, training=False, rng=None, **kw):
         if isinstance(x, (list, tuple)):
             ids, mask = x[0], x[1]
         else:
             ids, mask = x, None
         h = (_embed(params["word_embed"], ids)
              + params["pos_embed"][None, :ids.shape[1]])
+        h = _maybe_dropout(h, self.embedding_drop, training, rng)
         for blk in self.blocks:
-            h = blk.call(params[blk.name], h, mask=mask)
+            h = blk.call(params[blk.name], h, training=training, rng=rng,
+                         mask=mask)
         return h
 
 
@@ -319,16 +337,17 @@ class BERT(KerasLayer):
                 else input_shape)
         return (base[0], base[1], self.hidden_size)
 
-    def call(self, params, x, training=False, **kw):
-        _inference_only(training)
+    def call(self, params, x, training=False, rng=None, **kw):
         ids, type_ids, pos_ids, mask = x
         e = (_embed(params["word_embed"], ids)
              + _embed(params["type_embed"], type_ids)
              + _embed(params["pos_embed"], pos_ids))
         h = _layer_norm(e, params["embed_ln_gamma"], params["embed_ln_beta"],
                         1e-12)
+        h = _maybe_dropout(h, self.hidden_drop, training, rng)
         for blk in self.blocks:
-            h = blk.call(params[blk.name], h, mask=mask)
+            h = blk.call(params[blk.name], h, training=training, rng=rng,
+                         mask=mask)
         return h
 
     def pooled(self, params, seq_output):

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Tuple
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
-KERNELS = ("flash_attention_fwd",)
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -38,11 +38,13 @@ class BERTClassifierNet(KerasNet):
         return [self.bert, self.head]
 
     def apply(self, params, state, x, training=False, rng=None):
-        """x: [input_ids, token_type_ids, input_mask] (position ids auto)."""
+        """x: [input_ids, token_type_ids, input_mask] (position ids auto);
+        ``rng``: the ``torch.Generator`` of the training draws (dropout)."""
         ids, type_ids, mask = x
         pos = torch.arange(ids.shape[1], device=ids.device).expand(ids.shape)
         seq = self.bert.call(params[self.bert.name],
-                             [ids, type_ids, pos, mask], training=training)
+                             [ids, type_ids, pos, mask], training=training,
+                             rng=rng)
         pooled = self.bert.pooled(params[self.bert.name], seq)
         logits = self.head.call(params[self.head.name], pooled)
         return torch.softmax(logits.float(), dim=-1), {}

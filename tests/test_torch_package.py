@@ -45,6 +45,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import analytics_zoo_tpu_torch.inference\n"
             "import analytics_zoo_tpu_torch.interop\n"
             "import analytics_zoo_tpu_torch.tfpark.bert\n"
+            "import analytics_zoo_tpu_torch.engine.estimator\n"
+            "import analytics_zoo_tpu_torch.keras.engine.topology\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'analytics_zoo_tpu.'))]\n"
             "assert not bad and 'analytics_zoo_tpu' not in sys.modules, bad\n")
@@ -67,6 +69,14 @@ def test_init_nncontext_without_cuda_raises(monkeypatch):
         a = torch.rand(3, generator=ctx.generator)
         assert torch.equal(a, torch.rand(
             3, generator=torch.Generator().manual_seed(5)))
+        # the training draws: a device generator from the same seed, whose
+        # position saves and restores
+        gen = ctx.step_generator
+        assert gen.device == ctx.device and gen.initial_seed() == 5
+        state = gen.get_state()
+        first = torch.rand(4, generator=gen)
+        gen.set_state(state)
+        assert torch.equal(torch.rand(4, generator=gen), first)
     finally:
         port.stop_nncontext()
 
@@ -77,12 +87,20 @@ def test_cpu_tensors_never_touch_the_cuda_loader(monkeypatch):
 
     monkeypatch.setattr(_kernels, "load", boom)
     monkeypatch.setattr(_kernels, "build", boom)
-    before = tfa.launches.count
+    counters = (tfa.launches, tfa.launches_dq, tfa.launches_dkv)
+    before = [c.count for c in counters]
     rng = np.random.default_rng(0)
-    q = torch.tensor(rng.standard_normal((1, 2, 64, 64)), dtype=torch.float32)
+    q = torch.tensor(rng.standard_normal((1, 2, 64, 64)), dtype=torch.float32,
+                     requires_grad=True)
     out, lse = tfa.flash_attention_with_lse(q, q, q, causal=True)
     assert out.shape == (1, 2, 64, 64) and lse.shape == (1, 2, 64)
-    assert tfa.launches.count == before
-    # the CUDA wrapper itself refuses a CPU tensor before loading anything
+    (out.sum() + lse.sum()).backward()  # the backward's plain versions
+    assert q.grad.shape == q.shape
+    assert [c.count for c in counters] == before
+    # the CUDA wrappers themselves refuse a CPU tensor before loading
+    qd = q.detach()
     with pytest.raises(ValueError, match="CUDA device"):
-        tfa._flash_forward_cuda(q, q, q, None, 0.125, False)
+        tfa._flash_forward_cuda(qd, qd, qd, None, 0.125, False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa._flash_backward_cuda(qd, qd, qd, None, qd, lse.detach(), qd,
+                                 0.125, False)
