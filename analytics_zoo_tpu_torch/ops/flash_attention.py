@@ -34,9 +34,15 @@ import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.ops import _kernels
 
-BLOCK_Q = 64   # q rows per CTA of the kernel and per step of the plain loop
-BLOCK_K = 64   # keys per step of the plain loop
+BLOCK_Q = 64   # q rows per block of the kernels and per step of the loops
+BLOCK_K = 64   # keys per step of the backward kernels and loops
 HEAD_DIMS = (64, 128, 256)  # the kernels' head-dim cases
+# keys per step of the bf16 forward kernel, by its (padded) head dim, as the
+# kernel's library reports them (azoo_flash_attention_fwd_bf16_block_k;
+# chip_smoke.py holds the two equal). The plain forward walks the same key
+# tiles, since the running max decides where p rounds to bf16; in f32 it
+# steps BLOCK_K keys (the tile only orders the f32 sums there).
+FWD_BLOCK_K = {64: 128, 128: 128, 256: 64}
 _DTYPES = (torch.float32, torch.bfloat16)
 _NEG_INF = -1e30
 
@@ -67,18 +73,29 @@ def _validate(q, k, v, bias, scale):
     return scale
 
 
+def _fwd_block_k(dtype, d: int, dv: int) -> int:
+    """The forward kernel's key tile for these operands."""
+    if dtype != torch.bfloat16:
+        return BLOCK_K
+    return FWD_BLOCK_K[next((h for h in HEAD_DIMS if h >= max(d, dv)),
+                            HEAD_DIMS[-1])]
+
+
 def _flash_forward_plain(q, k, v, bias, scale: float, causal: bool):
     """The kernel's block loop in plain PyTorch. q/k/v ``(b, n, s, d)``,
     bias broadcastable to ``(b, n, 1, s_k)`` or None. Returns ``(out,
     lse)``: out ``(b, n, s_q, dv)`` in the input dtype, lse ``(b, n, s_q)``
-    f32.
+    f32. Each 64-row q block walks the kernel's key tiles
+    (:func:`_fwd_block_k`); a last tile past s_k is cut short, as the
+    kernel masks it.
 
     bf16 inputs: products of bf16 values are exact in f32, so f32 matmuls
     over the bf16 operands (and over p rounded to bf16) are what a bf16
     tensor-core product with f32 accumulation computes."""
-    b, n, s_q, _ = q.shape
+    b, n, s_q, d = q.shape
     s_k, dv = k.shape[2], v.shape[-1]
     bn, off, pdt = b * n, s_k - s_q, q.dtype
+    bk = _fwd_block_k(q.dtype, d, dv)
     qf, kf, vf = (t.reshape(bn, t.shape[2], t.shape[3]).float()
                   for t in (q, k, v))
     bias_f = None
@@ -86,35 +103,33 @@ def _flash_forward_plain(q, k, v, bias, scale: float, causal: bool):
         bias_f = bias.float().expand(b, n, 1, s_k).reshape(bn, 1, s_k)
     out = torch.empty((bn, s_q, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((bn, s_q), dtype=torch.float32, device=q.device)
-    n_kt = s_k // BLOCK_K
+    n_kt = -(-s_k // bk)
     for q0 in range(0, s_q, BLOCK_Q):
         m = torch.full((bn, BLOCK_Q, 1), _NEG_INF, device=q.device)
         l = torch.zeros((bn, BLOCK_Q, 1), device=q.device)
         acc = torch.zeros((bn, BLOCK_Q, dv), device=q.device)
         live = n_kt
-        if causal:  # key tiles past the tile's last query are dead
-            live = max(0, min(n_kt, (q0 + BLOCK_Q - 1 + off) // BLOCK_K + 1))
+        if causal:  # key tiles past the block's last query are dead
+            live = max(0, min(n_kt, (q0 + BLOCK_Q - 1 + off) // bk + 1))
         q_pos = torch.arange(q0, q0 + BLOCK_Q, device=q.device)[:, None] + off
-        for k0 in range(0, live * BLOCK_K, BLOCK_K):
-            s = qf[:, q0:q0 + BLOCK_Q] @ kf[:, k0:k0 + BLOCK_K].transpose(1, 2)
-            s = s * scale
+        for k0 in range(0, live * bk, bk):
+            ks = slice(k0, min(k0 + bk, s_k))
+            s = qf[:, q0:q0 + BLOCK_Q] @ kf[:, ks].transpose(1, 2) * scale
             if bias_f is not None:
-                s = s + bias_f[:, :, k0:k0 + BLOCK_K]
+                s = s + bias_f[:, :, ks]
             if causal:
-                k_pos = torch.arange(k0, k0 + BLOCK_K, device=q.device)
+                k_pos = torch.arange(ks.start, ks.stop, device=q.device)
                 s = s.masked_fill(q_pos < k_pos[None, :], _NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + p.to(pdt).float() @ vf[:, k0:k0 + BLOCK_K]
+            acc = acc * alpha + p.to(pdt).float() @ vf[:, ks]
             m = m_new
         l = torch.clamp_min(l, 1e-30)
         out[:, q0:q0 + BLOCK_Q] = (acc / l).to(q.dtype)
         lse[:, q0:q0 + BLOCK_Q] = (m + torch.log(l))[..., 0]
     return out.reshape(b, n, s_q, dv), lse.reshape(b, n, s_q)
-
-
 
 
 def _delta(out, g, g_lse):

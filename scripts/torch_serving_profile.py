@@ -40,7 +40,7 @@ from chip_smoke import (  # noqa: E402
 
 def kernel_class(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in low:
+    if "flash_fwd_wgmma" in low or "flash_fwd_f32" in low:
         return "flash_attention_fwd"
     if "flash_bwd_dq_kernel" in low:
         return "flash_attention_bwd_dq"

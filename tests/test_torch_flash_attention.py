@@ -8,9 +8,10 @@ the card by ``chip_smoke.py``.
 
 Tolerances: f32 1e-5 absolute (the same f32 arithmetic, other tile widths and
 summation orders). bf16 ``out`` 2e-2: both sides round p to bf16 before p.v,
-against a running max that depends on the tile width (64 in the port, 128 in
-the JAX kernel at these lengths), and round out to bf16 (ulp 2^-8 at 0.5-1),
-so single elements may differ by a couple of ulps. bf16 ``lse`` 1e-4: it is
+against a running max that depends on the key tile (128 keys in the port's
+bf16 forward at head dim 64; the JAX kernel's own at each length), and round
+out to bf16 (ulp 2^-8 at 0.5-1), so single elements may differ by a couple of
+ulps. bf16 ``lse`` 1e-4: it is
 f32 from the same bf16 operands (bf16 products are exact in f32), differing
 only in summation order.
 """
@@ -212,3 +213,58 @@ def test_dispatcher_routes_on_cpu(monkeypatch, caplog):
     np.testing.assert_array_equal(
         out.numpy(),
         tatt._reference_attention(q, k, v, full, False, D ** -0.5).numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bias,causal", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_plain_forward_at_kernel_tiling_ragged(dtype, bias, causal):
+    """The bf16 kernel's tiling (128-key tiles at head dim 64) on ragged
+    lengths: s_q 192 is an odd number of 64-row tiles, s_k 320 leaves a
+    last key tile of 64 keys, which the plain loop cuts short where the
+    kernel masks it. Held to the JAX reference attention (the Pallas kernel
+    needs multiples of 128) on the same inputs."""
+    q, k, v, b = _inputs(7, 192, 320, bias=bias)
+    tdt = getattr(torch, dtype)
+    assert tfa._fwd_block_k(torch.bfloat16, D, D) == 128
+    tq, tk, tv, tb = (_torch(a, tdt) for a in (q, k, v, b))
+    t_out, t_lse = tfa._flash_forward_plain(tq, tk, tv, tb, D ** -0.5,
+                                            causal)
+    # the reference on the same (rounded) operands, in f32
+    j = jax_reference(*(_jax(_np(a) if a is not None else None, jnp.float32)
+                        for a in (tq, tk, tv, tb)), causal, D ** -0.5)
+    assert t_out.dtype == tdt and t_out.shape == (B, N, 192, D)
+    np.testing.assert_allclose(_np(t_out), np.asarray(j), rtol=0,
+                               atol=TOL[dtype][0])
+    # lse: logsumexp of the same masked logits, in f32
+    s = (tq.float() @ tk.float().transpose(-1, -2)) * D ** -0.5
+    if tb is not None:
+        s = s + tb.float()
+    if causal:
+        keep = (torch.arange(192)[:, None] + 128) >= torch.arange(320)
+        s = s.masked_fill(~keep, -1e30)
+    np.testing.assert_allclose(t_lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_forward_long_keys_match_pallas_kernel(dtype):
+    """s_k 2048 with the padding bias, where the kernel's K/V rings wrap
+    many times: the plain version at the kernel's tiling against the JAX
+    Pallas forward in interpret mode."""
+    s_q, s_k = 128, 2048
+    q, k, v, b = _inputs(8, s_q, s_k, bias=True)
+    bn, scale = B * N, D ** -0.5
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    b_flat = np.repeat(b[:, :, 0, :], N, axis=1).reshape(bn, 1, s_k)
+    bq, bk = jfa._resolve_blocks(None, None, s_q, s_k)
+    j_out, j_lse = jfa._flash_forward(
+        *(_jax(a.reshape(bn, -1, D), jdt) for a in (q, k, v)),
+        _jax(b_flat, jdt), scale, False, bq, bk)
+    t_out, t_lse = tfa._flash_forward(
+        *(_torch(a, tdt) for a in (q, k, v)), _torch(b, tdt), scale, False)
+    out_tol, lse_tol = TOL[dtype]
+    np.testing.assert_allclose(_np(t_out).reshape(bn, s_q, D), _np(j_out),
+                               rtol=0, atol=out_tol)
+    np.testing.assert_allclose(_np(t_lse).reshape(bn, 1, s_q), _np(j_lse),
+                               rtol=0, atol=lse_tol)
