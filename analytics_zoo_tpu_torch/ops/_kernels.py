@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` beside the
-package (one shared library per source, named by a hash of the source and
-flags, so an edited source is rebuilt) and loaded with ``ctypes``. Nothing
+package (one shared library per source, named by a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
+is rebuilt) and loaded with ``ctypes``. Nothing
 here runs at import time: the CPU tests import every module, and a CPU
 tensor never reaches the loader.
 """
@@ -61,10 +62,15 @@ def _nvcc() -> str:
 
 
 def _paths(name: str) -> Tuple[Path, Path]:
+    """The source and its library, named by a hash of the source, every
+    shared header (``csrc/*.cuh``, which any source may include) and the
+    flags."""
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:

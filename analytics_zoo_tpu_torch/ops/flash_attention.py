@@ -6,13 +6,14 @@ padding mask) and a bottom-right causal mask, O(S) memory, differentiable
 in q, k, v, the bias and both outputs (``out`` and the per-row logsumexp).
 On a CUDA tensor the forward runs the hand-written kernel
 ``csrc/flash_attention_fwd.cu`` and the backward the two kernels of
-``csrc/flash_attention_bwd.cu`` (dq; dk, dv and the bias gradient); on a
-CPU tensor each runs its plain version (:func:`_flash_forward_plain`,
-:func:`_flash_backward_plain`), the same block loops in plain PyTorch, which
-the tests hold against the JAX package's Pallas kernels and
-``chip_smoke.py`` holds the CUDA kernels against on the card. A CUDA tensor
-never falls back to a plain version: the kernel launches or the call
-raises.
+``csrc/flash_attention_bwd.cu`` (dq, which on the bf16 route at head dims
+64 and 128 also forms delta = rowsum(dO * out) - g_lse; then dk, dv and the
+bias gradient); on a CPU tensor each runs its plain version
+(:func:`_flash_forward_plain`, :func:`_flash_backward_plain`), the same
+block loops in plain PyTorch, which the tests hold against the JAX
+package's Pallas kernels and ``chip_smoke.py`` holds the CUDA kernels
+against on the card. A CUDA tensor never falls back to a plain version:
+the kernel launches or the call raises.
 
 The support envelope is the port's own (:func:`_validate`): sequence lengths
 that are multiples of the 64-row tile, head dims up to 256 (the kernels have
@@ -35,7 +36,7 @@ import torch.nn.functional as F
 from analytics_zoo_tpu_torch.ops import _kernels
 
 BLOCK_Q = 64   # q rows per block of the kernels and per step of the loops
-BLOCK_K = 64   # keys per step of the backward kernels and loops
+BLOCK_K = 64   # keys per step of the plain f32 forward loop
 HEAD_DIMS = (64, 128, 256)  # the kernels' head-dim cases
 # keys per step of the bf16 forward kernel, by its (padded) head dim, as the
 # kernel's library reports them (azoo_flash_attention_fwd_bf16_block_k;
@@ -43,6 +44,24 @@ HEAD_DIMS = (64, 128, 256)  # the kernels' head-dim cases
 # tiles, since the running max decides where p rounds to bf16; in f32 it
 # steps BLOCK_K keys (the tile only orders the f32 sums there).
 FWD_BLOCK_K = {64: 128, 128: 128, 256: 64}
+# The backward kernels' tiles by route, (bf16?, padded head dim) -> ((q rows,
+# keys) of the pairs the dq kernel walks, (q rows, keys) of the dk/dv
+# kernel's), as the kernels' library reports them
+# (azoo_flash_attention_bwd_tiles; chip_smoke.py holds the two equal). The
+# plain loops walk the same pairs, skipping a causal pair with no live
+# (q, k) as the kernels do; in a live pair a fully masked row's p would be 1
+# on every key (with s_q - s_k a multiple of 64 no such row is in one).
+BWD_TILES = {
+    (True, 64): ((64, 64), (64, 64)),
+    (True, 128): ((64, 64), (64, 64)),
+    (True, 256): ((64, 32), (32, 32)),
+    (False, 64): ((64, 64), (64, 64)),
+    (False, 128): ((64, 32), (32, 64)),
+    (False, 256): ((32, 32), (32, 32)),
+}
+# the routes whose dq kernel forms delta itself (the wgmma kernels); on the
+# others the wrapper forms it (:func:`_delta`) before the launches
+BWD_DELTA_IN_DQ = frozenset({(True, 64), (True, 128)})
 _DTYPES = (torch.float32, torch.bfloat16)
 _NEG_INF = -1e30
 
@@ -73,12 +92,23 @@ def _validate(q, k, v, bias, scale):
     return scale
 
 
+def _head_dim_case(d: int, dv: int):
+    """The kernels' head-dim case (64/128/256) that d and dv pad up to, or
+    None past the largest."""
+    return next((h for h in HEAD_DIMS if h >= max(d, dv)), None)
+
+
 def _fwd_block_k(dtype, d: int, dv: int) -> int:
     """The forward kernel's key tile for these operands."""
     if dtype != torch.bfloat16:
         return BLOCK_K
-    return FWD_BLOCK_K[next((h for h in HEAD_DIMS if h >= max(d, dv)),
-                            HEAD_DIMS[-1])]
+    return FWD_BLOCK_K[_head_dim_case(d, dv)]
+
+
+def _bwd_route(dtype, d: int, dv: int):
+    """The backward kernels' route for these operands: (bf16?, padded head
+    dim), the key of :data:`BWD_TILES`."""
+    return dtype == torch.bfloat16, _head_dim_case(d, dv)
 
 
 def _flash_forward_plain(q, k, v, bias, scale: float, causal: bool):
@@ -143,14 +173,16 @@ def _delta(out, g, g_lse):
 
 class _PlainBackward:
     """The operands both plain backward loops share, flattened to (bn, s,
-    d) f32 views, and p/ds of one (q tile, key tile) as the kernels form
-    them."""
+    d) f32 views, the kernels' tiles (:data:`BWD_TILES`), and p/ds of one
+    (q tile, key tile) as the kernels form them."""
 
     def __init__(self, q, k, v, bias, out, lse, g, scale, causal, g_lse):
         b, n, s_q, _ = q.shape
         s_k = k.shape[2]
         self.shape, self.dtype, self.dev = (b, n, s_q, s_k), q.dtype, q.device
         self.scale, self.causal, self.off = scale, causal, s_k - s_q
+        self.tiles = BWD_TILES[_bwd_route(q.dtype, q.shape[-1],
+                                          v.shape[-1])]
         self.qf, self.kf, self.vf, self.gf = (
             t.reshape(b * n, t.shape[2], t.shape[3]).float()
             for t in (q, k, v, g))
@@ -161,18 +193,18 @@ class _PlainBackward:
             self.bias = bias.float().expand(b, n, 1, s_k).reshape(b * n, 1,
                                                                   s_k)
 
-    def live(self, q0, k0):  # _causal_block_live
-        return not self.causal or q0 + BLOCK_Q - 1 + self.off >= k0
+    def live(self, q0, k0, tq):  # _causal_block_live
+        return not self.causal or q0 + tq - 1 + self.off >= k0
 
-    def tile(self, q0, k0):
-        qs, ks = slice(q0, q0 + BLOCK_Q), slice(k0, k0 + BLOCK_K)
+    def tile(self, q0, k0, tq, tk):
+        qs, ks = slice(q0, q0 + tq), slice(k0, k0 + tk)
         s = self.qf[:, qs] @ self.kf[:, ks].transpose(1, 2) * self.scale
         if self.bias is not None:
             s = s + self.bias[:, :, ks]
         if self.causal:
-            q_pos = torch.arange(q0, q0 + BLOCK_Q,
+            q_pos = torch.arange(q0, q0 + tq,
                                  device=self.dev)[:, None] + self.off
-            k_pos = torch.arange(k0, k0 + BLOCK_K, device=self.dev)
+            k_pos = torch.arange(k0, k0 + tk, device=self.dev)
             s = s.masked_fill(q_pos < k_pos[None, :], _NEG_INF)
         p = torch.exp(s - self.lse[:, qs])
         dp = self.gf[:, qs] @ self.vf[:, ks].transpose(1, 2)
@@ -184,43 +216,46 @@ class _PlainBackward:
 
 
 def _dq_plain(pb: _PlainBackward):
-    """The dq kernel's loop: one q tile walks the key tiles."""
+    """The dq kernel's loop: each block of q rows walks the key tiles."""
     b, n, s_q, s_k = pb.shape
     d = pb.qf.shape[-1]
+    tq, tk = pb.tiles[0]
     dq = torch.empty((b * n, s_q, d), dtype=pb.dtype, device=pb.dev)
-    for q0 in range(0, s_q, BLOCK_Q):
-        acc = torch.zeros((b * n, BLOCK_Q, d), device=pb.dev)
-        for k0 in range(0, s_k, BLOCK_K):
-            if pb.live(q0, k0):
-                _, ds = pb.tile(q0, k0)
-                acc = acc + pb.rounded(ds) @ pb.kf[:, k0:k0 + BLOCK_K]
-        dq[:, q0:q0 + BLOCK_Q] = (acc * pb.scale).to(pb.dtype)
+    for q0 in range(0, s_q, tq):
+        acc = torch.zeros((b * n, tq, d), device=pb.dev)
+        for k0 in range(0, s_k, tk):
+            if pb.live(q0, k0, tq):
+                _, ds = pb.tile(q0, k0, tq, tk)
+                acc = acc + pb.rounded(ds) @ pb.kf[:, k0:k0 + tk]
+        dq[:, q0:q0 + tq] = (acc * pb.scale).to(pb.dtype)
     return dq.reshape(b, n, s_q, d)
 
 
 def _dkv_plain(pb: _PlainBackward, need_dbias: bool):
-    """The dk/dv/dbias kernel's loop: one key tile walks the q tiles."""
+    """The dk/dv/dbias kernel's loop: each block of keys walks the q
+    tiles."""
     b, n, s_q, s_k = pb.shape
     d, dv = pb.qf.shape[-1], pb.vf.shape[-1]
+    tq, tk = pb.tiles[1]
     dk = torch.empty((b * n, s_k, d), dtype=pb.dtype, device=pb.dev)
     dvv = torch.empty((b * n, s_k, dv), dtype=pb.dtype, device=pb.dev)
     dbias = (torch.empty((b * n, s_k), device=pb.dev)
              if need_dbias and pb.bias is not None else None)
-    for k0 in range(0, s_k, BLOCK_K):
-        dk_acc = torch.zeros((b * n, BLOCK_K, d), device=pb.dev)
-        dv_acc = torch.zeros((b * n, BLOCK_K, dv), device=pb.dev)
-        db = torch.zeros((b * n, BLOCK_K), device=pb.dev)
-        for q0 in range(0, s_q, BLOCK_Q):
-            if pb.live(q0, k0):
-                p, ds = pb.tile(q0, k0)
-                qs = slice(q0, q0 + BLOCK_Q)
+    for k0 in range(0, s_k, tk):
+        dk_acc = torch.zeros((b * n, tk, d), device=pb.dev)
+        dv_acc = torch.zeros((b * n, tk, dv), device=pb.dev)
+        db = torch.zeros((b * n, tk), device=pb.dev)
+        for q0 in range(0, s_q, tq):
+            if pb.live(q0, k0, tq):
+                p, ds = pb.tile(q0, k0, tq, tk)
+                qs = slice(q0, q0 + tq)
                 dv_acc = dv_acc + pb.rounded(p).transpose(1, 2) @ pb.gf[:, qs]
                 dk_acc = dk_acc + pb.rounded(ds).transpose(1, 2) @ pb.qf[:, qs]
                 db = db + ds.sum(dim=1)
-        dk[:, k0:k0 + BLOCK_K] = (dk_acc * pb.scale).to(pb.dtype)
-        dvv[:, k0:k0 + BLOCK_K] = dv_acc.to(pb.dtype)
+        dk[:, k0:k0 + tk] = (dk_acc * pb.scale).to(pb.dtype)
+        dvv[:, k0:k0 + tk] = dv_acc.to(pb.dtype)
         if dbias is not None:
-            dbias[:, k0:k0 + BLOCK_K] = db
+            dbias[:, k0:k0 + tk] = db
     return (dk.reshape(b, n, s_k, d), dvv.reshape(b, n, s_k, dv),
             None if dbias is None else dbias.reshape(b, n, s_k))
 
@@ -238,6 +273,54 @@ def _flash_backward_plain(q, k, v, bias, out, lse, g, scale: float,
     ds^T q, as the kernels' bf16 products take them."""
     pb = _PlainBackward(q, k, v, bias, out, lse, g, scale, causal, g_lse)
     return (_dq_plain(pb), *_dkv_plain(pb, need_dbias))
+
+
+def _flash_backward_dense(q, k, v, bias, out, lse, g, scale: float,
+                          causal: bool, g_lse=None, need_dbias=False):
+    """The backward's formulas evaluated densely in f64, from the same
+    operands (the forward's out and lse included): the yardstick that
+    ``chip_smoke.py`` and the tests hold the kernels and the plain loops
+    against. Nothing is rounded to bf16 on the way. Causal pairs are live
+    or skipped on the kernels' tiles (:data:`BWD_TILES`), dq's by the dq
+    kernel's and dk/dv/dbias's by the dk/dv kernel's, so that a fully
+    masked row's p (1 on the keys of a live pair, 0 elsewhere) is the
+    kernels'. Returns ``(dq, dk, dv, dbias)`` in f64, dbias ``(b, n, s_k)``
+    or None."""
+    b, n, s_q, _ = q.shape
+    s_k = k.shape[2]
+    off, dev = s_k - s_q, q.device
+    qd, kd, vd, gd, od = (t.double() for t in (q, k, v, g, out))
+    s = qd @ kd.transpose(-1, -2) * scale
+    if bias is not None:
+        s = s + bias.double()
+    lse_d = lse.double()[..., None]
+    delta = (gd * od).sum(-1, keepdim=True)
+    if g_lse is not None:
+        delta = delta - g_lse.double()[..., None]
+    dp = gd @ vd.transpose(-1, -2)
+    q_pos = torch.arange(s_q, device=dev)[:, None]
+    k_pos = torch.arange(s_k, device=dev)[None, :]
+    masked = q_pos + off < k_pos
+    # the mask value as the forward's f32 lse holds it
+    neg = torch.tensor(_NEG_INF, dtype=torch.float32).double()
+
+    def ds_of(tq, tk):
+        p = torch.exp(s - lse_d)
+        if causal:
+            live = (q_pos // tq * tq + tq - 1 + off) >= (k_pos // tk * tk)
+            p = torch.where(masked, torch.where(live, torch.exp(neg - lse_d),
+                                                torch.zeros_like(p)), p)
+        return p, p * (dp - delta)
+
+    dq_tiles, dkv_tiles = BWD_TILES[_bwd_route(q.dtype, q.shape[-1],
+                                               v.shape[-1])]
+    _, ds = ds_of(*dq_tiles)
+    dq = ds @ kd * scale
+    p, ds = ds_of(*dkv_tiles)
+    dk = ds.transpose(-1, -2) @ qd * scale
+    dv = p.transpose(-1, -2) @ gd
+    dbias = ds.sum(-2) if need_dbias and bias is not None else None
+    return dq, dk, dv, dbias
 
 
 # -- the CUDA kernels --------------------------------------------------------
@@ -276,7 +359,7 @@ def _check_cuda(q, k, v) -> int:
                          f"v {tuple(v.shape)} do not match")
     if s_q % BLOCK_Q or s_k % BLOCK_Q:
         raise ValueError(f"seq lens must be multiples of {BLOCK_Q}")
-    dp = next((h for h in HEAD_DIMS if h >= max(d, dv)), None)
+    dp = _head_dim_case(d, dv)
     if dp is None:
         raise ValueError(f"head dims ({d}, {dv}) exceed {HEAD_DIMS[-1]}")
     return dp
@@ -338,9 +421,16 @@ def _flash_forward_cuda(q, k, v, bias, scale: float, causal: bool):
     return (out if dv == dp else out[..., :dv]), lse
 
 
+def _ptrs(*ts):
+    return tuple(None if t is None else t.data_ptr() for t in ts)
+
+
 class _BackwardOperands:
     """What both backward kernels read and write, padded to the kernels'
-    head dim: built once per backward by :func:`_flash_backward_cuda`."""
+    head dim: built once per backward by :func:`_flash_backward_cuda`. On
+    the routes of :data:`BWD_DELTA_IN_DQ` the dq kernel forms delta from out
+    and g_lse into ``self.delta``, which the dk/dv kernel then reads;
+    elsewhere :func:`_delta` forms it here."""
 
     def __init__(self, q, k, v, bias, out, lse, g, scale, causal, g_lse,
                  need_dbias):
@@ -351,48 +441,65 @@ class _BackwardOperands:
             raise ValueError(f"out {tuple(out.shape)} and its gradient "
                              f"{tuple(g.shape)} must be ({b}, {n}, {s_q}, "
                              f"{self.dv})")
-        if lse.shape != (b, n, s_q) or lse.device != q.device:
-            raise ValueError(f"lse must be ({b}, {n}, {s_q}) on {q.device}")
+        for name, t in (("lse", lse), ("g_lse", g_lse)):
+            if t is not None and (t.shape != (b, n, s_q)
+                                  or t.device != q.device):
+                raise ValueError(f"{name} must be ({b}, {n}, {s_q}) on "
+                                 f"{q.device}")
+        if out.device != q.device or g.device != q.device:
+            raise ValueError(f"out and its gradient must be on {q.device}")
         if need_dbias and bias is None:
             raise ValueError("dbias asked for without a bias")
         self.bias_ptr, bias_f32, strides = _bias_args(bias, q, s_k)
-        self.delta = _delta(out, g, g_lse).contiguous()
+        dev, dt = q.device, q.dtype
+        self.in_kernel = _bwd_route(dt, self.d, self.dv) in BWD_DELTA_IN_DQ
+        if self.in_kernel:
+            self.delta = torch.empty((b, n, s_q), device=dev)
+            self.out = _pad(out.to(dt).contiguous(), dp)
+            self.g_lse = (None if g_lse is None
+                          else g_lse.float().contiguous())
+        else:
+            self.delta = _delta(out, g, g_lse).contiguous()
+            self.out = self.g_lse = None
         self.lse = lse.float().contiguous()
         self.q, self.k, self.v = _pad(q, dp), _pad(k, dp), _pad(v, dp)
-        self.g = _pad(g.to(q.dtype).contiguous(), dp)
-        dev, dt = q.device, q.dtype
+        self.g = _pad(g.to(dt).contiguous(), dp)
         self.dq = torch.empty((b, n, s_q, dp), dtype=dt, device=dev)
         self.dk = torch.empty((b, n, s_k, dp), dtype=dt, device=dev)
         self.dvv = torch.empty((b, n, s_k, dp), dtype=dt, device=dev)
         self.dbias = (torch.empty((b, n, s_k), device=dev) if need_dbias
                       else None)
-        _check_aligned(self.q, self.k, self.v, self.g, self.dq, self.dk,
-                       self.dvv)
+        _check_aligned(*(t for t in (self.q, self.k, self.v, self.g, self.out,
+                                     self.dq, self.dk, self.dvv)
+                         if t is not None))
         self.dims = (b * n, s_q, s_k, dp, int(dt == torch.bfloat16),
                      float(scale), int(causal), n, bias_f32, *strides)
 
-    def _launch(self, name, outputs, counter):
+    def _launch(self, name, ptrs, counter):
         dev = self.q.device
-        inputs = (self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
-                  self.g.data_ptr(), self.lse.data_ptr(),
-                  self.delta.data_ptr(), self.bias_ptr)
         with torch.cuda.device(dev):
-            err = _c_fn("flash_attention_bwd", name,
-                        len(inputs) + len(outputs))(
-                *inputs, *outputs, *self.dims,
-                torch.cuda.current_stream(dev).cuda_stream)
+            err = _c_fn("flash_attention_bwd", name, len(ptrs))(
+                *ptrs, *self.dims, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         counter.add()
 
+    def _inputs(self):
+        return (*_ptrs(self.q, self.k, self.v, self.g, self.lse, self.delta),
+                self.bias_ptr)
+
     def launch_dq(self):
-        self._launch("azoo_flash_attention_bwd_dq", (self.dq.data_ptr(),),
+        """dq, and on the routes of :data:`BWD_DELTA_IN_DQ` delta."""
+        self._launch("azoo_flash_attention_bwd_dq",
+                     (*self._inputs(), *_ptrs(self.out, self.g_lse, self.dq)),
                      launches_dq)
 
     def launch_dkv(self):
+        """dk, dv and dbias; reads delta, so on the routes of
+        :data:`BWD_DELTA_IN_DQ` it follows :meth:`launch_dq`."""
         self._launch("azoo_flash_attention_bwd_dkv",
-                     (self.dk.data_ptr(), self.dvv.data_ptr(),
-                      None if self.dbias is None else self.dbias.data_ptr()),
+                     (*self._inputs(),
+                      *_ptrs(self.dk, self.dvv, self.dbias)),
                      launches_dkv)
 
     def results(self):
@@ -403,8 +510,9 @@ class _BackwardOperands:
 
 def _flash_backward_cuda(q, k, v, bias, out, lse, g, scale: float,
                          causal: bool, g_lse=None, need_dbias=False):
-    """Launch the dq and the dk/dv/dbias kernels; same contract as the
-    plain version. Raises on anything the kernels do not take."""
+    """Launch the dq and then the dk/dv/dbias kernel on the current stream;
+    same contract as the plain version. Raises on anything the kernels do
+    not take."""
     ops = _BackwardOperands(q, k, v, bias, out, lse, g, scale, causal, g_lse,
                             need_dbias)
     ops.launch_dq()

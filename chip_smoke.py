@@ -19,11 +19,18 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    bias layout), printing the max abs error of ``out`` and ``lse`` against
    the stated bounds; each bf16 case runs twice and must repeat bitwise
    (the kernel has no atomics); the plain version must walk the key tiles
-   that the kernel's library reports; 2b. the same for the two backward
-   kernels (dq; dk, dv and dbias) against the plain backward, at the
-   BERT-base training shape, head dims 32 (zero-padded) to 256, causal with
-   s_q < s_k, a per-head f32 bias with its gradient and a nonzero lse
-   cotangent;
+   that the kernel's library reports; 2b. the two backward kernels (dq,
+   which on the bf16 route at head dims 64 and 128 also forms delta; dk, dv
+   and dbias): the plain loops must walk the tiles the kernels' library
+   reports; each case is held against the plain backward and against the
+   same formulas evaluated in f64 (bf16: the kernel's error against the f64
+   values within a factor of the plain version's; f32 and dbias: element
+   by element against the plain version), each bf16 case twice and
+   bitwise equal; at the BERT-base training shape, head dims 32
+   (zero-padded) to 256, causal with s_q < s_k and with s_q > s_k (fully
+   masked rows), odd tile counts, work-item counts that are not multiples
+   of the card's SMs, a per-head f32 bias with its gradient and a nonzero
+   lse cotangent;
 3. serving: serves BERT-base (12 x 768, 12 heads, vocab 30522, seq up to
    512, bf16 compute, random weights from ``--seed``) through
    ``InferenceModel``: warms buckets (8, 128) and (32, 512), answers
@@ -48,16 +55,22 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    (64, 128) training, and the plain version at (32, 512); the dq and dk/dv
    kernels (device time, cross-checked by events) on the operands the main
    path's backward builds at the training shape (64, 12, 128, 64), the
-   whole backward wrapper, the plain backward, the autograd backward of
-   ``F.scaled_dot_product_attention`` (one call for both kernels, bound by
-   the host: its device time, the kernels it dispatches, five timings of
-   it, and of each masked backend forced) and their bounds; the per-bucket
+   whole backward (``_flash_backward``: delta, padding and both kernels;
+   its device time is the pair's yardstick), the plain backward, the
+   autograd backward of ``F.scaled_dot_product_attention`` (one call for
+   dq, dk and dv with its delta, bound by the host: its device time, the
+   kernels it dispatches, five timings of it, and of each masked backend
+   forced) and their bounds; the per-bucket
    ``do_predict`` latency over fresh requests; the train step's p50/p90,
    tokens/s and MFU.
 
-The last lines are the kernels line (for each kernel, ``ms`` is its device
-time under torch.profiler and ``event_ms`` CUDA-event time over
-back-to-back calls; ``plain_ms`` is event time), the nvidia-smi line and
+The build phase prints each kernel's ptxas registers and spills and, for
+the wgmma kernels, the SASS's top register and local-memory instructions
+(``cuobjdump``). The last lines are the kernels line (for each kernel,
+``ms`` is its device time under torch.profiler and ``event_ms`` CUDA-event
+time over back-to-back calls; ``plain_ms`` is event time; the backward
+rows add the whole backward's times and bound and each bf16 route's tiles
+and build lines), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 those lines are printed. Without a CUDA card it exits 2 and prints nothing
 of the sort.
@@ -67,10 +80,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -90,23 +105,34 @@ PEAK_BYTES = 3.35e12
 # - bf16 lse 1e-3: lse stays f32 from the same bf16 operands; the margin
 #   covers the summation order at |s| of a few units with room to spare.
 BOUNDS = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-5, 1e-5)}
-# Backward kernels vs the plain backward, element by element and per
-# gradient: |kernel - plain| <= c * (|plain| + rms(plain)), with c by the
-# dtype the gradient is formed in:
-# - bf16 dq, dk, dv, c = 2^-6: each side is rounded to bf16 once, at the
-#   flush; bf16 neighbours are at most 2^-7 |x| apart, so two f32 sums that
-#   straddle a rounding boundary come out one ulp apart, and c allows two.
-#   Before that rounding the sums differ where a bf16 rounding of p or ds
-#   flips (s and dp come from tensor-core sums in another order than the
-#   plain f32 matmuls), which moves one term by 2^-8 of itself: an absolute
-#   shift, not one relative to the element, so the rms term (the bulk of
-#   the gradient, not its peak) covers the elements near zero. At the
-#   training shape |dq|, |dk| and |dv| peak at 2.5-3.4 with an rms of
-#   0.18-0.19, so the bound is 2.8e-3 near zero and 1.6e-2 at |x| = 1.
+# Backward kernels: each gradient is held against "exact", the backward's
+# formulas evaluated densely in f64 on the card from the same inputs and the
+# kernel forward's out and lse (flash_attention._flash_backward_dense, with
+# the kernels' causal tiles), beside the plain backward's error against the
+# same exact values.
+# - bf16 dq, dk, dv: the kernel's error may be at most BWD_FACTORS times the
+#   plain version's, in rms and in max over the tensor. Both round p and ds
+#   to bf16 before their products and the gradient to bf16 at the flush, so
+#   both sit about half a bf16 ulp of each element from exact; they differ
+#   only where a rounding of p or ds (or of the result) flips because the
+#   f32 sums before it ran in another order, with ex2.approx in place of
+#   exp. Such a flip moves one element by up to one ulp of its largest
+#   term, to either side of exact, so it cannot make the kernel worse over
+#   a tensor by more than a few percent in rms, but it can at one element:
+#   rms factor 1.25, max factor 2. Measured on an NVIDIA H100 over this
+#   script's bf16 cases: the kernel's rms and max within 1% of the plain
+#   version's (PERF.md). The element-wise bound used before,
+#   |kernel - plain| <= 2^-6 (|plain| + rms(plain)), failed on draws
+#   where kernel and plain round one dominant ds q term to the two
+#   neighbouring bf16 values, each as close to exact as the other; its
+#   largest share is still printed for comparison.
 # - f32 dq, dk, dv, and dbias in either dtype (an f32 column sum of the
-#   unrounded ds, formed from the same exact products), c = 2^-14: the same
-#   f32 arithmetic summed in another order over up to 384 keys or queries
-#   (384 * 2^-24 ~ 2^-15.4), with a factor 2.7 for cancellation.
+#   unrounded ds, formed from the same exact products), element by element
+#   against the plain version, |kernel - plain| <= 2^-14 (|plain| +
+#   rms(plain)): the same f32 arithmetic summed in another order over up to
+#   448 keys or queries (448 * 2^-24 ~ 2^-15.2), with a factor 2.3 for
+#   cancellation.
+BWD_FACTORS = {"rms": 1.25, "max": 2.0}
 BWD_BOUNDS = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -14}
 # Class probabilities of the kernel route vs the plain route through 12
 # bf16 layers: each attention output can differ by about one bf16 ulp, which
@@ -143,6 +169,72 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
         f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def kernel_key(mangled: str) -> str:
+    """``flash_bwd_dq_wgmma<64>``, ``flash_bwd_dq_kernel<bf16,256>`` ...
+    from a mangled kernel name."""
+    m = re.search(r"(flash_(?:fwd|bwd)_[a-z0-9_]+?)I(13__nv_bfloat16|f)?"
+                  r"Li(\d+)E", mangled)
+    if m is None:
+        return mangled
+    dt = {"13__nv_bfloat16": "bf16,", "f": "f32,", None: ""}[m.group(2)]
+    return f"{m.group(1)}<{dt}{m.group(3)}>"
+
+
+def ptxas_info(log: str) -> dict:
+    """Registers and spill bytes of each kernel, from ``nvcc -Xptxas -v``."""
+    info, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(_Z\w+)", line)
+        if m:
+            fn = kernel_key(m.group(1))
+            info.setdefault(fn, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            info[fn].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            info[fn]["registers"] = int(m.group(1))
+    return info
+
+
+def sass_info(lib: str) -> dict:
+    """For each wgmma kernel in a built library (``cuobjdump -sass``): the
+    highest register the SASS names, and its local-memory (spill)
+    instructions, all and those between its first and last wgmma (HGMMA),
+    the product loops; {} where cuobjdump is missing."""
+    from analytics_zoo_tpu_torch.ops import _kernels
+
+    tool = str(Path(_kernels._nvcc()).with_name("cuobjdump"))
+    try:
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, timeout=300).stdout
+    except OSError:
+        return {}
+    funcs, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_key(m.group(1)) if "wgmma" in m.group(1) else None
+            if fn:
+                funcs[fn] = []
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            funcs[fn].append(line)
+    out = {}
+    for fn, lines in funcs.items():
+        regs = [int(x) for ln in lines for x in re.findall(r"\bR(\d+)\b", ln)]
+        mma = [i for i, ln in enumerate(lines) if "HGMMA" in ln]
+        local = [i for i, ln in enumerate(lines)
+                 if re.search(r"\b(STL|LDL)\b", ln)]
+        inner = [i for i in local if mma and mma[0] < i < mma[-1]]
+        out[fn] = {"top_register": max(regs, default=-1) + 1,
+                   "local_ops": len(local),
+                   "local_ops_in_products": len(inner)}
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -213,11 +305,7 @@ FWD_CASES = [
     ("bf16-key1-bias", torch.bfloat16, 2, 12, 128, 192, 64, "key1",
      False),
 ]
-# Forward cases checked after phase 2b, so that they leave the inputs that
-# 2b draws as they are: on other draws 2b's bf16 causal head-bias case can
-# exceed its bound where kernel and plain round one dominant ds term to
-# neighbouring bf16 values, each as close to the exact gradient as the
-# other (PERF.md, open questions)
+# Forward cases checked after phase 2b: their inputs are drawn after 2b's
 FWD_CASES_AFTER_BWD = [
     ("train-128", torch.bfloat16, 64, 12, 128, 128, 64, "pad", False),
     # fully masked rows: the first s_q - s_k queries see no key
@@ -294,39 +382,91 @@ def check_forward_case(fa, device, gen, case):
     return ok, err
 
 
+def check_bwd_tiles(fa) -> None:
+    """The plain backward loops walk the pairs that the kernels' library
+    reports for each route, and the wrapper forms delta where the library's
+    dq kernel does not."""
+    from analytics_zoo_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("flash_attention_bwd")
+    for bf16 in (True, False):
+        for d in fa.HEAD_DIMS:
+            got = [lib.azoo_flash_attention_bwd_tiles(int(bf16), d, w)
+                   for w in range(5)]
+            kernel = ((got[0], got[1]), (got[2], got[3]))
+            plain = fa.BWD_TILES[(bf16, d)]
+            in_dq = (bf16, d) in fa.BWD_DELTA_IN_DQ
+            print(f"kernel-bwd tiles {'bf16' if bf16 else 'f32'} d {d}: dq "
+                  f"(q rows, keys) {kernel[0]}, dk/dv {kernel[1]}, delta in "
+                  f"the dq kernel {bool(got[4])} (plain {plain}, {in_dq})",
+                  flush=True)
+            if kernel != plain or bool(got[4]) != in_dq:
+                fail(f"{'bf16' if bf16 else 'f32'} d {d}: the backward "
+                     f"kernels' tiles {kernel} / delta {got[4]} differ from "
+                     f"the plain version's {plain} / {in_dq}")
+
+
+# Phase 2b's backward cases: (name, dtype, b, n, s_q, s_k, d, bias, causal,
+# lse cotangent)
+BWD_CASES = [
+    ("train-128", torch.bfloat16, 64, 12, 128, 128, 64, "pad", False,
+     False),
+    ("bf16-d128", torch.bfloat16, 2, 12, 256, 256, 128, "pad", False,
+     False),
+    ("bf16-d256", torch.bfloat16, 2, 12, 256, 256, 256, None, False,
+     False),
+    ("f32-d64", torch.float32, 2, 12, 256, 256, 64, "pad-f32", False,
+     False),
+    ("f32-d256", torch.float32, 2, 12, 256, 256, 256, None, False,
+     False),
+    ("f32-d32-padded", torch.float32, 2, 12, 128, 128, 32, "pad", False,
+     False),
+    ("bf16-causal", torch.bfloat16, 2, 12, 128, 384, 64, None, True,
+     False),
+    ("f32-causal", torch.float32, 2, 12, 128, 384, 64, "pad", True,
+     False),
+    ("f32-head-dbias", torch.float32, 2, 12, 256, 256, 64, "head", False,
+     False),
+    ("bf16-head-dbias", torch.bfloat16, 2, 12, 256, 256, 128, "head",
+     True, False),
+    ("bf16-lse-grad", torch.bfloat16, 2, 12, 256, 256, 64, None, True,
+     True),
+    ("f32-lse-grad", torch.float32, 2, 12, 128, 256, 64, None, True,
+     True),
+    # fully masked rows: the first s_q - s_k queries see no key, and their
+    # gradients follow the kernels' tiles
+    ("bf16-causal-sq-gt-sk", torch.bfloat16, 2, 12, 384, 192, 64, "pad",
+     True, False),
+    ("bf16-d128-causal-sq-gt-sk", torch.bfloat16, 2, 12, 320, 192, 128,
+     "head", True, False),
+    ("f32-d128-causal-sq-gt-sk", torch.float32, 2, 12, 256, 128, 128,
+     "head", True, False),
+    # odd numbers of 64-row q and key tiles (a work item's second
+    # warpgroup has no rows) on the d 128 route
+    ("bf16-d128-ragged", torch.bfloat16, 2, 12, 192, 320, 128, "pad", False,
+     False),
+    # 273 dq and 364 dk/dv work items: not multiples of the 132 CTAs, and
+    # the persistent CTAs wrap their rings and buffers several times
+    ("bf16-items", torch.bfloat16, 7, 13, 320, 448, 64, "pad", False,
+     False),
+    # delta formed in the dq kernel with the lse cotangent, s_q < s_k
+    ("bf16-lse-grad-cross", torch.bfloat16, 2, 12, 128, 256, 64, None,
+     False, True),
+    # out zero-padded from head dim 32 before the dq kernel reads it
+    ("bf16-d32-padded", torch.bfloat16, 2, 12, 128, 192, 32, "pad", False,
+     False),
+]
+
+
 def check_backward_kernels(fa, device, gen):
-    """Phase 2b: the dq and dk/dv/dbias kernels vs the plain backward, on
-    the same forward outputs and the same output gradients. Returns
-    ``(dq error, dk/dv error)`` at the BERT-base training shape."""
-    cases = [  # (name, dtype, b, n, s_q, s_k, d, bias, causal, lse grad)
-        ("train-128", torch.bfloat16, 64, 12, 128, 128, 64, "pad", False,
-         False),
-        ("bf16-d128", torch.bfloat16, 2, 12, 256, 256, 128, "pad", False,
-         False),
-        ("bf16-d256", torch.bfloat16, 2, 12, 256, 256, 256, None, False,
-         False),
-        ("f32-d64", torch.float32, 2, 12, 256, 256, 64, "pad-f32", False,
-         False),
-        ("f32-d256", torch.float32, 2, 12, 256, 256, 256, None, False,
-         False),
-        ("f32-d32-padded", torch.float32, 2, 12, 128, 128, 32, "pad", False,
-         False),
-        ("bf16-causal", torch.bfloat16, 2, 12, 128, 384, 64, None, True,
-         False),
-        ("f32-causal", torch.float32, 2, 12, 128, 384, 64, "pad", True,
-         False),
-        ("f32-head-dbias", torch.float32, 2, 12, 256, 256, 64, "head", False,
-         False),
-        ("bf16-head-dbias", torch.bfloat16, 2, 12, 256, 256, 128, "head",
-         True, False),
-        ("bf16-lse-grad", torch.bfloat16, 2, 12, 256, 256, 64, None, True,
-         True),
-        ("f32-lse-grad", torch.float32, 2, 12, 128, 256, 64, None, True,
-         True),
-    ]
+    """Phase 2b: the dq and dk/dv/dbias kernels vs the plain backward and
+    the f64 evaluation of the same formulas, on the same forward outputs
+    and the same output gradients; each bf16 case twice, bitwise equal.
+    Returns ``(dq error, dk/dv error)`` against the plain version at the
+    BERT-base training shape."""
     train_err = None
     for (name, dtype, b, n, s_q, s_k, d, bias_kind, causal,
-         lse_grad) in cases:
+         lse_grad) in BWD_CASES:
         q, k, v, bias = attn_inputs(gen, device, dtype, b, n, s_q, s_k, d,
                                     bias=bias_kind)
         scale = d ** -0.5
@@ -337,32 +477,61 @@ def check_backward_kernels(fa, device, gen):
         need_dbias = bias_kind == "head"
         args = (q, k, v, bias, out, lse, g, scale, causal, g_lse, need_dbias)
         got = fa._flash_backward(*args)
+        # the kernels have no atomics: a second call that differs is a race
+        again = (fa._flash_backward(*args) if dtype == torch.bfloat16
+                 else got)
         ref = fa._flash_backward_plain(*args)
+        exact = fa._flash_backward_dense(*args)
         torch.cuda.synchronize()
         errs, ok = {}, True
-        for gname, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        same = all(a is None or torch.equal(a, a2)
+                   for a, a2 in zip(got, again))
+        for gname, a, r, x in zip(("dq", "dk", "dv", "dbias"), got, ref,
+                                  exact):
             if r is None:
                 continue
             if a.shape != r.shape or a.dtype != r.dtype:
                 fail(f"{name}: {gname} {tuple(a.shape)} {a.dtype} vs "
                      f"{tuple(r.shape)} {r.dtype}")
-            a, r = a.float(), r.float()
+            ok = ok and bool(torch.isfinite(a).all().item())
+            a, r = a.double(), r.double()
             c = BWD_BOUNDS[torch.float32 if gname == "dbias" else dtype]
             rms = r.square().mean().sqrt().item()
             diff = (a - r).abs()
             share = (diff / (c * (r.abs() + rms))).max().item()
             errs[gname] = err = diff.max().item()
-            ok = ok and bool(torch.isfinite(a).all().item()) and share <= 1.0
+            ek, ep = (a - x).abs(), (r - x).abs()
+            k_rms, p_rms = (e.square().mean().sqrt().item() for e in (ek, ep))
+            k_max, p_max = ek.max().item(), ep.max().item()
+            if dtype == torch.bfloat16 and gname != "dbias":
+                r_rms, r_max = k_rms / p_rms, k_max / p_max
+                ok = (ok and r_rms <= BWD_FACTORS["rms"]
+                      and r_max <= BWD_FACTORS["max"])
+                held = (f"vs exact: kernel rms {k_rms:.3e} max {k_max:.3e}, "
+                        f"plain rms {p_rms:.3e} max {p_max:.3e}; ratios rms "
+                        f"{r_rms:.3f} (bound {BWD_FACTORS['rms']:g}) max "
+                        f"{r_max:.3f} (bound {BWD_FACTORS['max']:g}); "
+                        f"element-wise share of 2^-6 (|plain| + rms), not "
+                        f"held: {share:.3f}")
+            else:
+                ok = ok and share <= 1.0
+                held = (f"bound {c:.3e} * (|plain| + rms), largest share "
+                        f"{share:.3f}; vs exact: kernel max {k_max:.3e}, "
+                        f"plain max {p_max:.3e}")
             print(f"kernel-bwd {name}: {gname} max|kernel-plain|={err:.3e}; "
                   f"|plain| max {r.abs().max().item():.3e} rms {rms:.3e}; "
-                  f"bound {c:.3e} * (|plain| + rms), largest share of it "
-                  f"{share:.3f}", flush=True)
+                  f"{held}", flush=True)
+        repeat = ("" if dtype != torch.bfloat16 else
+                  ", two calls bitwise equal" if same else
+                  ", two calls DIFFER")
+        ok = ok and same
         print(f"kernel-bwd {name}: b={b} n={n} s_q={s_q} s_k={s_k} d={d} "
               f"{str(dtype)[6:]} bias={bias_kind} causal={causal} "
-              f"lse_grad={lse_grad}: {'ok' if ok else 'FAIL'}", flush=True)
+              f"lse_grad={lse_grad}{repeat}: {'ok' if ok else 'FAIL'}",
+              flush=True)
         if not ok:
             fail(f"backward kernel case {name} disagrees with the plain "
-                 f"version")
+                 f"version or the exact values")
         if name == "train-128":
             train_err = (errs["dq"], max(errs["dk"], errs["dv"]))
     return train_err
@@ -675,9 +844,13 @@ def time_library_backward(q, k, v, bias, g, scale, repeats: int = 5) -> float:
 
 
 def time_backward(fa, device, gen):
-    """The backward kernels at the BERT-base training attention shape, on
-    the operands the main path's backward wrapper builds. Returns a dict of
-    ms and bounds."""
+    """The backward at the BERT-base training attention shape, with the
+    (batch, 1, 1, s) bf16 padding bias: each kernel on the operands the main
+    path's backward wrapper builds, the whole ``_flash_backward`` call (the
+    pair's yardstick: delta, padding and both kernels, as the train step
+    runs it) and the autograd backward of ``F.scaled_dot_product_attention``
+    (one call for dq, dk and dv, delta included), each by its device time,
+    and the bounds. Returns a dict of ms and bounds."""
     b, s = TRAIN_BATCH, TRAIN_BERT["seq_len"]
     heads = TRAIN_BERT["n_head"]
     d = TRAIN_BERT["hidden_size"] // heads
@@ -688,42 +861,61 @@ def time_backward(fa, device, gen):
     g = torch.randn(out.shape, generator=gen).to(device, torch.bfloat16)
     ops = fa._BackwardOperands(q, k, v, bias, out, lse, g, scale, False,
                                None, False)
+    ops.launch_dq()  # delta, which the dk/dv kernel reads, where dq forms it
     pb = fa._PlainBackward(q, k, v, bias, out, lse, g, scale, False, None)
+
+    def whole():
+        return fa._flash_backward(q, k, v, bias, out, lse, g, scale, False)
+
     r = {
         "dq_ms": device_ms(ops.launch_dq, calls=50)[0],
         "dkv_ms": device_ms(ops.launch_dkv, calls=50)[0],
         "dq_event_ms": cuda_ms(ops.launch_dq, reps=50),
         "dkv_event_ms": cuda_ms(ops.launch_dkv, reps=50),
-        "wrapper_ms": cuda_ms(lambda: fa._flash_backward(
-            q, k, v, bias, out, lse, g, scale, False), reps=50),
         "dq_plain_ms": cuda_ms(lambda: fa._dq_plain(pb), reps=5),
         "dkv_plain_ms": cuda_ms(lambda: fa._dkv_plain(pb, False), reps=5),
     }
+    r["backward_ms"], backward_kernels = device_ms(whole, calls=50)
+    r["backward_event_ms"] = cuda_ms(whole, reps=50)
     r["library_ms"] = time_library_backward(q, k, v, bias, g, scale)
-    # the least each kernel must do: read its inputs as it receives them
-    # once, write its outputs once; 2 s_q s_k d flop per product
-    reads = sum(t.numel() * t.element_size()
-                for t in (q, k, v, g, lse, ops.delta, bias))
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    # the least each call must do: read its inputs as it receives them
+    # once, write its outputs once; 2 s_q s_k d flop per product. The dq
+    # kernel reads out and writes delta where it forms delta, and reads
+    # delta otherwise; the whole backward does 5 products (S, dP, dV, dK,
+    # dQ) where the kernel pair does 7.
     prod = 2 * b * heads * s * s * d
-    for name, n_prod, outs in (("dq", 3, (q,)), ("dkv", 4, (k, v))):
-        nbytes = reads + sum(t.numel() * t.element_size() for t in outs)
+    common = (q, k, v, g, lse, bias)
+    delta_io = ((out,), (ops.delta,)) if ops.in_kernel else ((ops.delta,),
+                                                             ())
+    for name, n_prod, ins, outs in (
+            ("dq", 3, common + delta_io[0], (q,) + delta_io[1]),
+            ("dkv", 4, common + (ops.delta,), (k, v)),
+            ("backward", 5, common + (out,), (q, k, v))):
+        moved = nbytes(*ins) + nbytes(*outs)
         t_ops = n_prod * prod / PEAK_FLOPS[torch.bfloat16] * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_bytes = moved / PEAK_BYTES * 1e3
         r[f"{name}_bound_ms"] = max(t_ops, t_bytes)
         r[f"{name}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"times: {name} kernel (b={b}, n={heads}, s={s}, d={d}, bf16, "
-              f"bias {tuple(bias.shape)}): device {r[f'{name}_ms']:.4f} ms "
-              f"(event {r[f'{name}_event_ms']:.4f} ms), plain "
-              f"{r[f'{name}_plain_ms']:.4f} ms; bound "
+        r[f"{name}_flop"], r[f"{name}_bytes"] = n_prod * prod, moved
+        plain = (f", plain {r[f'{name}_plain_ms']:.4f} ms"
+                 if f"{name}_plain_ms" in r else "")
+        print(f"times: {name} (b={b}, n={heads}, s={s}, d={d}, bf16, bias "
+              f"{tuple(bias.shape)}): device {r[f'{name}_ms']:.4f} ms "
+              f"(event {r[f'{name}_event_ms']:.4f} ms){plain}; bound "
               f"{r[f'{name}_bound_ms']:.4f} ms ({n_prod * prod:.3e} flop -> "
-              f"{t_ops:.4f} ms, {nbytes:.3e} B -> {t_bytes:.4f} ms)",
+              f"{t_ops:.4f} ms, {moved:.4e} B -> {t_bytes:.4f} ms)",
               flush=True)
-    print(f"times: backward wrapper (delta + dq + dk/dv) {r['wrapper_ms']:.4f}"
-          f" ms (event); dq + dk/dv kernels {r['dq_ms'] + r['dkv_ms']:.4f} "
-          f"ms (device); "
-          f"autograd backward of F.scaled_dot_product_attention (one call "
-          f"for both kernels, median device time) {r['library_ms']:.4f} ms",
-          flush=True)
+    print(f"times: the whole backward (_flash_backward: "
+          f"{'delta in the dq kernel' if ops.in_kernel else 'eager delta'}; "
+          f"kernels {backward_kernels}) {r['backward_ms']:.4f} ms device; "
+          f"dq + dk/dv kernels {r['dq_ms'] + r['dkv_ms']:.4f} ms; autograd "
+          f"backward of F.scaled_dot_product_attention (one call for dq, dk "
+          f"and dv, median device time) {r['library_ms']:.4f} ms; ratio "
+          f"{r['backward_ms'] / r['library_ms']:.3f}", flush=True)
     return r
 
 
@@ -782,13 +974,17 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    logs = _kernels.build(_kernels.KERNELS)
+    _kernels.build(_kernels.KERNELS)
     print(f"build: {len(_kernels.KERNELS)} kernel source(s) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+    ptxas, sass = {}, {}
+    for name in _kernels.KERNELS:
+        lib = _kernels._paths(name)[1]
+        ptxas.update(ptxas_info(lib.with_suffix(".log").read_text()))
+        sass.update(sass_info(str(lib)))
+    for fn, info in sorted(ptxas.items()):
+        print(f"ptxas {fn}: {info}" + (f"; SASS {sass[fn]}" if fn in sass
+                                       else ""), flush=True)
 
     ctx = init_nncontext(seed=args.seed)
     device = ctx.device
@@ -796,6 +992,7 @@ def main(argv=None) -> int:
 
     # -- 2. kernels vs plain versions --------------------------------------
     check_key_tiles(fa)
+    check_bwd_tiles(fa)
     serve_err = check_kernels(fa, device, gen, FWD_CASES)
     dq_err, dkv_err = check_backward_kernels(fa, device, gen)
     check_kernels(fa, device, gen, FWD_CASES_AFTER_BWD)
@@ -862,6 +1059,40 @@ def main(argv=None) -> int:
     bwd_src = "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu"
     bwd_pair = ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
     serve = fwd[0]
+
+    def build_info(kernel: str, which: int) -> dict:
+        """A backward kernel's tiles and ptxas/SASS lines by bf16 head dim."""
+        out = {}
+        for d in fa.HEAD_DIMS:
+            route = (True, d) in fa.BWD_DELTA_IN_DQ
+            fn = (f"flash_bwd_{kernel}_wgmma<{d}>" if route
+                  else f"flash_bwd_{kernel}_kernel<bf16,{d}>")
+            out[f"bf16-d{d}"] = {"kernel": fn,
+                                 "tiles": list(fa.BWD_TILES[(True, d)][which]),
+                                 "ptxas": ptxas.get(fn),
+                                 "sass": sass.get(fn)}
+        return out
+
+    def bwd_row(kernel: str, which: int, replaces: str, n_launch: int,
+                err: float) -> dict:
+        return {
+            "name": f"flash_attention_bwd_{kernel}", "route": "cuda",
+            "source": bwd_src, "replaces": replaces, "launches": n_launch,
+            "max_abs_err": err, "ms": bwd[f"{kernel}_ms"],
+            "event_ms": bwd[f"{kernel}_event_ms"],
+            "plain_ms": bwd[f"{kernel}_plain_ms"],
+            "bound_ms": bwd[f"{kernel}_bound_ms"],
+            "bound_by": bwd[f"{kernel}_bound_by"],
+            # one autograd call computes dq, dk and dv (and its delta)
+            # together: it is the yardstick of the whole backward
+            # (backward_ms: delta, padding and both kernels)
+            "library_ms": bwd["library_ms"], "library_covers": bwd_pair,
+            "backward_ms": bwd["backward_ms"],
+            "backward_event_ms": bwd["backward_event_ms"],
+            "backward_bound_ms": bwd["backward_bound_ms"],
+            "build": build_info(kernel, which),
+        }
+
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "analytics_zoo_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -877,25 +1108,10 @@ def main(argv=None) -> int:
         "shapes": [{key: r[key] for key in (
             "shape", "ms", "event_ms", "library_ms", "bound_ms", "bound_by")}
             for r in fwd],
-    }, {
-        "name": "flash_attention_bwd_dq", "route": "cuda", "source": bwd_src,
-        "replaces": "analytics_zoo_tpu/ops/flash_attention.py:323",
-        "launches": train_launches[1], "max_abs_err": dq_err,
-        "ms": bwd["dq_ms"], "event_ms": bwd["dq_event_ms"],
-        "plain_ms": bwd["dq_plain_ms"],
-        "bound_ms": bwd["dq_bound_ms"], "bound_by": bwd["dq_bound_by"],
-        # one autograd call computes dq, dk and dv together: it is the
-        # yardstick of the pair, to set beside the sum of both kernels' ms
-        "library_ms": bwd["library_ms"], "library_covers": bwd_pair,
-    }, {
-        "name": "flash_attention_bwd_dkv", "route": "cuda", "source": bwd_src,
-        "replaces": "analytics_zoo_tpu/ops/flash_attention.py:369",
-        "launches": train_launches[2], "max_abs_err": dkv_err,
-        "ms": bwd["dkv_ms"], "event_ms": bwd["dkv_event_ms"],
-        "plain_ms": bwd["dkv_plain_ms"],
-        "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],
-        "library_ms": bwd["library_ms"], "library_covers": bwd_pair,
-    }]
+    }, bwd_row("dq", 0, "analytics_zoo_tpu/ops/flash_attention.py:323",
+               train_launches[1], dq_err),
+        bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
+                train_launches[2], dkv_err)]
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -42,9 +42,9 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_fwd_wgmma" in low or "flash_fwd_f32" in low:
         return "flash_attention_fwd"
-    if "flash_bwd_dq_kernel" in low:
+    if "flash_bwd_dq_" in low:  # the wgmma kernel or the first version
         return "flash_attention_bwd_dq"
-    if "flash_bwd_dkv_kernel" in low:
+    if "flash_bwd_dkv_" in low:
         return "flash_attention_bwd_dkv"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "gemv",
                                   "nvjet")):

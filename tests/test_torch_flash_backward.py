@@ -46,11 +46,11 @@ CASES = {  # name: (s_q, s_k, bias, causal, lse cotangent)
 DBIAS = ("head", "key1")  # bias kinds whose gradient is checked
 
 
-def _inputs(seed, s_q, s_k, bias):
+def _inputs(seed, s_q, s_k, bias, d=D):
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.standard_normal((B, N, s, D)).astype(np.float32)
+    q, k, v = (rng.standard_normal((B, N, s, d)).astype(np.float32)
                for s in (s_q, s_k, s_k))
-    g = rng.standard_normal((B, N, s_q, D)).astype(np.float32)
+    g = rng.standard_normal((B, N, s_q, d)).astype(np.float32)
     g_lse = rng.standard_normal((B, N, s_q)).astype(np.float32)
     b = None
     if bias == "pad":  # BERT's padding mask: the tail of each row's keys
@@ -143,6 +143,90 @@ def _key1_noise_bound(inputs, causal):
     g16 = torch.tensor(g).to(torch.bfloat16).float().numpy()
     return 2.0 ** -7 * np.abs(g16 * out).sum(axis=(1, 2, 3)).reshape(
         B, 1, 1, 1)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_plain_backward_walks_the_kernel_tiles(d, monkeypatch):
+    """At the bf16 kernels' head dims the plain loops walk the tiles of
+    BWD_TILES (what the kernels' library reports) and still hold the
+    Pallas kernels, causal with the padding bias."""
+    inputs = _inputs(11 + d, 256, 256, "pad", d)
+    walked = set()
+    tile = tfa._PlainBackward.tile
+
+    def spy(self, q0, k0, tq, tk):
+        walked.add((tq, tk))
+        return tile(self, q0, k0, tq, tk)
+
+    monkeypatch.setattr(tfa._PlainBackward, "tile", spy)
+    j = _jax_grads(*inputs, "bfloat16", "pad", True, False)
+    t = _torch_grads(*inputs, "bfloat16", "pad", True, False)
+    assert walked == set(tfa.BWD_TILES[(True, d)])
+    for name, a, r in zip(("dq", "dk", "dv"), t, j):
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, r, rtol=0,
+                                   atol=2e-2 * max(1.0, np.abs(r).max()),
+                                   err_msg=name)
+
+
+def _dense_backward_f64(q, k, v, b, g, g_lse, out, lse, scale, tiles):
+    """dq, dk, dv, dbias of the backward's formulas in f64 numpy, causal
+    with s_q > s_k: in a (q tile, key tile) pair that holds a live (q, k)
+    a fully masked row's p is exp(-1e30 - lse) = 1, elsewhere 0; dq takes
+    the pairs of tiles[0], dk/dv/dbias those of tiles[1]."""
+    q, k, v, b, g, out = (x.astype(np.float64) for x in (q, k, v, b, g, out))
+    lse = lse.astype(np.float64)[..., None]
+    s_q, s_k = q.shape[2], k.shape[2]
+    off = s_k - s_q
+    s = q @ k.swapaxes(-1, -2) * scale + b
+    qi, kj = np.arange(s_q)[:, None], np.arange(s_k)[None, :]
+    masked = qi + off < kj
+    delta = (g * out).sum(-1, keepdims=True) - g_lse.astype(np.float64)[
+        ..., None]
+    dp = g @ v.swapaxes(-1, -2)
+    neg = float(np.float32(-1e30))
+
+    def p_of(tq, tk):
+        live = qi // tq * tq + tq - 1 + off >= kj // tk * tk
+        with np.errstate(over="ignore"):
+            p = np.exp(np.where(masked, 0.0, s - lse))
+        return np.where(masked, np.where(live, np.exp(neg - lse), 0.0), p)
+
+    p = p_of(*tiles[0])
+    dq = (p * (dp - delta)) @ k * scale
+    p = p_of(*tiles[1])
+    ds = p * (dp - delta)
+    return (dq, ds.swapaxes(-1, -2) @ q * scale, p.swapaxes(-1, -2) @ g,
+            ds.sum(-2))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fully_masked_rows_follow_the_kernel_tiles(d):
+    """Causal with s_q > s_k: the first s_q - s_k rows see no key (lse is
+    -1e30). The plain loops, and the dense f64 evaluation chip_smoke.py
+    holds the kernels against, skip the pairs of the tiles of BWD_TILES (f32
+    at head dim 128 has different dq and dk/dv tiles) and match an f64
+    evaluation with liveness from the same tiles. With sequence lengths that
+    are multiples of 64 and tiles that divide 64, a row that sees no key
+    lies in no live pair, so its p is 0 on every key and its dq is 0."""
+    q, k, v, b, g, g_lse = _inputs(20 + d, 256, 128, "head", d)
+    scale = d ** -0.5
+    ts = [torch.tensor(x) for x in (q, k, v, b, g, g_lse)]
+    out, lse = tfa._flash_forward_plain(*ts[:4], scale, True)
+    assert (lse[:, :, :128] == -1e30).all() and (lse[:, :, 128:] > -1e29).all()
+    args = (*ts[:4], out, lse, ts[4], scale, True, ts[5], True)
+    tiles = tfa.BWD_TILES[(False, d)]
+    want = _dense_backward_f64(q, k, v, b, g, g_lse, out.numpy(),
+                               lse.numpy(), scale, tiles)
+    assert (want[0][:, :, :128] == 0).all()  # no live pair: no dq
+    for got in (tfa._flash_backward_plain(*args),
+                tfa._flash_backward_dense(*args)):
+        # f32 against f64: 1e-5 of the largest element (dbias, a sum over
+        # 256 queries, reaches 23; dq/dk/dv stay below 7)
+        for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, want):
+            np.testing.assert_allclose(a.double().numpy(), r, rtol=0,
+                                       atol=1e-5 * max(1.0, np.abs(r).max()),
+                                       err_msg=name)
 
 
 def test_no_autograd_record_without_grad():

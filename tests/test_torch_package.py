@@ -104,3 +104,22 @@ def test_cpu_tensors_never_touch_the_cuda_loader(monkeypatch):
     with pytest.raises(ValueError, match="CUDA device"):
         tfa._flash_backward_cuda(qd, qd, qd, None, qd, lse.detach(), qd,
                                  0.125, False)
+
+
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """A kernel library is named by a hash of its source and of every
+    shared header in csrc/, so an edit to the header alone rebuilds it
+    rather than loading a stale library."""
+    monkeypatch.setattr(_kernels, "SRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// v1\n")
+    src, first = _kernels._paths("k")
+    assert src == tmp_path / "k.cu" and first.parent == _kernels.BUILD_DIR
+    assert _kernels._paths("k")[1] == first  # stable
+    (tmp_path / "hopper.cuh").write_text("// v2\n")
+    second = _kernels._paths("k")[1]
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// a new header\n")
+    assert _kernels._paths("k")[1] not in (first, second)
+    (tmp_path / "other.cuh").unlink()
+    assert _kernels._paths("k")[1] == second
