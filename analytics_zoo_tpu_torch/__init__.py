@@ -12,7 +12,10 @@ and the training surface (objectives, SGD/Adam, metrics, triggers, feature
 sets, ``Estimator.train``, ``KerasNet.compile``/``fit``) — with attention on
 hand-written CUDA flash-attention kernels, forward
 (``csrc/flash_attention_fwd.cu``) and backward (``csrc/flash_attention_bwd.cu``:
-dq; dk, dv and dbias).
+dq; dk, dv and dbias); and ResNet-50 and LeNet-5 training and serving — the
+functional graph (``Input``, ``Model``, ``Sequential``), convolution,
+pooling, core layers and batch norm with its moving statistics as model
+state, on PyTorch's cuDNN and cuBLAS calls.
 """
 
 __version__ = "0.1.0"

@@ -12,9 +12,11 @@ batch there from the host's index vector. It follows the JAX package's
 *per-step* cached path (numpy shuffle order). The JAX package's fused epoch
 dispatch draws its order in-graph with ``jax.random.permutation``, which
 torch cannot reproduce; the port runs no fused epochs, so its cached runs
-keep the numpy order. Streaming pipelines, multi-host windows, mid-epoch
-resume offsets, device transforms and the row-sharded cache are not ported
-yet.
+keep the numpy order. A set's ``device_transform`` (carried into its
+device cache) is a per-batch function the Estimator applies to ``x`` on the
+device: uint8 pixels cross to and stay on the card as uint8 and are
+normalised per batch there. Streaming pipelines, multi-host windows,
+mid-epoch resume offsets and the row-sharded cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,7 +39,14 @@ def _as_arrays(x) -> List[np.ndarray]:
 
 class FeatureSet:
     """Base interface: index batches for training and evaluation over a
-    dataset that subclasses index with :meth:`take`."""
+    dataset that subclasses index with :meth:`take`.
+
+    ``device_transform`` (optional): a per-batch function of ``x`` that the
+    Estimator applies on the device, inside its train, evaluate and predict
+    steps, before the compute-dtype cast.
+    """
+
+    device_transform = None
 
     @property
     def num_samples(self) -> int:
@@ -136,10 +145,12 @@ class ArrayFeatureSet(FeatureSet):
     def cache_device(self) -> "DeviceCachedFeatureSet":
         """The dataset held on the context's device, batches gathered
         there: see :class:`DeviceCachedFeatureSet`."""
-        return DeviceCachedFeatureSet(
+        fs = DeviceCachedFeatureSet(
             self.xs if self._multi_x else self.xs[0],
             None if self.ys is None else
             (self.ys if self._multi_y else self.ys[0]))
+        fs.device_transform = self.device_transform
+        return fs
 
 
 class DeviceCachedFeatureSet(ArrayFeatureSet):

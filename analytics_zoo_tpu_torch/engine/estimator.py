@@ -17,9 +17,12 @@ Losses stay on the device: the host reads them once per epoch (or every
 step when a trigger reads the loss, as ``MinLoss`` does), so the loop adds
 no host sync per step. Host batches are copied to the device
 (``torch.tensor``, never ``torch.from_numpy``, which would alias arrays the
-caller may reuse). At the end of ``train`` the trained parameters are
-written back to ``model.params``, where ``InferenceModel.do_load_keras``
-and a later ``Estimator`` find them.
+caller may reuse); a feature set's ``device_transform`` runs on the device
+batch before the cast. The model state (batch norm's moving statistics)
+threads through the steps, and at the end of ``train`` the trained
+parameters and state are written back to ``model.params`` and
+``model.model_state``, where ``InferenceModel.do_load_keras`` and a later
+``Estimator`` find them.
 
 Not ported yet, and raising ``NotImplementedError`` where the JAX package
 has a setter or an entry point: checkpoints and resume, summaries,
@@ -199,12 +202,12 @@ class Estimator:
         if self.tstate is None:
             self.model.ensure_params()
             dev = self.ctx.device
-            params = tree_map(lambda t: t.detach().to(dev, copy=True),
-                              self.model.params)
+            params, state = (
+                tree_map(lambda t: t.detach().to(dev, copy=True), tree)
+                for tree in (self.model.params, self.model.model_state or {}))
             opt_state = (self._tx().init(params)
                          if self.optim_method is not None else None)
-            self.tstate = TrainState(params, self.model.model_state or {},
-                                     opt_state, 0)
+            self.tstate = TrainState(params, state, opt_state, 0)
 
     def reset_optimizer(self, optim_method: GradientTransformation) -> None:
         """Swap the optimizer, rebuilding its state for the current params
@@ -250,9 +253,11 @@ class Estimator:
 
     # -- the train step --------------------------------------------------
 
-    def _make_train_step(self, criterion: Callable) -> Callable:
-        """``step(tstate, xs, y, mask) -> (tstate, device loss)``: forward,
-        backward and update."""
+    def _make_train_step(self, criterion: Callable,
+                         device_transform: Optional[Callable] = None
+                         ) -> Callable:
+        """``step(tstate, xs, y, mask) -> (tstate, device loss)``: forward
+        (``device_transform`` first), backward and update."""
         tx = self._tx()
         model, cast = self.model, self._cast_for_compute
         generator = self.ctx.step_generator
@@ -262,6 +267,8 @@ class Estimator:
                      else tree_leaves(update_mask))
 
         def loss_fn(params, model_state, xs, y, mask):
+            if device_transform is not None:
+                xs = device_transform(xs)
             pred, new_state = model.apply(cast(params), model_state,
                                           cast(xs), training=True,
                                           rng=generator)
@@ -348,13 +355,15 @@ class Estimator:
         """Train until ``end_trigger`` (default: one more epoch) over a
         :class:`~analytics_zoo_tpu_torch.data.feature_set.FeatureSet`
         (host arrays, or a device-cached set), then write the trained
-        parameters back to ``model.params``."""
+        parameters and state back to ``model.params`` and
+        ``model.model_state``."""
         if checkpoint_trigger is not None or auto_resume:
             _not_ported("checkpointing")
         self._ensure_state()
         rs = self.run_state
         end_trigger = end_trigger or trig.MaxEpoch(rs.epoch + 1)
-        step = self._make_train_step(criterion)
+        step = self._make_train_step(
+            criterion, getattr(train_set, "device_transform", None))
         sync_loss = _uses_loss(end_trigger)
         if (objectives_lib.get_per_sample(criterion) is None
                 and train_set.num_samples % batch_size != 0):
@@ -392,17 +401,22 @@ class Estimator:
                     rs.score = value
                 logger.info("Validation @ epoch %d: %s", rs.epoch, results)
         self.model.params = self.tstate.params
+        self.model.model_state = self.tstate.model_state
         return self
 
     # -- evaluation and prediction ---------------------------------------
 
     def _forward_batches(self, data, batch_size: int):
         """(device prediction, y, mask) per dataset-order batch, on the
-        compute-dtype cast of the current params. The caller runs it to
-        its end under ``torch.inference_mode()``."""
+        compute-dtype cast of the current params (``data``'s
+        ``device_transform`` first). The caller runs it to its end under
+        ``torch.inference_mode()``."""
         self._ensure_state()
         params = self._cast_for_compute(self.tstate.params)
+        transform = getattr(data, "device_transform", None)
         for x, y, mask in self._batches(data, batch_size, None):
+            if transform is not None:
+                x = transform(x)
             pred, _ = self.model.apply(params, self.tstate.model_state,
                                        self._cast_for_compute(x),
                                        training=False, rng=None)

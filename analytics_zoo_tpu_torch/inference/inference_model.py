@@ -40,15 +40,17 @@ class InferenceModel:
         self._gen = 0
 
     def do_load_keras(self, keras_net) -> "InferenceModel":
-        """Adopt an in-memory KerasNet: its ``params`` (drawn from the
-        context's generator if it has none; after ``fit`` or
-        ``Estimator.train``, the trained parameters that the estimator
-        wrote back) are copied to the device, and cast once to the model's
-        compute dtype for the forward."""
+        """Adopt an in-memory KerasNet: its ``params`` and ``model_state``
+        (drawn from the context's generator if it has none; after ``fit``
+        or ``Estimator.train``, the trained ones that the estimator wrote
+        back) are copied to the device, and the params cast once to the
+        model's compute dtype for the forward. The state stays as it is
+        (batch norm's f32 moving statistics), as in the JAX package."""
         keras_net.ensure_params()
         device = get_nncontext().device
-        params = tree_map(lambda t: t.to(device, copy=True),
-                           keras_net.params)
+        params, state = (tree_map(lambda t: t.to(device, copy=True), tree)
+                         for tree in (keras_net.params,
+                                      keras_net.model_state or {}))
         cd = getattr(keras_net, "compute_dtype", None)
         if cd:
             dt = getattr(torch, cd)
@@ -63,7 +65,7 @@ class InferenceModel:
             self.device = device
             self.params = params
             self._exec_params = exec_params
-            self.model_state = keras_net.model_state or {}
+            self.model_state = state
         return self
 
     @staticmethod

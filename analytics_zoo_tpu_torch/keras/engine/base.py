@@ -4,8 +4,12 @@ As in the JAX package, a layer records weight *specs* in ``build()``,
 materialises a parameter dict in ``init_params``, and computes
 ``call(params, x)`` from that dict. The dict keeps the JAX package's leaf
 names and layouts (a Dense ``kernel`` is ``(in, out)``), so the weight map
-between the two packages is 1:1. Layers are ``nn.Module``s so that a model's
-sub-layers register as its children.
+between the two packages is 1:1. A layer with non-trainable state (batch
+norm's moving statistics) declares it with ``add_state``, sets
+``has_state`` and returns ``(output, new_state)`` from ``call``; the engine
+threads the state. Layers are ``nn.Module``s so that a model's sub-layers
+register as its children; calling a layer on a symbolic ``Variable`` wires
+it into a functional graph instead of running it.
 
 Initializers draw from an explicit ``torch.Generator``. They cannot
 reproduce ``jax.random`` draws; parity tests carry the JAX weights over
@@ -15,7 +19,7 @@ instead (``analytics_zoo_tpu_torch.interop``).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -145,10 +149,11 @@ class KerasLayer(nn.Module):
       1. construct (records hyperparams; ``input_shape`` excludes batch)
       2. ``build(full_input_shape)`` registers :class:`WeightSpec`s
       3. ``init_params(generator)`` materialises the parameter dict
-      4. ``call(params, x, ...)`` computes the output from that dict
+      4. ``call(params, x, state=, training=, rng=)`` computes the output
+         from that dict (``(output, new_state)`` for stateful layers)
     """
 
-    has_state = False
+    has_state = False  # subclasses with non-trainable state set True
 
     def __init__(self, input_shape: Optional[Sequence[int]] = None,
                  name: Optional[str] = None):
@@ -160,12 +165,20 @@ class KerasLayer(nn.Module):
         self.input_shape: Optional[Shape] = None
         self.output_shape: Optional[Shape] = None
         self.weight_specs: List[WeightSpec] = []
+        self.state_specs: List[WeightSpec] = []
 
     def add_weight(self, name, shape, init="glorot_uniform", trainable=True,
                    dtype=torch.float32) -> None:
         """Declare one parameter; called from ``build``."""
         self.weight_specs.append(
             WeightSpec(name, shape, init, trainable, dtype))
+
+    def add_state(self, name, shape, init="zeros",
+                  dtype=torch.float32) -> None:
+        """Declare one non-trainable state buffer (e.g. BN running stats);
+        called from ``build``."""
+        self.state_specs.append(
+            WeightSpec(name, shape, init, False, dtype))
 
     def ensure_built(self, input_shape: Shape) -> Shape:
         """Build once for ``input_shape`` (no-op when already built)."""
@@ -192,6 +205,11 @@ class KerasLayer(nn.Module):
         """Initialize this layer's parameter dict from a generator."""
         return materialize(self.param_specs(), generator)
 
+    def init_state(self) -> Dict:
+        """Initial values of the layer's non-trainable state buffers."""
+        return materialize({s.name: s for s in self.state_specs},
+                           torch.Generator().manual_seed(0))
+
     def call(self, params, x, **kwargs):  # override
         """The layer computation: ``(params, x, ...) -> output``."""
         raise NotImplementedError
@@ -199,5 +217,66 @@ class KerasLayer(nn.Module):
     def forward(self, params, x, **kwargs):
         return self.call(params, x, **kwargs)
 
+    def __call__(self, *args, **kwargs):
+        """On a ``Variable`` (or a list of them): wire this layer into a
+        functional graph and return its output ``Variable``, as the JAX
+        package's symbolic ``__call__`` does. On anything else: the
+        ``nn.Module`` call, which runs ``forward``."""
+        from analytics_zoo_tpu_torch.autograd.variable import (
+            Variable,
+            apply_layer,
+        )
+
+        if len(args) == 1 and not kwargs:
+            v = args[0]
+            if isinstance(v, Variable) or (
+                    isinstance(v, (list, tuple)) and v
+                    and all(isinstance(e, Variable) for e in v)):
+                return apply_layer(self, v)
+        return super().__call__(*args, **kwargs)
+
+    def user_input_shape(self) -> Optional[Shape]:
+        """The input_shape the user declared on construction, with the
+        batch dim (or None)."""
+        if self._user_input_shape is None:
+            return None
+        return (None,) + self._user_input_shape
+
     def __repr__(self):
         return f"<{type(self).__name__} {self.name} out={self.output_shape}>"
+
+
+class Lambda(KerasLayer):
+    """A torch function as a parameter-free layer (the graph op behind the
+    ``Variable`` arithmetic). Without ``output_shape_fn`` the output shape
+    is inferred by running the function on meta tensors with batch 1."""
+
+    def __init__(self, function: Callable,
+                 output_shape_fn: Optional[Callable] = None,
+                 input_shape=None, name: Optional[str] = None,
+                 arity: int = 1):
+        super().__init__(input_shape=input_shape,
+                         name=name or unique_name("lambda"))
+        self.function = function
+        self.output_shape_fn = output_shape_fn
+        self.arity = arity
+
+    def compute_output_shape(self, input_shape: Union[Shape, List[Shape]]
+                             ) -> Shape:
+        if self.output_shape_fn is not None:
+            return tuple(self.output_shape_fn(input_shape))
+
+        def sub(shape):
+            return torch.zeros(tuple(1 if d is None else d for d in shape),
+                               device="meta")
+
+        if self.arity == 1:
+            out = self.function(sub(input_shape))
+        else:
+            out = self.function(*(sub(s) for s in input_shape))
+        return (None,) + tuple(out.shape[1:])
+
+    def call(self, params, x, **kwargs):
+        if self.arity == 1:
+            return self.function(x)
+        return self.function(*x)

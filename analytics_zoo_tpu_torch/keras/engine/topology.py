@@ -1,23 +1,31 @@
-"""Model protocol and the compile/fit surface (port of ``KerasNet`` in
+"""Model containers and the compile/fit surface (port of
 ``analytics_zoo_tpu.keras.engine.topology``).
 
-The protocol the engines use (``layers``, ``init``, ``apply``,
-``regularization``, ``compute_dtype``) and the Keras-style training surface
-over :class:`~analytics_zoo_tpu_torch.engine.estimator.Estimator`:
-``compile``, ``fit`` (epochs continue across calls), ``evaluate``,
-``predict``, ``predict_classes`` and the gradient-clipping setters.
-``Sequential``/``Model``, ``InputLayer``/``Input``, weights persistence and
-the summary/checkpoint/profile setters are not ported yet.
+``KerasNet``: the protocol the engines use (``layers``, ``init``,
+``apply``, ``regularization``, ``compute_dtype``) and the Keras-style
+training surface over
+:class:`~analytics_zoo_tpu_torch.engine.estimator.Estimator`: ``compile``,
+``fit`` (epochs continue across calls), ``evaluate``, ``predict``,
+``predict_classes`` and the gradient-clipping setters. ``Sequential`` (a
+linear stack) and ``Model`` (a functional graph of ``Input`` and layer
+calls) thread the state of stateful layers through ``apply``. Weights
+persistence, the GraphNet surface and the summary/checkpoint/profile
+setters are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from analytics_zoo_tpu_torch.autograd.variable import (
+    Variable,
+    execute,
+    graph_layers,
+)
 from analytics_zoo_tpu_torch.data.feature_set import (
     ArrayFeatureSet,
     FeatureSet,
@@ -34,11 +42,29 @@ from analytics_zoo_tpu_torch.keras.engine.base import (
 )
 
 
+class InputLayer(KerasLayer):
+    """Explicit input placeholder."""
+
+    def __init__(self, input_shape=None, name=None):
+        super().__init__(input_shape, name or unique_name("input"))
+
+    def call(self, params, x, **kw):
+        return x
+
+
+def Input(shape: Sequence[Optional[int]],
+          name: Optional[str] = None) -> Variable:
+    """Symbolic graph input; ``shape`` excludes the batch dim (Keras-1)."""
+    return Variable(None, (None,) + tuple(shape),
+                    name=name or unique_name("input"))
+
+
 class KerasNet(nn.Module):
     """The model protocol the Estimator trains and InferenceModel serves,
     with the compile/fit surface.
 
-    ``params`` holds the model's parameter dict once it has one: drawn by
+    ``params`` holds the model's parameter dict once it has one, and
+    ``model_state`` the state of its stateful layers: drawn by
     :meth:`ensure_params` from the context's generator, carried over from
     the JAX package by ``interop.load_jax_params``, or written back by
     ``Estimator.train``.
@@ -71,9 +97,18 @@ class KerasNet(nn.Module):
                 out[layer.name] = specs
         return out
 
+    def state_specs(self) -> Dict:
+        """``{layer name: {state name: WeightSpec}}`` for stateful
+        layers."""
+        return {layer.name: {s.name: s for s in layer.state_specs}
+                for layer in self.layers() if layer.has_state}
+
     def init(self, generator: torch.Generator) -> Tuple[Dict, Dict]:
-        """Initialize ``(params, state)`` from a generator."""
-        return materialize(self.param_specs(), generator), {}
+        """Initialize ``(params, state)``: the parameters drawn from a
+        generator, each stateful layer's ``init_state()``."""
+        state = {layer.name: layer.init_state() for layer in self.layers()
+                 if layer.has_state}
+        return materialize(self.param_specs(), generator), state
 
     def ensure_params(self) -> None:
         """Draw ``params`` from the context's root generator if the model
@@ -208,3 +243,93 @@ class KerasNet(nn.Module):
         """Ref KerasNet.predictClasses — argmax over the class axis."""
         cls = np.argmax(self.predict(x, batch_size), axis=-1)
         return cls if zero_based_label else cls + 1
+
+
+class Sequential(KerasNet):
+    """Linear stack of layers; the first carries ``input_shape``."""
+
+    def __init__(self, layers: Optional[List[KerasLayer]] = None,
+                 name: Optional[str] = None):
+        # Keras-1 also allows Sequential("name")
+        if isinstance(layers, str) and name is None:
+            layers, name = None, layers
+        if name is not None and not isinstance(name, str):
+            raise TypeError(f"name must be a str, got {type(name).__name__}")
+        super().__init__(name)
+        self._layers = nn.ModuleList()
+        for layer in layers or []:
+            self.add(layer)
+
+    def add(self, layer: KerasLayer) -> "Sequential":
+        """Append a layer, building it on the previous layer's output
+        shape; returns self."""
+        if not self._layers:
+            in_shape = layer.user_input_shape()
+            if in_shape is None and not isinstance(layer, InputLayer):
+                raise ValueError(
+                    "First layer needs input_shape (Keras-1 semantics)")
+            layer.ensure_built(in_shape if in_shape is not None
+                               else layer.input_shape)
+        else:
+            layer.ensure_built(self._layers[-1].output_shape)
+        self._layers.append(layer)
+        return self
+
+    def layers(self) -> List[KerasLayer]:
+        return list(self._layers)
+
+    def get_output_shape(self) -> Shape:
+        return self._layers[-1].output_shape
+
+    def get_input_shape(self) -> Shape:
+        return self._layers[0].input_shape
+
+    def apply(self, params, state, x, training=False, rng=None):
+        new_state = {}
+        for layer in self._layers:
+            p = params.get(layer.name, {})
+            if layer.has_state:
+                x, new_state[layer.name] = layer.call(
+                    p, x, state=state.get(layer.name, {}), training=training,
+                    rng=rng)
+            else:
+                x = layer.call(p, x, training=training, rng=rng)
+        return x, new_state
+
+
+class Model(KerasNet):
+    """Functional graph model, built from ``Input`` Variables wired by
+    layer calls."""
+
+    def __init__(self, input: Union[Variable, Sequence[Variable]],
+                 output: Union[Variable, Sequence[Variable]],
+                 name: Optional[str] = None):
+        super().__init__(name)
+        self._multi_in = not isinstance(input, Variable)
+        self._multi_out = not isinstance(output, Variable)
+        self.inputs: List[Variable] = ([input] if not self._multi_in
+                                       else list(input))
+        self.outputs: List[Variable] = ([output] if not self._multi_out
+                                        else list(output))
+        self._layers = nn.ModuleList(graph_layers(self.outputs))
+
+    def layers(self) -> List[KerasLayer]:
+        return list(self._layers)
+
+    def get_output_shape(self):
+        shapes = [v.shape for v in self.outputs]
+        return shapes if self._multi_out else shapes[0]
+
+    def get_input_shape(self):
+        shapes = [v.shape for v in self.inputs]
+        return shapes if self._multi_in else shapes[0]
+
+    def apply(self, params, state, x, training=False, rng=None):
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        if len(xs) != len(self.inputs):
+            raise ValueError(f"Model has {len(self.inputs)} inputs, got "
+                             f"{len(xs)}")
+        feed = {var.name: val for var, val in zip(self.inputs, xs)}
+        outs, new_state = execute(self.outputs, feed, params, state=state,
+                                  training=training, rng=rng)
+        return (outs if self._multi_out else outs[0]), new_state

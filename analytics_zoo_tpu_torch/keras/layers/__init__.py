@@ -1,10 +1,31 @@
-"""Layer library: the layers of the serving slice."""
+"""Layer library: the layers ported so far."""
 
-from analytics_zoo_tpu_torch.keras.engine.base import KerasLayer
+from analytics_zoo_tpu_torch.keras.engine.base import KerasLayer, Lambda
+from analytics_zoo_tpu_torch.keras.engine.topology import InputLayer
 from analytics_zoo_tpu_torch.keras.layers.attention import (
     BERT,
     MultiHeadAttention,
     TransformerBlock,
     TransformerLayer,
 )
-from analytics_zoo_tpu_torch.keras.layers.core import Dense, get_activation
+from analytics_zoo_tpu_torch.keras.layers.convolutional import (
+    AveragePooling2D,
+    Convolution2D,
+    GlobalAveragePooling2D,
+    GlobalMaxPooling2D,
+    MaxPooling2D,
+    ZeroPadding2D,
+)
+from analytics_zoo_tpu_torch.keras.layers.core import (
+    Activation,
+    Dense,
+    Dropout,
+    Flatten,
+    Merge,
+    get_activation,
+    merge,
+)
+from analytics_zoo_tpu_torch.keras.layers.normalization import (
+    BatchNormalization,
+    LayerNorm,
+)

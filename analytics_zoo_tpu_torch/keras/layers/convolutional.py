@@ -1,0 +1,315 @@
+"""Convolution and pooling layers (port of
+``analytics_zoo_tpu.keras.layers.convolutional``: ``Convolution2D``, max
+and average pooling, global pooling and ``ZeroPadding2D``).
+
+Both orderings: "th" is NCHW, "tf" is NHWC. On the card a "tf" tensor
+stays NHWC and contiguous between layers; for a convolution or a pooling it
+is viewed as NCHW by ``permute(0, 3, 1, 2)``, which is a channels-last NCHW
+tensor without a copy, so cuDNN runs its NHWC kernels and the output
+permutes back to a contiguous NHWC tensor, again without a copy. The kernel
+leaf keeps the JAX package's HWIO shape (the weight map stays 1:1) and is
+laid out as OIHW inside ``call``, channels-last where the activations are.
+On the CPU a "tf" convolution runs on contiguous NCHW copies instead:
+PyTorch's CPU convolution with a channels-last input or weight returns a
+wrong weight gradient for a strided 1x1 kernel (torch 2.13, oneDNN; the
+gradient is off by units and memory is corrupted), which
+``tests/test_torch_conv_layers.py`` would catch.
+
+"same" follows XLA's SAME padding: the total padding of a spatial dim is
+``max((out - 1) * stride + k_eff - in, 0)`` with ``out = ceil(in /
+stride)``, and the low side gets ``total // 2``. Where the two sides differ
+(a 7x7/2 convolution or a 3x3/2 pooling on an even size) the input is
+padded explicitly: PyTorch's symmetric ``padding=`` would give the same
+output shape with windows shifted by one. Max pooling pads with -inf;
+average pooling divides each window by its count of real elements.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from analytics_zoo_tpu_torch.keras.engine.base import KerasLayer, Shape
+from analytics_zoo_tpu_torch.keras.layers.core import get_activation
+
+# kernel dims may arrive as numpy ints (computed from array shapes/configs)
+_Int = (int, np.integer)
+
+
+def _tuple(v, n):
+    if isinstance(v, (list, tuple)):
+        if len(v) != n:
+            raise ValueError(f"expected length-{n}, got {v}")
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+def _conv_out_dim(size, k, stride, border_mode, dilation=1):
+    if size is None:
+        return None
+    eff_k = (k - 1) * dilation + 1
+    if border_mode == "same":
+        return -(-size // stride)
+    return -(-(size - eff_k + 1) // stride)
+
+
+def _same_pads(sizes, kernel, strides, dilation) -> List[Tuple[int, int]]:
+    """XLA's SAME padding, (low, high) per spatial dim."""
+    pads = []
+    for size, k, s, d in zip(sizes, kernel, strides, dilation):
+        out = -(-size // s)
+        total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _spatial(x, ordering: str):
+    return tuple(x.shape[2:] if ordering == "th" else x.shape[1:-1])
+
+
+def _pad(x, pads, ordering: str, value: float = 0.0):
+    """Pad the spatial dims of ``x`` by ``pads`` ((low, high) per dim, in
+    order) in its own layout."""
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    if ordering == "tf":
+        flat = [0, 0] + flat  # the channel dim is last
+    return F.pad(x, flat, value=value)
+
+
+def _as_nchw(x, ordering: str):
+    return x if ordering == "th" else x.permute(0, 3, 1, 2)
+
+
+def _conv_input(x, ordering: str):
+    """``x`` as the NCHW input of a convolution, and the memory format its
+    weight takes: channels-last on the card for "tf", contiguous NCHW
+    otherwise (see the module docstring for the CPU)."""
+    if ordering == "th":
+        return x, torch.contiguous_format
+    if x.is_cuda:
+        return x.permute(0, 3, 1, 2), torch.channels_last
+    return x.permute(0, 3, 1, 2).contiguous(), torch.contiguous_format
+
+
+def _from_nchw(y, ordering: str):
+    return y if ordering == "th" else y.permute(0, 2, 3, 1)
+
+
+def _padding(x, border_mode, kernel, strides, dilation, ordering,
+             value=0.0):
+    """``(x, padding)`` for a 2-D op: a symmetric padding goes to the op as
+    ``padding``; an asymmetric one is applied to ``x`` here."""
+    if border_mode != "same":
+        return x, (0, 0)
+    pads = _same_pads(_spatial(x, ordering), kernel, strides, dilation)
+    if all(lo == hi for lo, hi in pads):
+        return x, tuple(lo for lo, _ in pads)
+    return _pad(x, pads, ordering, value), (0, 0)
+
+
+class _ConvND(KerasLayer):
+    rank = 2
+
+    def __init__(self, nb_filter: int, kernel_size, subsample=1,
+                 activation=None, border_mode="valid", dim_ordering="th",
+                 init="glorot_uniform", dilation=1, bias=True,
+                 input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.nb_filter = int(nb_filter)
+        self.kernel_size = _tuple(kernel_size, self.rank)
+        self.subsample = _tuple(subsample, self.rank)
+        self.dilation = _tuple(dilation, self.rank)
+        self.activation = get_activation(activation)
+        if border_mode not in ("valid", "same"):
+            raise ValueError(
+                f"border_mode must be valid|same, got {border_mode}")
+        self.border_mode = border_mode
+        self.dim_ordering = dim_ordering
+        self.init = init
+        self.bias = bias
+
+    def _in_channels(self, input_shape: Shape) -> int:
+        return input_shape[1] if self.dim_ordering == "th" else \
+            input_shape[-1]
+
+    def build(self, input_shape: Shape):
+        in_ch = self._in_channels(input_shape)
+        self.add_weight("kernel", self.kernel_size + (in_ch, self.nb_filter),
+                        self.init)
+        if self.bias:
+            self.add_weight("bias", (self.nb_filter,), "zeros")
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        spatial = (input_shape[2:] if self.dim_ordering == "th"
+                   else input_shape[1:-1])
+        out_spatial = tuple(
+            _conv_out_dim(s, k, st, self.border_mode, d)
+            for s, k, st, d in zip(spatial, self.kernel_size, self.subsample,
+                                   self.dilation))
+        if self.dim_ordering == "th":
+            return (input_shape[0], self.nb_filter) + out_spatial
+        return (input_shape[0],) + out_spatial + (self.nb_filter,)
+
+    def call(self, params, x, **kw):
+        x, padding = _padding(x, self.border_mode, self.kernel_size,
+                              self.subsample, self.dilation,
+                              self.dim_ordering)
+        x, fmt = _conv_input(x, self.dim_ordering)
+        # HWIO -> OIHW, in the activations' memory format
+        w = params["kernel"].permute(3, 2, 0, 1).contiguous(
+            memory_format=fmt)
+        y = F.conv2d(x, w,
+                     params["bias"] if self.bias else None,
+                     stride=self.subsample, padding=padding,
+                     dilation=self.dilation)
+        return self.activation(_from_nchw(y, self.dim_ordering))
+
+
+class Convolution2D(_ConvND):
+    """2-D convolution. Accepts the Keras-1 signature
+    ``Convolution2D(nb_filter, nb_row, nb_col, ...)`` and the tuple form
+    ``Convolution2D(nb_filter, (rows, cols), ...)``; with three int
+    positionals the third is ``nb_col``, never ``subsample``: pass
+    ``subsample`` and every later option by keyword."""
+    rank = 2
+
+    def __init__(self, nb_filter, nb_row, nb_col=None, **kw):
+        if nb_col is None:
+            kernel = nb_row
+        elif isinstance(nb_row, _Int) and isinstance(nb_col, _Int):
+            kernel = (int(nb_row), int(nb_col))
+        else:
+            raise TypeError(
+                "Convolution2D takes either (nb_filter, nb_row, nb_col) with "
+                "int rows/cols or (nb_filter, kernel_size); pass subsample "
+                f"and later options by keyword (got nb_row={nb_row!r}, "
+                f"nb_col={nb_col!r})")
+        super().__init__(nb_filter, kernel, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Pooling
+# ---------------------------------------------------------------------------
+
+
+class _PoolND(KerasLayer):
+    rank = 2
+    op = "max"
+
+    def __init__(self, pool_size=2, strides=None, border_mode="valid",
+                 dim_ordering="th", input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.pool_size = _tuple(pool_size, self.rank)
+        self.strides = (_tuple(strides, self.rank) if strides is not None
+                        else self.pool_size)
+        self.border_mode = border_mode
+        self.dim_ordering = dim_ordering
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        spatial = (input_shape[2:] if self.dim_ordering == "th"
+                   else input_shape[1:-1])
+        out = tuple(_conv_out_dim(s, k, st, self.border_mode)
+                    for s, k, st in zip(spatial, self.pool_size,
+                                        self.strides))
+        if self.dim_ordering == "th":
+            return tuple(input_shape[:2]) + out
+        return (input_shape[0],) + out + (input_shape[-1],)
+
+    def call(self, params, x, **kw):
+        k, s, order = self.pool_size, self.strides, self.dim_ordering
+        ones = (1,) * self.rank
+        if self.op == "max":
+            x, padding = _padding(x, self.border_mode, k, s, ones, order,
+                                  value=float("-inf"))
+            return _from_nchw(F.max_pool2d(_as_nchw(x, order), k, s,
+                                           padding), order)
+        if self.border_mode != "same":
+            return _from_nchw(F.avg_pool2d(_as_nchw(x, order), k, s), order)
+        # SAME: the window sum over the count of real elements in it
+        count = torch.ones((1, 1) + _spatial(x, order), dtype=x.dtype,
+                           device=x.device)
+        count, c_pad = _padding(count, "same", k, s, ones, "th")
+        count = F.avg_pool2d(count, k, s, c_pad, divisor_override=1)
+        x, padding = _padding(x, "same", k, s, ones, order)
+        total = F.avg_pool2d(_as_nchw(x, order), k, s, padding,
+                             divisor_override=1)
+        return _from_nchw(total / count, order)
+
+
+class MaxPooling2D(_PoolND):
+    rank = 2
+    op = "max"
+
+
+class AveragePooling2D(_PoolND):
+    rank = 2
+    op = "avg"
+
+
+class _GlobalPool(KerasLayer):
+    rank = 2
+    op = "max"
+
+    def __init__(self, dim_ordering="th", input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.dim_ordering = dim_ordering
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        ch = input_shape[1] if self.dim_ordering == "th" else input_shape[-1]
+        return (input_shape[0], ch)
+
+    def call(self, params, x, **kw):
+        if self.dim_ordering == "th":
+            dims = tuple(range(2, x.dim()))
+        else:
+            dims = tuple(range(1, x.dim() - 1))
+        return x.amax(dim=dims) if self.op == "max" else x.mean(dim=dims)
+
+
+class GlobalMaxPooling2D(_GlobalPool):
+    rank = 2
+
+
+class GlobalAveragePooling2D(_GlobalPool):
+    op = "avg"
+
+
+# ---------------------------------------------------------------------------
+# Padding
+# ---------------------------------------------------------------------------
+
+
+class ZeroPadding2D(KerasLayer):
+    """Zero padding of the two spatial dims: ``padding`` is an int, (rows,
+    cols), (top, bottom, left, right) or ((top, bottom), (left, right))."""
+
+    def __init__(self, padding=(1, 1), dim_ordering="th", input_shape=None,
+                 name=None):
+        super().__init__(input_shape, name)
+        if isinstance(padding, int):
+            padding = (padding, padding)
+        if len(padding) == 2 and isinstance(padding[0], (tuple, list)):
+            self.padding = (tuple(padding[0]), tuple(padding[1]))
+        elif len(padding) == 2:
+            self.padding = ((padding[0], padding[0]),
+                            (padding[1], padding[1]))
+        else:
+            self.padding = ((padding[0], padding[1]),
+                            (padding[2], padding[3]))
+        self.dim_ordering = dim_ordering
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        (t, b), (l, r) = self.padding
+        if self.dim_ordering == "th":
+            h = None if input_shape[2] is None else input_shape[2] + t + b
+            w = None if input_shape[3] is None else input_shape[3] + l + r
+            return (input_shape[0], input_shape[1], h, w)
+        h = None if input_shape[1] is None else input_shape[1] + t + b
+        w = None if input_shape[2] is None else input_shape[2] + l + r
+        return (input_shape[0], h, w, input_shape[3])
+
+    def call(self, params, x, **kw):
+        return _pad(x, self.padding, self.dim_ordering)

@@ -1,24 +1,43 @@
 """Core layers (port of ``analytics_zoo_tpu.keras.layers.core``): the
-activation table and ``Dense``."""
+activation table, ``Activation``, ``Dense``, ``Dropout``, ``Flatten`` and
+``Merge``/``merge``."""
 
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Callable, List
 
 import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.keras.engine.base import KerasLayer, Shape
+from analytics_zoo_tpu_torch.ops.attention import dropout
+
+
+def hard_sigmoid(x):
+    """Keras hard_sigmoid: clip(0.2*x + 0.5, 0, 1)."""
+    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
 
 _ACTIVATIONS = {
     "linear": lambda x: x,
     "relu": F.relu,
+    "relu6": F.relu6,
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
+    "hard_sigmoid": hard_sigmoid,
     "softmax": lambda x: torch.softmax(x, dim=-1),
+    "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
+    "softplus": F.softplus,
+    "softsign": F.softsign,
+    "elu": F.elu,
+    "selu": F.selu,
     # jax.nn.gelu defaults to the tanh approximation; torch's default is
     # the exact erf form
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "swish": F.silu,
+    "silu": F.silu,
+    "exp": torch.exp,
 }
 
 
@@ -35,6 +54,18 @@ def get_activation(act) -> Callable:
         raise ValueError(
             f"Unknown activation '{act}'. Known: {sorted(_ACTIVATIONS)}"
         ) from None
+
+
+class Activation(KerasLayer):
+    """An activation from the table (or a callable) as a layer."""
+
+    def __init__(self, activation, input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.activation_name = activation
+        self.activation = get_activation(activation)
+
+    def call(self, params, x, **kw):
+        return self.activation(x)
 
 
 class Dense(KerasLayer):
@@ -66,3 +97,79 @@ class Dense(KerasLayer):
         if self.bias:
             y = y + params["bias"]
         return self.activation(y)
+
+
+class Dropout(KerasLayer):
+    """Inverted dropout in training, drawn from the generator passed as
+    ``rng`` (the context's step generator); the identity otherwise."""
+
+    def __init__(self, p: float, input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.p = float(p)
+
+    def call(self, params, x, training=False, rng=None, **kw):
+        if not training or self.p <= 0.0 or rng is None:
+            return x
+        return dropout(x, self.p, rng)
+
+
+class Flatten(KerasLayer):
+    """Collapse every dim but the batch into one (in the layout the tensor
+    has: NHWC for "tf" ordering)."""
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        return (input_shape[0], math.prod(input_shape[1:]))
+
+    def call(self, params, x, **kw):
+        return x.reshape(x.shape[0], -1)
+
+
+class Merge(KerasLayer):
+    """Multi-input merge: sum, mul, max, min, ave, concat, dot or cosine."""
+
+    def __init__(self, mode: str = "sum", concat_axis: int = -1,
+                 input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.mode = mode
+        self.concat_axis = concat_axis
+
+    def compute_output_shape(self, input_shape) -> Shape:
+        shapes: List[Shape] = list(input_shape)
+        if self.mode == "concat":
+            ax = (self.concat_axis if self.concat_axis >= 0
+                  else len(shapes[0]) + self.concat_axis)
+            out = list(shapes[0])
+            out[ax] = sum(s[ax] for s in shapes)
+            return tuple(out)
+        if self.mode in ("dot", "cosine"):
+            return (shapes[0][0], 1)
+        return tuple(shapes[0])
+
+    def call(self, params, xs, **kw):
+        if self.mode in _FOLDS:
+            out = xs[0]
+            for x in xs[1:]:
+                out = _FOLDS[self.mode](out, x)
+            return out
+        if self.mode == "ave":
+            return sum(xs) / len(xs)
+        if self.mode == "concat":
+            return torch.cat(xs, dim=self.concat_axis)
+        if self.mode in ("dot", "cosine"):
+            a, b = xs
+            if self.mode == "cosine":
+                a = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+                         + 1e-12)
+                b = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+                         + 1e-12)
+            return torch.sum(a * b, dim=-1, keepdim=True)
+        raise ValueError(f"Unknown merge mode {self.mode}")
+
+
+_FOLDS = {"sum": torch.add, "mul": torch.mul, "max": torch.maximum,
+          "min": torch.minimum}
+
+
+def merge(inputs, mode="sum", concat_axis=-1, name=None):
+    """Functional merge over Variables."""
+    return Merge(mode=mode, concat_axis=concat_axis, name=name)(inputs)

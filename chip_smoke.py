@@ -46,6 +46,19 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    dk/dv kernels, that one train step on the kernel route and on the plain
    route agree, and that ``Estimator.predict`` of the trained model agrees
    with ``InferenceModel`` serving it;
+3c. ResNet-50 and LeNet: ResNet-50 (full width and depth, 1000 classes,
+   raw logits, bf16 compute, random weights from ``--seed``) first runs
+   one eval forward and one train step in f32 at batch 2 on the card and
+   on the CPU from the same weights, held within ``CPU_BOUNDS``; then it
+   trains 2 epochs through ``Estimator.train`` with SGD(0.1, momentum 0.9)
+   over 2048 uint8 images cached on the card with a ``device_transform``
+   ((x - 127.5) / 127.5), at batch 256 halved on out-of-memory; checks
+   that every loss is finite, that every moving mean and variance moved
+   and was written back, and that ``Estimator.predict`` agrees with
+   ``InferenceModel`` serving the trained model; serves buckets (1, 224,
+   224, 3) and (32, 224, 224, 3) from two threads plus one dispatch/fetch
+   pair; LeNet-5 fits 2 epochs through ``compile``/``fit`` on host
+   arrays. The path launches none of the flash kernels (printed);
 4. times: the forward kernel (through ``flash_attention``, the call the
    main path makes, with the (batch, 1, 1, s) bf16 padding bias it passes;
    its device time under torch.profiler, cross-checked by CUDA events),
@@ -62,7 +75,8 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    kernels it dispatches, five timings of it, and of each masked backend
    forced) and their bounds; the per-bucket
    ``do_predict`` latency over fresh requests; the train step's p50/p90,
-   tokens/s and MFU.
+   tokens/s and MFU; ResNet-50's train step p50/p90 (images/s, MFU at
+   4.09e9 x 3 flop per image) and its ``do_predict`` latency per bucket.
 
 The build phase prints each kernel's ptxas registers and spills and, for
 the wgmma kernels, the SASS's top register and local-memory instructions
@@ -156,6 +170,21 @@ TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_EPOCHS, FIT_EPOCHS = 64, 320, 2, 1
 TIMED_STEPS = 20  # train steps timed in phase 4, after 3 warm-up steps
 THREADS, REQUESTS_PER_THREAD = 2, 3
 LATENCY_REQUESTS = 60  # sequential do_predict calls per bucket in phase 4
+
+# Phase 3c: ResNet-50 as bench.py's _child and _fit_path_record train it
+# (full width and depth, 1000 classes, raw logits, bf16 compute), 2048 uint8
+# images cached on the card, batch 256 halved on out-of-memory.
+RESNET_INPUT, RESNET_CLASSES = (224, 224, 3), 1000
+RESNET_IMAGES, RESNET_BATCH, RESNET_EPOCHS = 2048, 256, 2
+RESNET_BUCKETS = (1, 32)  # serving batch sizes
+RESNET_LATENCY_REQUESTS = 30  # per bucket in phase 4
+RESNET_FWD_FLOPS = 4.09e9  # per image, bench.py; a train step is 3x
+LENET_SAMPLES, LENET_BATCH, LENET_EPOCHS = 2048, 128, 2
+# The card-against-CPU check: one eval forward and one train step of
+# ResNet-50 in f32 (TF32 off) at batch 2 from the same weights, cuDNN's
+# channels-last route on the card against PyTorch's CPU route. Bounds:
+# CPU_BOUNDS (see check_card_against_cpu).
+CPU_CHECK_BATCH = 2
 
 
 def fail(msg: str) -> None:
@@ -953,6 +982,321 @@ def time_train_steps(net, cached):
     return p50, p90
 
 
+def resnet_transform(v):
+    """The device_transform of phase 3c: uint8 pixels to [-1, 1] on the
+    card (bench.py's _fit_path_record)."""
+    return (v.float() - 127.5) / 127.5
+
+
+def resnet_images(rng, n):
+    """``n`` uint8 images and int32 labels."""
+    x = rng.integers(0, 256, (n,) + RESNET_INPUT, dtype=np.uint8)
+    return x, rng.integers(0, RESNET_CLASSES, n).astype(np.int32)
+
+
+def train_resnet(net, cached):
+    """Estimator.train for RESNET_EPOCHS over ``cached`` at RESNET_BATCH,
+    halved on out-of-memory (from the same initial weights) as bench.py's
+    _child does. Returns (estimator, batch)."""
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.engine.triggers import MaxEpoch
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+
+    batch = RESNET_BATCH
+    start = net.params, net.model_state
+    while True:
+        est = Estimator(net, SGD(lr=0.1, momentum=0.9))
+        try:
+            est.train(cached,
+                      objectives.sparse_categorical_crossentropy_from_logits,
+                      end_trigger=MaxEpoch(RESNET_EPOCHS), batch_size=batch)
+            return est, batch
+        except torch.cuda.OutOfMemoryError:
+            if batch <= 8:
+                raise
+        # outside the handler, so that its traceback frees the batch
+        del est
+        net.params, net.model_state = start
+        torch.cuda.empty_cache()
+        batch //= 2
+        print(f"resnet: out of memory; retrying with batch {batch}",
+              flush=True)
+
+
+def build_resnet():
+    """ResNet-50 with random weights from the context's seed."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        resnet_50,
+    )
+
+    net = resnet_50(num_classes=RESNET_CLASSES, input_shape=RESNET_INPUT,
+                    classifier_activation=None)
+    net.ensure_params()
+    return net
+
+
+def resnet_slice(net, rng):
+    """Phase 3c: ResNet-50 trains RESNET_EPOCHS through Estimator.train on
+    a device-cached uint8 set with a device_transform, and its trained
+    state is served. Returns (estimator, cached set, batch)."""
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    init_state = net.model_state
+    x, y = resnet_images(rng, RESNET_IMAGES)
+    fs = ArrayFeatureSet(x, y)
+    fs.device_transform = resnet_transform
+    cached = fs.cache_device()
+    torch.cuda.synchronize()
+    print(f"resnet: ResNet-50 ({len(net.params)} weighted layers, "
+          f"{sum(t.numel() for layer in net.params.values() for t in layer.values())} "
+          f"parameters, {len(init_state)} batch norms) built, "
+          f"{RESNET_IMAGES} uint8 images cached in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counters = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    for c in counters:  # the ResNet path's run starts here
+        c.reset()
+    t0 = time.perf_counter()
+    est, batch = train_resnet(net, cached)
+    torch.cuda.synchronize()
+    launches = [c.count for c in counters]  # ... and ends here
+    wall = time.perf_counter() - t0
+    losses = est.train_losses
+    want = RESNET_EPOCHS * -(-RESNET_IMAGES // batch)
+    print(f"resnet: {len(losses)} steps at batch {batch} ({RESNET_EPOCHS} "
+          f"epochs Estimator.train) in {wall:.1f} s; losses "
+          f"{[round(v, 4) for v in losses]}; flash kernel launches "
+          f"{launches} (the ResNet path has no attention)", flush=True)
+    if len(losses) != want or not all(np.isfinite(losses)):
+        fail(f"ResNet-50 ran {len(losses)} steps (want {want}) or a loss is "
+             f"not finite")
+    if net.model_state is not est.tstate.model_state:
+        fail("Estimator.train did not write the trained state back")
+    unmoved = [f"{layer}/{k}" for layer, s in net.model_state.items()
+               for k, v in s.items()
+               if torch.equal(v.cpu(), init_state[layer][k])]
+    print(f"resnet: {2 * len(net.model_state) - len(unmoved)} of "
+          f"{2 * len(net.model_state)} moving statistics moved from their "
+          f"initial values", flush=True)
+    if unmoved:
+        fail(f"moving statistics did not move: {unmoved[:5]}")
+
+    rows = x[:RESNET_BUCKETS[-1]]
+    sub = ArrayFeatureSet(rows)
+    sub.device_transform = resnet_transform
+    pred = est.predict(sub, batch_size=len(rows))
+    served = InferenceModel().do_load_keras(net).do_predict(
+        (rows.astype(np.float32) - 127.5) / 127.5)
+    diff = float(np.abs(pred - served).max())
+    scale = max(1.0, float(np.abs(pred).max()))
+    print(f"resnet: max |Estimator.predict - InferenceModel.do_predict| = "
+          f"{diff:.3e} over {len(rows)} rows of logits (bound "
+          f"{PROB_BOUND:g} x max(1, max |logit|) = {PROB_BOUND * scale:.3e})",
+          flush=True)
+    if pred.shape != (len(rows), RESNET_CLASSES) or not diff <= \
+            PROB_BOUND * scale:
+        fail("the trained ResNet-50 serves other logits than it predicts")
+    return est, cached, batch
+
+
+# Card against CPU (see check_card_against_cpu): the card's error against
+# the f64 values may be at most CPU_FACTOR times the CPU's plus CPU_FLOOR.
+# Both f32 routes sum in other orders, so each is off the f64 values by
+# about as much: measured on an NVIDIA H100 (PERF.md), card / CPU ratios
+# of 0.65 (logits, 3.3e-7), 0.64 (loss), 1.24 (the update, 3.2e-2 of its
+# norm on the card: the reference's one-pass f32 variance loses digits at
+# batch 2, on both routes alike) and 0.91 (moving statistics). A factor 2
+# covers those; a wrong padding or layout is off by O(1). The floors
+# cover a CPU error near f32 rounding.
+CPU_FACTOR = 2.0
+CPU_FLOOR = {"logits": 1e-6, "loss": 1e-6, "params": 1e-3, "state": 1e-6}
+
+
+def check_card_against_cpu(net, rng):
+    """One eval forward and one train step of ResNet-50 in f32
+    (``compute_dtype=None``; the context keeps TF32 off) at batch 2 from
+    the same initial weights and state on the card and on the CPU, and in
+    f64 on the CPU as the exact values (the CPU side of this check is the
+    only work of phase 3c that runs on the CPU; it runs before training,
+    whose lr 0.1 lets eval-mode activations grow by orders of magnitude,
+    which a relative error need not survive). Errors relative to the
+    exact values: logits and loss as max |err| over max |exact|;
+    parameters as |err|_2 over |update|_2; moving statistics as max |err|
+    over max |exact| per leaf."""
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator, TrainState
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+
+    compute_dtype, net.compute_dtype = net.compute_dtype, None
+    try:
+        est = Estimator(net, SGD(lr=0.1, momentum=0.9))
+        est._ensure_state()
+        step = est._make_train_step(
+            objectives.sparse_categorical_crossentropy_from_logits)
+        images, labels = resnet_images(rng, CPU_CHECK_BATCH)
+        x = (images.astype(np.float32) - 127.5) / 127.5
+        runs = {}
+        for name, dev, dt in (("card", est.ctx.device, torch.float32),
+                              ("cpu", "cpu", torch.float32),
+                              ("exact", "cpu", torch.float64)):
+            params, state = (tree_map(lambda t: t.to("cpu", dt), tree)
+                             for tree in (est.tstate.params,
+                                          est.tstate.model_state))
+            ts = est.tstate if name == "card" else TrainState(
+                params, state, est._tx().init(params), 0)
+            xs = torch.tensor(x, device=dev, dtype=dt)
+            ys = torch.tensor(labels, device=dev)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits, _ = net.apply(ts.params, ts.model_state, xs)
+            new, loss = step(ts, xs, ys, None)
+            if name == "card":
+                torch.cuda.synchronize()
+            runs[name] = (logits.cpu().double(), loss.cpu().double(),
+                          [t.cpu().double() for t in tree_leaves(new.params)],
+                          [t.cpu().double()
+                           for t in tree_leaves(new.model_state)])
+            print(f"card-vs-cpu: {name} ({dev}, {str(dt)[6:]}) eval forward "
+                  f"and train step in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        start = [t.cpu().double() for t in tree_leaves(est.tstate.params)]
+        names = [f"{layer}/{k}" for layer, s in est.tstate.params.items()
+                 for k in s]
+    finally:
+        net.compute_dtype = compute_dtype
+    lx, sx, px, stx = runs["exact"]
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def norm(ts):
+        return torch.sqrt(sum((t ** 2).sum() for t in ts)).item()
+
+    update = norm([b - s for b, s in zip(px, start)])
+    errs = {}
+    for name in ("card", "cpu"):
+        lg, ls, pg, sg = runs[name]
+        errs[name] = {
+            "logits": rel(lg, lx), "loss": rel(ls, sx),
+            "params": norm([a - b for a, b in zip(pg, px)]) / update,
+            "state": max(rel(a, b) for a, b in zip(sg, stx))}
+        print(f"card-vs-cpu: {name} against exact: {errs[name]}", flush=True)
+    pg, pc = runs["card"][2], runs["cpu"][2]
+    worst = sorted(((norm([g - e]) / max(norm([e - s]), 1e-30),
+                     norm([c - e]) / max(norm([e - s]), 1e-30), n)
+                    for g, c, e, s, n in zip(pg, pc, px, start, names)),
+                   reverse=True)[:6]
+    print("card-vs-cpu: leaves with the largest card error against exact, "
+          "as |err|_2 / |update|_2 (card, cpu): " + ", ".join(
+              f"{n} ({a:.2e}, {b:.2e})" for a, b, n in worst), flush=True)
+    print(f"card-vs-cpu: ResNet-50 f32 batch {CPU_CHECK_BATCH}, loss "
+          f"{runs['card'][1].item():.6f} (card) {runs['cpu'][1].item():.6f} "
+          f"(cpu) {sx.item():.6f} (exact); bound: card error <= "
+          f"{CPU_FACTOR:g} x cpu error + {CPU_FLOOR}", flush=True)
+    bad = [k for k, v in errs["card"].items()
+           if not v <= CPU_FACTOR * errs["cpu"][k] + CPU_FLOOR[k]]
+    if bad:
+        fail(f"ResNet-50 on the card is further from the exact values than "
+             f"the CPU: {bad}")
+
+
+def serve_resnet(net, rng):
+    """Phase 3c serving: the trained ResNet-50 through InferenceModel on
+    buckets (1, 224, 224, 3) and (32, 224, 224, 3), requests from THREADS
+    threads and one dispatch/fetch pair. Returns (InferenceModel, the
+    requests by bucket)."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+
+    im = InferenceModel().do_load_keras(net)
+    requests = {(b,): [(resnet_images(rng, b)[0].astype(np.float32) - 127.5)
+                       / 127.5 for _ in range(THREADS * REQUESTS_PER_THREAD)]
+                for b in RESNET_BUCKETS}
+    outputs, dispatched, forwards = serve_slice(im, requests, THREADS)
+    flat = [r for reqs in requests.values() for r in reqs]
+    for out, req in zip(outputs, flat):
+        if out.shape != (len(req), RESNET_CLASSES) or \
+                out.dtype != np.float32 or not np.isfinite(out).all():
+            fail(f"ResNet-50 served {out.shape} {out.dtype} (finite: "
+                 f"{np.isfinite(out).all()}) for a batch of {len(req)}")
+    if not np.array_equal(dispatched, outputs[-1]):
+        fail("do_dispatch/do_fetch differs from do_predict on one request")
+    print(f"resnet: served {forwards} forwards over buckets "
+          f"{[(b,) + RESNET_INPUT for b in RESNET_BUCKETS]} from {THREADS} "
+          f"threads plus a dispatch/fetch pair: shapes and values ok",
+          flush=True)
+    return im, requests
+
+
+def fit_lenet(rng):
+    """Phase 3c: LeNet-5 through compile/fit for LENET_EPOCHS on host
+    arrays (28x28x1, 10 classes); every loss finite."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import lenet
+
+    x = rng.standard_normal((LENET_SAMPLES, 28, 28, 1)).astype(np.float32)
+    y = rng.integers(0, 10, LENET_SAMPLES).astype(np.int32)
+    net = lenet()
+    net.compile("adam", "sparse_categorical_crossentropy", ["accuracy"])
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=LENET_BATCH, nb_epoch=LENET_EPOCHS)
+    torch.cuda.synchronize()
+    losses = net._estimator.train_losses
+    want = LENET_EPOCHS * -(-LENET_SAMPLES // LENET_BATCH)
+    print(f"lenet: {len(losses)} steps of compile/fit in "
+          f"{time.perf_counter() - t0:.1f} s; first and last losses "
+          f"{losses[0]:.4f}, {losses[-1]:.4f}", flush=True)
+    if len(losses) != want or not all(np.isfinite(losses)):
+        fail(f"LeNet ran {len(losses)} steps (want {want}) or a loss is not "
+             f"finite")
+
+
+def time_resnet(est, cached, batch, im, requests):
+    """Phase 4 for ResNet-50: the Estimator's own train step on the cached
+    batches (host clock around each step, synchronised), p50/p90 over
+    TIMED_STEPS after 3 warm-up steps, images/s and MFU; the do_predict
+    latency per serving bucket."""
+    from analytics_zoo_tpu_torch.keras import objectives
+
+    step = est._make_train_step(
+        objectives.sparse_categorical_crossentropy_from_logits,
+        cached.device_transform)
+    batches = list(est._batches(cached, batch, 0))
+    lat = []
+    for i in range(3 + TIMED_STEPS):
+        xs, y, mask = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.tstate, _ = step(est.tstate, xs, y, mask)
+        torch.cuda.synchronize()
+        if i >= 3:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    p10, p50, p90 = np.percentile(lat, (10, 50, 90))
+    flops = RESNET_FWD_FLOPS * 3 * batch
+    mfu = flops / (p50 / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    print(f"times: ResNet-50 train step (batch {batch}, input "
+          f"{RESNET_INPUT}, bf16) over "
+          f"{len(lat)} steps: p50 {p50:.3f} ms, p90 {p90:.3f} ms, p10 "
+          f"{p10:.3f} ms, (p90-p10)/p50 {(p90 - p10) / p50:.3f}; "
+          f"{batch / (p50 / 1e3):.1f} images/s; {flops:.3e} flop/step -> "
+          f"MFU {mfu:.4f} of 989 TFLOP/s bf16; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    for (b,), reqs in requests.items():
+        lat = []
+        for i in range(RESNET_LATENCY_REQUESTS):
+            t0 = time.perf_counter()
+            im.do_predict(reqs[i % len(reqs)])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        p10, p50, p90 = np.percentile(lat, (10, 50, 90))
+        print(f"times: ResNet-50 do_predict bucket {(b,) + RESNET_INPUT} over "
+              f"{len(lat)} sequential requests: p50 {p50:.3f} ms, p90 "
+              f"{p90:.3f} ms, p10 {p10:.3f} ms, min {min(lat):.3f} ms, max "
+              f"{max(lat):.3f} ms; {b / (p50 / 1e3):.1f} images/s at p50",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1037,6 +1381,13 @@ def main(argv=None) -> int:
     train_net, cached, _, train_launches = train_slice(fa, rng)
     check_step_routes(fa, train_net, cached)
 
+    # -- 3c. the slice: ResNet-50 trained, checked and served; LeNet fit ---
+    resnet = build_resnet()
+    check_card_against_cpu(resnet, rng)
+    resnet_est, resnet_cached, resnet_batch = resnet_slice(resnet, rng)
+    resnet_im, resnet_requests = serve_resnet(resnet, rng)
+    fit_lenet(rng)
+
     # -- 4. times -----------------------------------------------------------
     fwd = time_forward(fa, device, gen)
     for batch, seq in BUCKETS:
@@ -1055,6 +1406,8 @@ def main(argv=None) -> int:
 
     bwd = time_backward(fa, device, gen)
     time_train_steps(train_net, cached)
+    time_resnet(resnet_est, resnet_cached, resnet_batch, resnet_im,
+                resnet_requests)
 
     bwd_src = "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu"
     bwd_pair = ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]

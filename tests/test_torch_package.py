@@ -47,6 +47,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import analytics_zoo_tpu_torch.tfpark.bert\n"
             "import analytics_zoo_tpu_torch.engine.estimator\n"
             "import analytics_zoo_tpu_torch.keras.engine.topology\n"
+            "import analytics_zoo_tpu_torch.keras.layers\n"
+            "import analytics_zoo_tpu_torch.models.image.imageclassification\n"
+            "import analytics_zoo_tpu_torch.ops.batch_norm\n"
+            "import analytics_zoo_tpu_torch.autograd.variable\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'analytics_zoo_tpu.'))]\n"
             "assert not bad and 'analytics_zoo_tpu' not in sys.modules, bad\n")
