@@ -14,6 +14,7 @@ import logging
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.config import ZooConfig
@@ -58,6 +59,16 @@ class NNContext:
         self.step_generator = torch.Generator(
             device=self.device).manual_seed(int(self.conf.seed))
         logger.info("Initialized NNContext on %s", self.device)
+
+
+def host_to_device(a, device) -> torch.Tensor:
+    """A new tensor on ``device`` holding the host array ``a``: a copy,
+    never an alias (the caller may reuse its arrays at once), with float64
+    made float32 as the JAX package makes it (x64 off). Integer dtypes stay
+    as they are: the losses and the embedding lookup take int64."""
+    arr = np.asarray(a)
+    return torch.tensor(arr, device=device, dtype=(
+        torch.float32 if arr.dtype == np.float64 else None))
 
 
 def init_nncontext(conf: Optional[ZooConfig] = None, **kwargs) -> NNContext:

@@ -15,8 +15,10 @@ torch cannot reproduce; the port runs no fused epochs, so its cached runs
 keep the numpy order. A set's ``device_transform`` (carried into its
 device cache) is a per-batch function the Estimator applies to ``x`` on the
 device: uint8 pixels cross to and stay on the card as uint8 and are
-normalised per batch there. Streaming pipelines, multi-host windows,
-mid-epoch resume offsets and the row-sharded cache are not ported yet.
+normalised per batch there. Float64 arrays reach the device as float32,
+as in the JAX package. A resumed epoch skips its first batches in the
+Estimator. Streaming pipelines, multi-host windows and the row-sharded
+cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +28,10 @@ from typing import Any, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+from analytics_zoo_tpu_torch.common.nncontext import (
+    get_nncontext,
+    host_to_device,
+)
 
 ArrayLike = Union[np.ndarray, Sequence[np.ndarray]]
 
@@ -162,10 +167,11 @@ class DeviceCachedFeatureSet(ArrayFeatureSet):
     def __init__(self, x: ArrayLike, y: Optional[ArrayLike] = None):
         super().__init__(x, y)
         device = get_nncontext().device
-        # torch.tensor copies: the cache never aliases the caller's arrays
-        self.device_xs = [torch.tensor(a, device=device) for a in self.xs]
+        # copies (the cache never aliases the caller's arrays), float64
+        # made float32
+        self.device_xs = [host_to_device(a, device) for a in self.xs]
         self.device_ys = (None if self.ys is None else
-                          [torch.tensor(a, device=device) for a in self.ys])
+                          [host_to_device(a, device) for a in self.ys])
 
     def gather(self, idx: torch.Tensor):
         """(x, y) of the rows ``idx`` (a device index tensor), on the

@@ -1,5 +1,5 @@
 """The training engine (port of ``analytics_zoo_tpu.engine.estimator``, the
-subset the training slice needs).
+per-step path with checkpoints, summaries and gradient accumulation).
 
     train step = grad(masked per-sample loss + regularization)
                  -> zero frozen grads -> clip -> optimizer -> add updates
@@ -15,37 +15,60 @@ so there is no jit, no step cache and no fused epoch or scan dispatch.
 
 Losses stay on the device: the host reads them once per epoch (or every
 step when a trigger reads the loss, as ``MinLoss`` does), so the loop adds
-no host sync per step. Host batches are copied to the device
-(``torch.tensor``, never ``torch.from_numpy``, which would alias arrays the
-caller may reuse); a feature set's ``device_transform`` runs on the device
-batch before the cast. The model state (batch norm's moving statistics)
-threads through the steps, and at the end of ``train`` the trained
-parameters and state are written back to ``model.params`` and
+no host sync per step; that read is the drain at which the train summary
+records each step's ``Loss`` and the ``Throughput`` since the last drain.
+Host batches are copied to the device (``host_to_device``: float64 made
+float32, never an alias of the caller's arrays); a feature set's
+``device_transform`` runs on the device batch before the cast. The model
+state (batch norm's moving statistics) threads through the steps, and
+whenever the trained state changes hands (the end of ``train``, a loaded
+checkpoint or weights) it is written back to ``model.params`` and
 ``model.model_state``, where ``InferenceModel.do_load_keras`` and a later
-``Estimator`` find them.
+``Estimator`` find them. The state is built outside inference mode, even
+when ``evaluate`` or ``predict`` builds it, so that it trains later.
+
+Checkpoints (``set_checkpoint``, ``model_dir``) go through
+:class:`~analytics_zoo_tpu_torch.ft.manager.CheckpointManager` at the
+``checkpoint_trigger`` (every epoch by default; a mid-epoch trigger fires
+after its step) and carry the whole TrainState, the epoch, iteration and
+in-epoch step, and the position of the step generator (the dropout
+stream), so that ``train(..., auto_resume=True)`` replays the epoch order,
+skips the batches already taken and continues bitwise. A flagged
+preemption saves, then raises ``PreemptedError``.
 
 Not ported yet, and raising ``NotImplementedError`` where the JAX package
-has a setter or an entry point: checkpoints and resume, summaries,
-profiling, the step watchdog, preemption, gradient accumulation, ZeRO-1,
+has a setter or an entry point: profiling, the step watchdog, ZeRO-1,
 ``train_distributed`` and ``train_pipelined``.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
-import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+from analytics_zoo_tpu_torch.common.nncontext import (
+    get_nncontext,
+    host_to_device,
+)
 from analytics_zoo_tpu_torch.common.tree import (
     tree_leaves,
     tree_map,
     tree_unflatten,
 )
+from analytics_zoo_tpu_torch.engine import checkpoint as ckpt_lib
 from analytics_zoo_tpu_torch.engine import triggers as trig
+from analytics_zoo_tpu_torch.engine.summary import (
+    TrainSummary,
+    ValidationSummary,
+)
+from analytics_zoo_tpu_torch.ft.atomic import (
+    CheckpointCorruptError,
+    CheckpointError,
+)
 from analytics_zoo_tpu_torch.keras import metrics as metrics_lib
 from analytics_zoo_tpu_torch.keras import objectives as objectives_lib
 from analytics_zoo_tpu_torch.keras.optimizers import GradientTransformation
@@ -76,10 +99,12 @@ def _not_ported(what: str):
 
 
 def _masked_mean(ps, mask):
-    """Mean of a per-sample loss over the valid (mask 1) rows."""
+    """Mean of a per-sample loss over the valid (mask 1) rows, and the
+    number of rows it averages (the accumulation weight)."""
     if mask is None:
-        return ps.mean()
-    return (ps * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        return ps.mean(), torch.tensor(float(ps.shape[0]), device=ps.device)
+    count = mask.sum()
+    return (ps * mask).sum() / torch.clamp_min(count, 1.0), count
 
 
 def _clip_by_global_norm(grads, max_norm: float):
@@ -89,6 +114,50 @@ def _clip_by_global_norm(grads, max_norm: float):
     norm = torch.sqrt(sum((g * g).sum() for g in tree_leaves(grads)))
     return tree_map(lambda g: torch.where(norm < max_norm, g,
                                           (g / norm) * max_norm), grads)
+
+
+class _AccumTx(NamedTuple):
+    """init/update pair of count-weighted gradient accumulation: the
+    ``update`` takes the micro-batch's valid-sample count as an extra
+    argument, and returns None updates on the micro-steps that apply
+    nothing."""
+    init: Callable
+    update: Callable
+
+
+def count_weighted_accumulation(tx: GradientTransformation,
+                                k: int) -> _AccumTx:
+    """Gradient accumulation over K micro-batches, each micro-batch
+    gradient weighted by its number of valid (non-wrap-pad) samples, so
+    every window, the masked tail of an epoch included, applies exactly
+    ``sum_i(n_i * g_i) / sum_i(n_i)``: the gradient of the concatenated
+    big batch. The state is the JAX package's tuple (inner state,
+    accumulator, f32 sample count, micro-step); the micro-step is a host
+    int, so deciding to apply reads nothing from the device."""
+    def init(params):
+        acc = tree_map(torch.zeros_like, params)
+        device = tree_leaves(params)[0].device
+        return (tx.init(params), acc, torch.zeros((), device=device), 0)
+
+    def update(grads, state, params, count):
+        inner, acc, acc_n, mini = state
+        acc = tree_map(lambda a, g: a + count * g, acc, grads)
+        acc_n = acc_n + count
+        if mini + 1 < k:
+            return None, (inner, acc, acc_n, mini + 1)
+        mean = tree_map(lambda a: a / torch.clamp_min(acc_n, 1.0), acc)
+        updates, inner = tx.update(mean, inner, params)
+        return updates, (inner, tree_map(torch.zeros_like, acc),
+                         torch.zeros_like(acc_n), 0)
+
+    return _AccumTx(init, update)
+
+
+def _generator_state(gen: torch.Generator) -> str:
+    """A generator's position as JSON-safe text (hex of ``get_state()``:
+    16 bytes on a CUDA generator, the Mersenne Twister's 5056 on the
+    CPU)."""
+    return gen.get_state().numpy().tobytes().hex()
 
 
 class TrainState(NamedTuple):
@@ -107,21 +176,33 @@ class Estimator:
                      GradientTransformation] = None,
                  model_dir: Optional[str] = None, zero1: bool = False,
                  gradient_accumulation: int = 1):
-        if model_dir is not None:
-            _not_ported("checkpointing (model_dir)")
         if zero1:
             _not_ported("ZeRO-1")
-        if int(gradient_accumulation) != 1:
-            _not_ported("gradient accumulation")
         self.model = model
         self.optim_method = optim_method
+        # K > 1: apply the optimizer every Kth micro-batch on the
+        # count-weighted mean of the K gradients (count_weighted_accumulation);
+        # each micro-batch still counts as one iteration
+        self.gradient_accumulation = int(gradient_accumulation)
+        if self.gradient_accumulation < 1:
+            raise ValueError(f"gradient_accumulation must be >= 1, got "
+                             f"{gradient_accumulation}")
         self.ctx = get_nncontext()
         self._clip_constant = None
         self._clip_l2norm: Optional[float] = None
+        self._checkpoint_path: Optional[str] = model_dir
+        self._checkpoint_overwrite = True
+        self._ckpt_keep_last: Optional[int] = None
+        self._ckpt_keep_every: Optional[int] = None
+        self._ckpt_async = True
+        self._ckpt_manager = None  # lazy ft.manager.CheckpointManager
+        self._preemption = None    # armed ft.preemption.PreemptionHandler
+        self.train_summary: Optional[TrainSummary] = None
+        self.val_summary: Optional[ValidationSummary] = None
         self.tstate: Optional[TrainState] = None
         self.run_state = trig.RunState()
         # every step's loss, in order (read at epoch ends): the series the
-        # JAX package's train summary records as "Loss"
+        # train summary records as "Loss"
         self.train_losses: List[float] = []
 
     # -- configuration ---------------------------------------------------
@@ -145,17 +226,47 @@ class Estimator:
         self._clip_l2norm = None
         return self
 
-    def set_checkpoint(self, *args, **kwargs):
-        _not_ported("checkpointing")
+    def set_checkpoint(self, path: str, overwrite: bool = True,
+                       keep_last: Optional[int] = None,
+                       keep_every: Optional[int] = None,
+                       asynchronous: bool = True):
+        """Write ``ckpt_N`` checkpoints under ``path`` (N the iteration)
+        at the ``checkpoint_trigger`` of ``train`` (every epoch by
+        default). The host snapshot is taken at the trigger; the
+        serialization and the atomic commit run on a background writer
+        (``asynchronous=False`` blocks instead). ``keep_last`` and
+        ``keep_every`` sweep old checkpoints (keep the N newest, and every
+        one whose iteration is a multiple of M); the default keeps all."""
+        if self._ckpt_manager is not None:
+            self._ckpt_manager.close()
+            self._ckpt_manager = None
+        self._checkpoint_path = path
+        self._checkpoint_overwrite = overwrite
+        self._ckpt_keep_last = keep_last
+        self._ckpt_keep_every = keep_every
+        self._ckpt_async = asynchronous
+        return self
 
-    def resume_from_checkpoint(self, *args, **kwargs):
-        _not_ported("checkpointing")
+    def set_preemption_handler(self, handler=None):
+        """Arm save-then-exit preemption: ``train`` checks the handler's
+        flag at every step boundary and, once flagged, writes a checkpoint
+        (when ``set_checkpoint`` is configured), waits until it is
+        committed and raises
+        :class:`~analytics_zoo_tpu_torch.ft.preemption.PreemptedError`.
+        ``handler=None`` creates and installs one (main thread only)."""
+        from analytics_zoo_tpu_torch.ft.preemption import PreemptionHandler
 
-    def load_checkpoint(self, *args, **kwargs):
-        _not_ported("checkpointing")
+        if handler is None:
+            handler = PreemptionHandler().install()
+        self._preemption = handler
+        return self
 
-    def set_tensorboard(self, *args, **kwargs):
-        _not_ported("training summaries")
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        """Attach TrainSummary/ValidationSummary writers under
+        ``log_dir/app_name``."""
+        self.train_summary = TrainSummary(log_dir, app_name)
+        self.val_summary = ValidationSummary(log_dir, app_name)
+        return self
 
     def set_profile(self, *args, **kwargs):
         _not_ported("profiling")
@@ -163,20 +274,17 @@ class Estimator:
     def set_step_watchdog(self, *args, **kwargs):
         _not_ported("the step watchdog")
 
-    def set_preemption_handler(self, *args, **kwargs):
-        _not_ported("preemption handling")
-
     def train_distributed(self, *args, **kwargs):
         _not_ported("train_distributed")
 
     def train_pipelined(self, *args, **kwargs):
         _not_ported("train_pipelined")
 
-    def _tx(self) -> GradientTransformation:
+    def _tx(self):
         if self.optim_method is None:
             raise RuntimeError("No optimizer set — call compile(optimizer, "
                                "loss) before training")
-        opt = self.optim_method
+        tx = self.optim_method
         if self._clip_constant is not None:
             lo, hi = self._clip_constant
 
@@ -188,34 +296,132 @@ class Estimator:
             def clip(grads):
                 return _clip_by_global_norm(grads, max_norm)
         else:
-            return opt
-        return GradientTransformation(
-            opt.init, lambda grads, state, params=None: opt.update(
-                clip(grads), state, params))
+            clip = None
+        if clip is not None:
+            opt = tx
+            tx = GradientTransformation(
+                opt.init, lambda grads, state, params=None: opt.update(
+                    clip(grads), state, params))
+        if self.gradient_accumulation > 1:
+            # clipping applies to the window's mean gradient, as in the
+            # big-batch run
+            tx = count_weighted_accumulation(tx, self.gradient_accumulation)
+        return tx
 
     # -- state -----------------------------------------------------------
+
+    def _init_opt_state(self, params):
+        # outside inference mode, as in _ensure_state
+        with torch.inference_mode(False):
+            return self._tx().init(params)
 
     def _ensure_state(self):
         """The train state from the model's parameters (drawn from the
         context's generator if it has none), copied to the device as
-        float32 master weights."""
+        float32 master weights. Built outside inference mode even when
+        ``evaluate`` or ``predict`` builds it: inference tensors could
+        never be trained."""
         if self.tstate is None:
-            self.model.ensure_params()
-            dev = self.ctx.device
-            params, state = (
-                tree_map(lambda t: t.detach().to(dev, copy=True), tree)
-                for tree in (self.model.params, self.model.model_state or {}))
-            opt_state = (self._tx().init(params)
-                         if self.optim_method is not None else None)
-            self.tstate = TrainState(params, state, opt_state, 0)
+            with torch.inference_mode(False):
+                self.model.ensure_params()
+                dev = self.ctx.device
+                params, state = (
+                    tree_map(lambda t: t.detach().to(dev, copy=True), tree)
+                    for tree in (self.model.params,
+                                 self.model.model_state or {}))
+                opt_state = (self._init_opt_state(params)
+                             if self.optim_method is not None else None)
+                self.tstate = TrainState(params, state, opt_state, 0)
+
+    def _write_back(self) -> None:
+        """Hand the estimator's parameters and state to the model."""
+        self.model.params = self.tstate.params
+        self.model.model_state = self.tstate.model_state
 
     def reset_optimizer(self, optim_method: GradientTransformation) -> None:
         """Swap the optimizer, rebuilding its state for the current params
         (a compile() after training)."""
+        if self.run_state.iteration > 0:
+            logger.warning(
+                "reset_optimizer after %d iterations: the optimizer state is "
+                "reinitialized (compile first, then resume)",
+                self.run_state.iteration)
         self.optim_method = optim_method
         if self.tstate is not None:
             self.tstate = self.tstate._replace(
-                opt_state=self._tx().init(self.tstate.params))
+                opt_state=self._init_opt_state(self.tstate.params))
+
+    def resume_from_checkpoint(self, directory: Optional[str] = None) -> bool:
+        """Restore the newest committed checkpoint under ``directory``
+        (default: the ``set_checkpoint`` directory), falling back past a
+        corrupt one; False when there is none. Training then continues at
+        the recorded epoch, iteration and in-epoch step."""
+        d = directory or self._checkpoint_path
+        if not d:
+            raise ValueError(
+                "no checkpoint directory: pass one or call set_checkpoint")
+        if self.optim_method is None:
+            # a later compile() would reinitialize the restored moments
+            raise RuntimeError(
+                "resume_from_checkpoint before an optimizer is set: call "
+                "compile()/set the optimizer FIRST, then resume (compiling "
+                "afterwards would reinitialize the restored optimizer state)")
+        candidates = ckpt_lib.committed_checkpoints(d)
+        if not candidates:
+            return False
+        last_err = None
+        for _step, path in reversed(candidates):
+            try:
+                self.load_checkpoint(path)
+            except CheckpointCorruptError as e:
+                logger.warning("checkpoint %s is corrupt (%s): trying the "
+                               "previous committed one", path, e)
+                last_err = e
+                continue
+            logger.info("Resumed from %s (epoch %d, iteration %d, "
+                        "epoch_step %d)", path, self.run_state.epoch,
+                        self.run_state.iteration, self.run_state.epoch_step)
+            return True
+        raise CheckpointError(
+            f"every checkpoint under {d!r} is corrupt") from last_err
+
+    def load_checkpoint(self, path: str):
+        """Restore the params, model state, optimizer state, step, run
+        counters and step-generator position from a ``ckpt_N``
+        checkpoint."""
+        saved_k = ckpt_lib.peek_metadata(path).get("gradient_accumulation")
+        if saved_k is not None and int(saved_k) != self.gradient_accumulation:
+            raise ValueError(
+                f"Checkpoint at {path!r} was saved with "
+                f"gradient_accumulation={saved_k}, but this Estimator was "
+                f"built with gradient_accumulation="
+                f"{self.gradient_accumulation}; the optimizer states are "
+                f"incompatible. Rebuild the Estimator with "
+                f"gradient_accumulation={saved_k} to restore it.")
+        self._ensure_state()
+        restored, meta = ckpt_lib.load_checkpoint(path, self.tstate)
+        dev = self.ctx.device
+        with torch.inference_mode(False):
+            self.tstate = tree_map(
+                lambda a, cur: int(a) if isinstance(cur, int)
+                else torch.tensor(a, device=dev), restored, self.tstate)
+        self._write_back()
+        rs = self.run_state
+        rs.epoch = int(meta.get("epoch", 0))
+        rs.iteration = int(meta.get("iteration", 0))
+        # the in-epoch offset and the dropout stream: with both, the resumed
+        # run takes the uninterrupted run's batches and draws
+        rs.epoch_step = int(meta.get("epoch_step", 0))
+        if "step_generator" in meta:
+            state = torch.tensor(list(bytes.fromhex(meta["step_generator"])),
+                                 dtype=torch.uint8)
+            try:
+                self.ctx.step_generator.set_state(state)
+            except RuntimeError as e:
+                logger.warning("checkpoint %s: the step generator's position "
+                               "was saved on another device type (%s); the "
+                               "dropout stream restarts", path, e)
+        return self
 
     def _cast_for_compute(self, tree):
         """Mixed precision: float32 leaves cast to the model's compute
@@ -259,6 +465,7 @@ class Estimator:
         """``step(tstate, xs, y, mask) -> (tstate, device loss)``: forward
         (``device_transform`` first), backward and update."""
         tx = self._tx()
+        accumulate = self.gradient_accumulation > 1
         model, cast = self.model, self._cast_for_compute
         generator = self.ctx.step_generator
         ps_criterion = objectives_lib.get_per_sample(criterion)
@@ -275,19 +482,22 @@ class Estimator:
             pred = pred.float()
             if mask is not None and ps_criterion is not None:
                 # wrap-pad duplicates get zero loss weight
-                loss = _masked_mean(ps_criterion(y, pred), mask)
+                loss, count = _masked_mean(ps_criterion(y, pred), mask)
             else:
                 raw = criterion(y, pred)
-                loss = (_masked_mean(raw.reshape(raw.shape[0], -1)
-                                     .mean(dim=-1), mask)
-                        if raw.dim() else raw)
-            return loss + model.regularization(params), new_state, loss
+                if raw.dim():
+                    loss, count = _masked_mean(
+                        raw.reshape(raw.shape[0], -1).mean(dim=-1), mask)
+                else:
+                    loss, count = raw, torch.tensor(
+                        float(tree_leaves(y)[0].shape[0]), device=raw.device)
+            return loss + model.regularization(params), new_state, loss, count
 
         def step(tstate: TrainState, xs, y, mask):
             leaves = [t.detach().requires_grad_(True)
                       for t in tree_leaves(tstate.params)]
             with torch.enable_grad():
-                total, new_mstate, loss = loss_fn(
+                total, new_mstate, loss, count = loss_fn(
                     tree_unflatten(tstate.params, leaves),
                     tstate.model_state, xs, y, mask)
                 grads = torch.autograd.grad(total, leaves, allow_unused=True)
@@ -299,16 +509,22 @@ class Estimator:
                     # neither inflate the clip norm nor feed moments
                     grads = [g if t else torch.zeros_like(g)
                              for g, t in zip(grads, trainable)]
-                updates, new_opt = tx.update(
-                    tree_unflatten(tstate.params, grads), tstate.opt_state,
-                    tstate.params)
-                updates = tree_leaves(updates)
-                if trainable is not None:
-                    updates = [u if t else torch.zeros_like(u)
-                               for u, t in zip(updates, trainable)]
-                new_params = tree_unflatten(
-                    tstate.params, [p + u for p, u in zip(
-                        tree_leaves(tstate.params), updates)])
+                grads = tree_unflatten(tstate.params, grads)
+                if accumulate:
+                    updates, new_opt = tx.update(grads, tstate.opt_state,
+                                                 tstate.params, count)
+                else:
+                    updates, new_opt = tx.update(grads, tstate.opt_state,
+                                                 tstate.params)
+                new_params = tstate.params
+                if updates is not None:  # None: a micro-step of a window
+                    updates = tree_leaves(updates)
+                    if trainable is not None:
+                        updates = [u if t else torch.zeros_like(u)
+                                   for u, t in zip(updates, trainable)]
+                    new_params = tree_unflatten(
+                        tstate.params, [p + u for p, u in zip(
+                            tree_leaves(tstate.params), updates)])
             return (TrainState(new_params, new_mstate, new_opt,
                                tstate.step + 1), loss.detach())
 
@@ -318,27 +534,27 @@ class Estimator:
 
     def _to_device(self, tree):
         dev = self.ctx.device
-        # torch.tensor copies: the caller may reuse its arrays at once
-        return tree_map(lambda a: None if a is None else torch.tensor(
-            np.asarray(a), device=dev), tree)
+        return tree_map(lambda a: host_to_device(a, dev), tree)
 
-    def _batches(self, data, batch_size: int, epoch: Optional[int]):
+    def _batches(self, data, batch_size: int, epoch: Optional[int],
+                 skip: int = 0):
         """Device (x, y, mask) batches: training order for ``epoch``, or
-        dataset order when ``epoch`` is None. A device-cached set gathers
-        on the device from the host's index vector."""
+        dataset order when ``epoch`` is None, without the first ``skip``
+        (a resumed epoch's batches already taken). A device-cached set
+        gathers on the device from the host's index vector."""
         dev = self.ctx.device
         gather = getattr(data, "gather", None)
         if gather is not None:
             index_batches = (data.eval_index_batches(batch_size)
                              if epoch is None else data.train_index_batches(
                                  batch_size, shuffle=True, seed=epoch))
-            for idx, mask in index_batches:
+            for idx, mask in itertools.islice(index_batches, skip, None):
                 x, y = gather(torch.tensor(idx, device=dev))
                 yield x, y, torch.tensor(mask, device=dev)
             return
         host = (data.eval_batches(batch_size) if epoch is None
                 else data.train_batches(batch_size, shuffle=True, seed=epoch))
-        for x, y, mask in host:
+        for x, y, mask in itertools.islice(host, skip, None):
             yield self._to_device(x), self._to_device(y), torch.tensor(
                 mask, device=dev)
 
@@ -354,14 +570,24 @@ class Estimator:
               auto_resume: bool = False) -> "Estimator":
         """Train until ``end_trigger`` (default: one more epoch) over a
         :class:`~analytics_zoo_tpu_torch.data.feature_set.FeatureSet`
-        (host arrays, or a device-cached set), then write the trained
+        (host arrays, or a device-cached set), checkpointing at
+        ``checkpoint_trigger`` (default: every epoch) when
+        ``set_checkpoint`` is configured, then write the trained
         parameters and state back to ``model.params`` and
-        ``model.model_state``."""
-        if checkpoint_trigger is not None or auto_resume:
-            _not_ported("checkpointing")
-        self._ensure_state()
+        ``model.model_state``.
+
+        ``auto_resume=True`` first restores the newest committed
+        checkpoint under the ``set_checkpoint`` directory (nothing when
+        there is none, or when this estimator has already trained), so a
+        restarted process continues bitwise where the last one stopped."""
         rs = self.run_state
+        if (auto_resume and self._checkpoint_path is not None
+                and rs.iteration == 0):
+            self.resume_from_checkpoint()
+        self._ensure_state()
         end_trigger = end_trigger or trig.MaxEpoch(rs.epoch + 1)
+        checkpoint_trigger = checkpoint_trigger or trig.EveryEpoch()
+        mid_epoch_ckpt = not isinstance(checkpoint_trigger, trig.EveryEpoch)
         step = self._make_train_step(
             criterion, getattr(train_set, "device_transform", None))
         sync_loss = _uses_loss(end_trigger)
@@ -371,38 +597,137 @@ class Estimator:
                 "criterion %s has no per-sample form: the wrap-padded tail "
                 "batch weights duplicated samples twice",
                 getattr(criterion, "__name__", criterion))
-        while not end_trigger(rs):
-            rs.epoch_finished = False
-            epoch_start = time.time()
-            losses = []  # device scalars, read once at the epoch's end
-            for xs, y, mask in self._batches(train_set, batch_size, rs.epoch):
-                self.tstate, loss = step(self.tstate, xs, y, mask)
-                rs.iteration += 1
-                rs.epoch_step += 1
-                losses.append(loss)
-                if sync_loss:
-                    rs.loss = loss.item()
-                if end_trigger(rs):
-                    break
-            if losses:
-                vals = torch.stack(losses).tolist()
-                rs.loss = vals[-1]
-                self.train_losses.extend(vals)
-                logger.info("Epoch %d done in %.2fs — mean loss %.5f",
-                            rs.epoch + 1, time.time() - epoch_start,
-                            sum(vals) / len(vals))
-            rs.epoch += 1
-            rs.epoch_step = 0
-            rs.epoch_finished = True
-            if validation_set is not None and validation_method:
-                results = self.evaluate(validation_set, validation_method,
-                                        validation_batch_size or batch_size)
-                for value in results.values():
-                    rs.score = value
-                logger.info("Validation @ epoch %d: %s", rs.epoch, results)
-        self.model.params = self.tstate.params
-        self.model.model_state = self.tstate.model_state
+        try:
+            while not end_trigger(rs):
+                rs.epoch_finished = False
+                epoch_start = last_drain = time.time()
+                first_it = rs.iteration + 1
+                losses = []  # device scalars, read once at the epoch's end
+                # > 0 only right after a mid-epoch resume: the batches of
+                # this epoch (order fixed by seed=epoch) already taken
+                for xs, y, mask in self._batches(train_set, batch_size,
+                                                 rs.epoch, rs.epoch_step):
+                    self.tstate, loss = step(self.tstate, xs, y, mask)
+                    rs.iteration += 1
+                    rs.epoch_step += 1
+                    losses.append(loss)
+                    if sync_loss:
+                        rs.loss = loss.item()
+                    self._check_preemption()
+                    if end_trigger(rs):
+                        break
+                    if mid_epoch_ckpt and checkpoint_trigger(rs):
+                        self._maybe_checkpoint()
+                if losses:
+                    vals = torch.stack(losses).tolist()
+                    dt = time.time() - last_drain
+                    rs.loss = vals[-1]
+                    self.train_losses.extend(vals)
+                    if self.train_summary is not None:
+                        for j, v in enumerate(vals):
+                            self.train_summary.add_scalar("Loss", v,
+                                                          first_it + j)
+                        if dt > 0:
+                            self.train_summary.add_scalar(
+                                "Throughput", len(vals) * batch_size / dt,
+                                first_it + len(vals) - 1)
+                    logger.info("Epoch %d done in %.2fs — mean loss %.5f",
+                                rs.epoch + 1, time.time() - epoch_start,
+                                sum(vals) / len(vals))
+                rs.epoch += 1
+                rs.epoch_step = 0
+                rs.epoch_finished = True
+                if checkpoint_trigger(rs):
+                    self._maybe_checkpoint()
+                if validation_set is not None and validation_method:
+                    results = self.evaluate(
+                        validation_set, validation_method,
+                        validation_batch_size or batch_size)
+                    for name, value in results.items():
+                        rs.score = value
+                        if self.val_summary is not None:
+                            self.val_summary.add_scalar(name, value,
+                                                        rs.iteration)
+                    logger.info("Validation @ epoch %d: %s", rs.epoch,
+                                results)
+                self._check_preemption()
+            # raise writer failures, and make every triggered save durable
+            # before returning
+            self._drain_checkpoints()
+        finally:
+            self._drain_checkpoints(raising=False)
+            self._write_back()
         return self
+
+    # -- checkpoints and preemption --------------------------------------
+
+    def _checkpoint_manager(self):
+        """The lazily created asynchronous checkpoint manager for the
+        ``set_checkpoint`` directory."""
+        if self._ckpt_manager is None:
+            from analytics_zoo_tpu_torch.ft.manager import CheckpointManager
+
+            self._ckpt_manager = CheckpointManager(
+                self._checkpoint_path, keep_last=self._ckpt_keep_last,
+                keep_every=self._ckpt_keep_every,
+                asynchronous=self._ckpt_async,
+                overwrite=self._checkpoint_overwrite)
+        return self._ckpt_manager
+
+    def _maybe_checkpoint(self) -> Optional[str]:
+        if self._checkpoint_path is None:
+            return None
+        return self._write_checkpoint()
+
+    def _write_checkpoint(self) -> str:
+        """Snapshot the TrainState on this thread; the writer commits."""
+        rs = self.run_state
+        metadata = {"epoch": rs.epoch, "iteration": rs.iteration,
+                    "epoch_step": rs.epoch_step,
+                    "gradient_accumulation": self.gradient_accumulation,
+                    "step_generator": _generator_state(
+                        self.ctx.step_generator)}
+        return self._checkpoint_manager().save(rs.iteration, self.tstate,
+                                               metadata=metadata)
+
+    def _drain_checkpoints(self, raising: bool = True) -> None:
+        """Wait for pending asynchronous writes and raise a writer error
+        (``raising=False`` logs it: an unwinding exception must not be
+        masked)."""
+        if self._ckpt_manager is None:
+            return
+        try:
+            self._ckpt_manager.wait()
+        except CheckpointError:
+            if raising:
+                raise
+            logger.exception("async checkpoint write failed during unwind")
+
+    def _check_preemption(self) -> None:
+        """Act on a flagged SIGTERM/SIGINT at a step boundary: checkpoint
+        (if configured), wait until it is committed, raise
+        PreemptedError."""
+        h = self._preemption
+        if h is None or not h.requested:
+            return
+        from analytics_zoo_tpu_torch.ft.preemption import PreemptedError
+
+        self._drain_checkpoints()
+        it = self.run_state.iteration
+        if (self._ckpt_manager is not None
+                and self._ckpt_manager.latest_step() == it):
+            # the trigger checkpointed this very iteration already
+            path = self._ckpt_manager.step_path(it)
+        else:
+            path = self._maybe_checkpoint()
+            self._drain_checkpoints()
+        logger.warning("preemption: checkpoint %s committed at iteration %d "
+                       "— exiting train loop", path, it)
+        raise PreemptedError(
+            f"training preempted at iteration {it}"
+            + (f"; checkpoint committed at {path}" if path else
+               " (no checkpoint directory configured — state NOT saved)"),
+            checkpoint_path=path)
 
     # -- evaluation and prediction ---------------------------------------
 

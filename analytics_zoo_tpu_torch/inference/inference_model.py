@@ -3,7 +3,8 @@
 load → warm each bucket shape → concurrent predict. The forward is the JAX
 package's compiled ``forward``: float32 params and inputs are cast to the
 model's ``compute_dtype``, the model runs under ``torch.inference_mode()``,
-and floating outputs come back as float32. PyTorch runs eagerly, so there is
+and floating outputs come back as float32 (float64 requests reach the card
+as float32, as in the JAX package). PyTorch runs eagerly, so there is
 no executable cache: ``do_optimize`` runs a bucket shape once, which builds
 the CUDA kernels and warms cuBLAS for it, and records the shape in
 ``_warmed``.
@@ -20,7 +21,10 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+from analytics_zoo_tpu_torch.common.nncontext import (
+    get_nncontext,
+    host_to_device,
+)
 from analytics_zoo_tpu_torch.common.tree import tree_map
 
 
@@ -46,7 +50,8 @@ class InferenceModel:
         back) are copied to the device, and the params cast once to the
         model's compute dtype for the forward. The state stays as it is
         (batch norm's f32 moving statistics), as in the JAX package."""
-        keras_net.ensure_params()
+        with torch.inference_mode(False):  # the net may train later
+            keras_net.ensure_params()
         device = get_nncontext().device
         params, state = (tree_map(lambda t: t.to(device, copy=True), tree)
                          for tree in (keras_net.params,
@@ -85,9 +90,9 @@ class InferenceModel:
         dt = getattr(torch, cd) if cd else None
 
         def to_device(a):
-            # torch.tensor copies: the caller (a batcher reusing its staging
-            # buffers) may overwrite the array as soon as this returns
-            t = torch.tensor(np.asarray(a), device=device)
+            # a copy (a batcher reusing its staging buffers may overwrite
+            # the array as soon as this returns), float64 made float32
+            t = host_to_device(a, device)
             return t.to(dt) if dt is not None and t.dtype == torch.float32 \
                 else t
 

@@ -59,6 +59,15 @@ def normal_init(stddev=0.05, mean=0.0):
     return init
 
 
+def uniform_init(scale=0.05):
+    """Factory: U(-scale, scale) initializer (keras-1 "uniform")."""
+    def init(generator, shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype).uniform_(-scale, scale,
+                                                        generator=generator)
+
+    return init
+
+
 def zeros_init(generator, shape, dtype=torch.float32):
     """All-zeros initializer."""
     return torch.zeros(shape, dtype=dtype)
@@ -71,6 +80,7 @@ def ones_init(generator, shape, dtype=torch.float32):
 
 _INITS: Dict[str, Callable] = {
     "glorot_uniform": glorot_uniform,
+    "uniform": uniform_init(),
     "normal": normal_init(),
     "zeros": zeros_init,
     "ones": ones_init,

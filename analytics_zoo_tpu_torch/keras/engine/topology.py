@@ -6,11 +6,14 @@
 training surface over
 :class:`~analytics_zoo_tpu_torch.engine.estimator.Estimator`: ``compile``,
 ``fit`` (epochs continue across calls), ``evaluate``, ``predict``,
-``predict_classes`` and the gradient-clipping setters. ``Sequential`` (a
-linear stack) and ``Model`` (a functional graph of ``Input`` and layer
-calls) thread the state of stateful layers through ``apply``. Weights
-persistence, the GraphNet surface and the summary/checkpoint/profile
-setters are not ported yet.
+``predict_classes``, the gradient-clipping, checkpoint and TensorBoard
+setters, gradient accumulation (``compile(gradient_accumulation=K)``),
+weights in and out (``get_weights``/``set_weights``/``set_states``,
+``save_weights``/``load_weights``), ``resume_from_checkpoint`` and
+``summary``. ``Sequential`` (a linear stack) and ``Model`` (a functional
+graph of ``Input`` and layer calls) thread the state of stateful layers
+through ``apply``. The GraphNet surface and ``set_profile`` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from analytics_zoo_tpu_torch.autograd.variable import (
     execute,
     graph_layers,
 )
+from analytics_zoo_tpu_torch.common.nncontext import host_to_device
+from analytics_zoo_tpu_torch.common.tree import tree_map
 from analytics_zoo_tpu_torch.data.feature_set import (
     ArrayFeatureSet,
     FeatureSet,
@@ -83,6 +88,9 @@ class KerasNet(nn.Module):
         self.validation_metrics: List = []
         self._estimator = None
         self._clipping: Optional[Tuple[str, Tuple]] = None
+        self._tensorboard: Optional[Tuple[str, str]] = None
+        self._checkpoint: Optional[Tuple[str, bool]] = None
+        self._gradient_accumulation = 1
 
     def layers(self) -> List[KerasLayer]:
         """The layer objects, flattened in graph order."""
@@ -138,6 +146,37 @@ class KerasNet(nn.Module):
 
     # -- configuration ---------------------------------------------------
 
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        """Attach train/validation TensorBoard summaries (ref
+        setTensorBoard)."""
+        self._tensorboard = (log_dir, app_name)
+        if self._estimator is not None:
+            self._estimator.set_tensorboard(log_dir, app_name)
+        return self
+
+    def get_train_summary(self, tag: str):
+        """A (step, value) series of the training summary, e.g.
+        ``get_train_summary("Loss")`` (ref getTrainSummary)."""
+        est = self._estimator
+        if est is not None and est.train_summary is not None:
+            return est.train_summary.read_scalar(tag)
+        return []
+
+    def get_validation_summary(self, tag: str):
+        """A validation metric series (ref getValidationSummary)."""
+        est = self._estimator
+        if est is not None and est.val_summary is not None:
+            return est.val_summary.read_scalar(tag)
+        return []
+
+    def set_checkpoint(self, path: str, over_write: bool = True):
+        """Write ``ckpt_N`` checkpoints to ``path`` every epoch (ref
+        setCheckpoint)."""
+        self._checkpoint = (path, over_write)
+        if self._estimator is not None:
+            self._estimator.set_checkpoint(path, over_write)
+        return self
+
     def set_constant_gradient_clipping(self, min_value: float,
                                        max_value: float):
         """Clip every gradient to [min, max] (ref
@@ -160,14 +199,17 @@ class KerasNet(nn.Module):
     def compile(self, optimizer, loss, metrics: Optional[Sequence] = None,
                 gradient_accumulation: int = 1):
         """Ref Topology.scala:128. Recompiling keeps the parameters and
-        rebuilds only the optimizer state."""
-        if int(gradient_accumulation) != 1:
-            raise NotImplementedError("gradient accumulation is not ported "
-                                      "yet")
+        rebuilds only the optimizer state. ``gradient_accumulation=K``
+        applies the optimizer every Kth micro-batch on the valid-sample
+        weighted mean of the K gradients (effective batch K x
+        batch_size), the epoch's wrap-padded tail included."""
         self.optim_method = optimizers_lib.get(optimizer)
         self.criterion = objectives_lib.get(loss)
         self.validation_metrics = list(metrics or [])
+        self._gradient_accumulation = int(gradient_accumulation)
         if self._estimator is not None:
+            self._estimator.gradient_accumulation = (
+                self._gradient_accumulation)
             self._estimator.reset_optimizer(self.optim_method)
         return self
 
@@ -177,7 +219,12 @@ class KerasNet(nn.Module):
 
             # optim_method may be None: a model predicts without compile;
             # training raises a friendly error via Estimator._tx
-            est = Estimator(self, self.optim_method)
+            est = Estimator(self, self.optim_method,
+                            gradient_accumulation=self._gradient_accumulation)
+            if self._tensorboard:
+                est.set_tensorboard(*self._tensorboard)
+            if self._checkpoint:
+                est.set_checkpoint(*self._checkpoint)
             if self._clipping:
                 kind, args = self._clipping
                 if kind == "constant":
@@ -243,6 +290,123 @@ class KerasNet(nn.Module):
         """Ref KerasNet.predictClasses — argmax over the class axis."""
         cls = np.argmax(self.predict(x, batch_size), axis=-1)
         return cls if zero_based_label else cls + 1
+
+    # -- weights and persistence -----------------------------------------
+
+    def _estimator_state(self):
+        est = self._get_estimator()
+        est._ensure_state()
+        return est
+
+    def get_weights(self) -> Dict:
+        """Host copies of every parameter, in layer order (ref
+        getWeights)."""
+        return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(),
+                        self._estimator_state().tstate.params)
+
+    def _install(self, params=None, model_state=None) -> None:
+        """Copies of host arrays or tensors as the estimator's params or
+        state (float64 made float32), handed back to the model."""
+        est = self._estimator_state()
+        dev = est.ctx.device
+
+        def to_dev(v):
+            if isinstance(v, torch.Tensor):
+                return v.detach().to(dev, copy=True)
+            return host_to_device(v, dev)
+
+        with torch.inference_mode(False):  # the weights may train later
+            if params is not None:
+                est.tstate = est.tstate._replace(
+                    params=tree_map(to_dev, params))
+            if model_state is not None:
+                est.tstate = est.tstate._replace(
+                    model_state=tree_map(to_dev, model_state))
+        est._write_back()
+
+    def set_weights(self, params: Dict):
+        """Install weights, merged per layer and per weight: what
+        ``params`` leaves out keeps its current value (a backbone's weights
+        poured into a model with a fresh head)."""
+        known = {l.name for l in self.layers()}
+        unknown = set(params) - known
+        if unknown:
+            raise KeyError(f"set_weights: no such layer(s) {sorted(unknown)}."
+                           f" Layers: {sorted(known)}")
+
+        def merge(cur, new):
+            if isinstance(cur, dict) and isinstance(new, dict):
+                out = dict(cur)
+                for k, v in new.items():
+                    out[k] = merge(cur[k], v) if k in cur else v
+                return out
+            return new
+
+        self._install(params=merge(
+            dict(self._estimator_state().tstate.params), params))
+
+    def set_states(self, states: Dict):
+        """Install non-trainable layer state (batch norm's moving
+        statistics), merged per layer like :meth:`set_weights`."""
+        cur = dict(self._estimator_state().tstate.model_state)
+        for lname, st in states.items():
+            if lname not in cur:
+                raise KeyError(f"set_states: no state for layer '{lname}'. "
+                               f"Stateful layers: {sorted(cur)}")
+            unknown = set(st) - set(cur[lname])
+            if unknown:
+                raise KeyError(f"set_states: layer '{lname}' has no state "
+                               f"{sorted(unknown)} (has {sorted(cur[lname])})")
+            cur[lname] = {**cur[lname], **st}
+        self._install(model_state=cur)
+
+    def save_weights(self, path: str, overwrite: bool = True):
+        """Write the parameters and the layer state as one checkpoint
+        directory (keys ``0/<layer>/<weight>`` and ``1/<layer>/<stat>``,
+        as the JAX package writes them)."""
+        from analytics_zoo_tpu_torch.engine import checkpoint as ckpt_lib
+
+        est = self._estimator_state()
+        ckpt_lib.save_checkpoint(
+            path, (est.tstate.params, est.tstate.model_state),
+            overwrite=overwrite)
+
+    def load_weights(self, path: str):
+        """Load weights that ``save_weights`` wrote, in this package or in
+        the JAX package: leaves match by name, and counter names
+        (``dense_3``) by their order (``interop.load_jax_params``'s
+        rules)."""
+        from analytics_zoo_tpu_torch import interop
+        from analytics_zoo_tpu_torch.engine import checkpoint as ckpt_lib
+
+        flat, _ = ckpt_lib.load_flat(path)
+        params, state = interop.fill_from_flat(self, flat, "0", "1")
+        self._install(params=params, model_state=state)
+        return self
+
+    def resume_from_checkpoint(self, directory: Optional[str] = None) -> bool:
+        """Restore the newest ``set_checkpoint`` checkpoint (model,
+        optimizer and counters); False when there is none. The next
+        ``fit`` continues where training stopped."""
+        return self._get_estimator().resume_from_checkpoint(directory)
+
+    def summary(self) -> str:
+        """Layer table (ref KerasNet.summary)."""
+        lines = [f"Model: {self.name}", "-" * 64,
+                 f"{'Layer (type)':<34}{'Output Shape':<20}{'Params':<10}",
+                 "=" * 64]
+        total = 0
+        for layer in self.layers():
+            n = sum(int(np.prod(s.shape)) for s in layer.weight_specs)
+            total += n
+            lines.append(
+                f"{layer.name + ' (' + type(layer).__name__ + ')':<34}"
+                f"{str(layer.output_shape):<20}{n:<10}")
+        lines.append("=" * 64)
+        lines.append(f"Total params: {total}")
+        out = "\n".join(lines)
+        print(out)
+        return out
 
 
 class Sequential(KerasNet):

@@ -25,6 +25,10 @@ from analytics_zoo_tpu_torch.keras.layers.core import (
     get_activation,
     merge,
 )
+from analytics_zoo_tpu_torch.keras.layers.embeddings import (
+    Embedding,
+    WordEmbedding,
+)
 from analytics_zoo_tpu_torch.keras.layers.normalization import (
     BatchNormalization,
     LayerNorm,

@@ -1,2 +1,3 @@
-"""Model zoo (port of ``analytics_zoo_tpu.models``): the image
-classifiers ResNet-50 and LeNet-5 so far."""
+"""Model zoo (port of ``analytics_zoo_tpu.models``): the ``ZooModel`` base,
+the image classifiers ResNet-50 and LeNet-5, and the recommenders NeuralCF
+and Wide & Deep so far."""

@@ -59,6 +59,27 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    224, 3) and (32, 224, 224, 3) from two threads plus one dispatch/fetch
    pair; LeNet-5 fits 2 epochs through ``compile``/``fit`` on host
    arrays. The path launches none of the flash kernels (printed);
+3d. NCF: NeuralCF(2000, 5000, 5) at bench.py's ``_ncf_record``
+   configuration (131072 (user, item) int32 pairs and int32 labels from
+   the seed, cached on the card, Adam, sparse cross-entropy, batch 8192)
+   fits 2 epochs to warm up, then 2 timed epochs (samples/s printed);
+   every loss finite, no flash kernel launched, ``predict_user_item_pair``
+   and ``recommend_for_user`` well formed, ``InferenceModel`` serving the
+   trained model equal to ``predict`` bitwise, and ``save_model`` ->
+   ``load_model`` -> ``predict`` bitwise;
+3e. checkpoint and resume: NCF (as in 3d, 3 epochs, a checkpoint each
+   epoch) and BERT-base at full width cut to 2 blocks (bf16 compute,
+   hidden dropout 0.1, batch 64, 2 epochs of 320 rows, a checkpoint every
+   2 iterations) each run (a) uninterrupted twice, (b) in a child process
+   (``--resume-child``) armed with ``AZOO_FT_CHAOS=before_commit`` to die
+   at its second checkpoint (exit 43, one committed checkpoint left), and
+   (c) from a fresh ``Estimator`` with ``auto_resume=True``; (c) must be
+   bitwise equal to (a) when the two (a) runs are, and otherwise no
+   further from (a) than they are from each other (both distances and
+   the first differing leaf printed); the BERT runs launch each flash
+   kernel once per layer and step; then each model's checkpoint is
+   written 3 times synchronously and 3 times asynchronously (bytes, the
+   time the caller is blocked, the time to commit);
 4. times: the forward kernel (through ``flash_attention``, the call the
    main path makes, with the (batch, 1, 1, s) bf16 padding bias it passes;
    its device time under torch.profiler, cross-checked by CUDA events),
@@ -94,7 +115,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -180,6 +203,26 @@ RESNET_BUCKETS = (1, 32)  # serving batch sizes
 RESNET_LATENCY_REQUESTS = 30  # per bucket in phase 4
 RESNET_FWD_FLOPS = 4.09e9  # per image, bench.py; a train step is 3x
 LENET_SAMPLES, LENET_BATCH, LENET_EPOCHS = 2048, 128, 2
+# Phase 3d: NeuralCF as bench.py's _ncf_record trains it: 131072 (user,
+# item) int32 pairs and int32 labels cached on the card, Adam, sparse
+# cross-entropy, batch 8192, a 2-epoch warm-up fit, then a timed 2-epoch fit.
+NCF_USERS, NCF_ITEMS, NCF_CLASSES = 2000, 5000, 5
+NCF_SAMPLES, NCF_BATCH, NCF_EPOCHS = 1 << 17, 8192, 2
+NCF_CHECK_ROWS = 1024  # rows scored by predict, serving and the utilities
+# Phase 3e: checkpoint and resume. Each model runs (a) uninterrupted twice,
+# (b) in a child process armed to die at the second checkpoint's
+# before_commit, and (c) from a fresh Estimator with auto_resume=True.
+# NCF as in 3d, 3 epochs, a checkpoint each epoch; BERT-base at full width
+# (bf16 compute, hidden dropout 0.1 so that the dropout stream must be
+# restored) cut to 2 blocks, batch 64, 320 rows, 2 epochs, a checkpoint
+# every 2 iterations (so the resume lands mid-epoch).
+RESUME_NCF_EPOCHS = 3
+RESUME_BERT = dict(TRAIN_BERT, n_block=2)
+RESUME_BERT_SAMPLES, RESUME_BERT_EPOCHS, RESUME_BERT_EVERY = 320, 2, 2
+RESUME_BERT_DROP = 0.1
+CKPT_WRITES = 3  # checkpoint writes timed per model and mode
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
 # The card-against-CPU check: one eval forward and one train step of
 # ResNet-50 in f32 (TF32 off) at batch 2 from the same weights, cuDNN's
 # channels-last route on the card against PyTorch's CPU route. Bounds:
@@ -1297,14 +1340,267 @@ def time_resnet(est, cached, batch, im, requests):
               flush=True)
 
 
+def zero_launches(fa):
+    for c in (fa.launches, fa.launches_dq, fa.launches_dkv):
+        c.reset()
+
+
+def read_launches(fa):
+    torch.cuda.synchronize()
+    return [c.count for c in (fa.launches, fa.launches_dq, fa.launches_dkv)]
+
+
+def ncf_data(seed):
+    """_ncf_record's pairs (user in 1..2000, item in 1..5000) and labels."""
+    rng = np.random.default_rng(seed)
+    pairs = np.stack([rng.integers(1, NCF_USERS + 1, NCF_SAMPLES),
+                      rng.integers(1, NCF_ITEMS + 1, NCF_SAMPLES)],
+                     axis=1).astype(np.int32)
+    return pairs, rng.integers(0, NCF_CLASSES, NCF_SAMPLES).astype(np.int32)
+
+
+def ncf_slice(fa, seed):
+    """Phase 3d: NeuralCF through the public fit at _ncf_record's
+    configuration; the utilities, serving and save/load on the trained
+    model. Returns samples/s of the timed fit."""
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models.common import ZooModel
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+
+    pairs, y = ncf_data(seed)
+    fs = ArrayFeatureSet(pairs, y).cache_device()
+    ncf = NeuralCF(NCF_USERS, NCF_ITEMS, NCF_CLASSES)
+    m = ncf.model
+    m.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+    zero_launches(fa)  # the NCF path's run starts here
+    m.fit(fs, batch_size=NCF_BATCH, nb_epoch=NCF_EPOCHS)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.fit(fs, batch_size=NCF_BATCH, nb_epoch=NCF_EPOCHS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches(fa)  # ... and ends here
+    losses = m._estimator.train_losses
+    steps = 2 * NCF_EPOCHS * NCF_SAMPLES // NCF_BATCH
+    rate = NCF_SAMPLES * NCF_EPOCHS / dt
+    print(f"ncf: NeuralCF({NCF_USERS}, {NCF_ITEMS}, {NCF_CLASSES}), "
+          f"{NCF_SAMPLES} pairs cached, batch {NCF_BATCH}: {len(losses)} "
+          f"steps (2 fits of {NCF_EPOCHS} epochs); timed fit {dt:.4f} s, "
+          f"{rate:.1f} samples/s; first and last losses {losses[0]:.4f}, "
+          f"{losses[-1]:.4f}; flash kernel launches {launches}", flush=True)
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"NCF ran {len(losses)} steps (want {steps}) or a loss is not "
+             "finite")
+    if any(launches):
+        fail("the NCF path launched a flash-attention kernel")
+
+    rows = pairs[:NCF_CHECK_ROWS]
+    preds = ncf.predict_user_item_pair(rows, batch_size=NCF_CHECK_ROWS)
+    if (len(preds) != len(rows)
+            or any(not 0 <= p.prediction < NCF_CLASSES
+                   or not 0.0 < p.probability <= 1.0 for p in preds)
+            or [(p.user_id, p.item_id) for p in preds]
+            != [tuple(r) for r in rows.tolist()]):
+        fail("predict_user_item_pair gave malformed predictions")
+    recs = ncf.recommend_for_user(rows, max_items=5)
+    if set(recs) != set(rows[:, 0].tolist()) or any(
+            not 1 <= len(v) <= 5 or any(p.user_id != u for p in v)
+            or [(p.prediction, p.probability) for p in v]
+            != sorted(((p.prediction, p.probability) for p in v),
+                      reverse=True) for u, v in recs.items()):
+        fail("recommend_for_user gave malformed recommendations")
+    pred = ncf.predict(rows, batch_size=NCF_CHECK_ROWS)
+    served = InferenceModel().do_load_keras(m).do_predict(rows)
+    if not np.array_equal(pred, served):
+        fail("InferenceModel serves other probabilities than predict")
+    path = CKPT_DIR / "ncf_model"
+    t0 = time.perf_counter()
+    ncf.save_model(str(path))
+    loaded = ZooModel.load_model(str(path))
+    again = loaded.predict(rows, batch_size=NCF_CHECK_ROWS)
+    print(f"ncf: {len(preds)} pairs scored, {len(recs)} users recommended "
+          f"for; predict = serve bitwise; save_model -> load_model -> "
+          f"predict in {time.perf_counter() - t0:.2f} s, bitwise "
+          f"{np.array_equal(again, pred)}", flush=True)
+    if not np.array_equal(again, pred):
+        fail("save_model -> load_model changed the predictions")
+    return rate
+
+
+def resume_setup(kind, seed):
+    """A phase-3e model (``net``, with its initial weights drawn from
+    ``seed``), its device-cached data and its training arguments. The
+    parent and the child process build the same ones."""
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.engine.triggers import SeveralIteration
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD, Adam
+
+    if kind == "ncf":
+        from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+
+        net = NeuralCF(NCF_USERS, NCF_ITEMS, NCF_CLASSES).model
+        pairs, y = ncf_data(seed)
+        data = ArrayFeatureSet(pairs, y).cache_device()
+        args = dict(make_opt=Adam, batch=NCF_BATCH,
+                    epochs=RESUME_NCF_EPOCHS, trigger=None)
+    else:
+        from analytics_zoo_tpu_torch.tfpark.bert import BERTClassifierNet
+
+        net = BERTClassifierNet(num_classes=2, hidden_drop=RESUME_BERT_DROP,
+                                attn_drop=0.0, **RESUME_BERT)
+        rng = np.random.default_rng(seed)
+        x = make_request(rng, RESUME_BERT_SAMPLES, RESUME_BERT["seq_len"],
+                         RESUME_BERT["vocab"])
+        y = rng.integers(0, 2, RESUME_BERT_SAMPLES).astype(np.int32)
+        data = ArrayFeatureSet(x, y).cache_device()
+        args = dict(make_opt=lambda: SGD(lr=0.01, momentum=0.9),
+                    batch=TRAIN_BATCH, epochs=RESUME_BERT_EPOCHS,
+                    trigger=SeveralIteration(RESUME_BERT_EVERY))
+    net.params, net.model_state = net.init(
+        torch.Generator().manual_seed(seed))
+    return net, data, dict(args, init=(net.params, net.model_state))
+
+
+def resume_run(net, data, args, ckpt_dir, seed, auto_resume=False):
+    """One phase-3e training run with a checkpoint at each trigger; from
+    the initial weights and the step generator's seed unless resuming."""
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.engine.triggers import MaxEpoch
+    from analytics_zoo_tpu_torch.keras import objectives
+
+    if not auto_resume:
+        net.params, net.model_state = args["init"]
+        get_nncontext().step_generator.manual_seed(seed)
+    est = Estimator(net, args["make_opt"]())
+    est.set_checkpoint(str(ckpt_dir), keep_last=2)
+    t0 = time.perf_counter()
+    est.train(data, objectives.sparse_categorical_crossentropy,
+              end_trigger=MaxEpoch(args["epochs"]),
+              checkpoint_trigger=args["trigger"], batch_size=args["batch"],
+              auto_resume=auto_resume)
+    torch.cuda.synchronize()
+    return est, time.perf_counter() - t0
+
+
+def resume_child(kind, seed) -> int:
+    """Phase 3e (b), in a process of its own: the run armed to die at the
+    second checkpoint. Returns only if it did not die."""
+    from analytics_zoo_tpu_torch import init_nncontext
+
+    init_nncontext(seed=seed)
+    net, data, args = resume_setup(kind, seed)
+    resume_run(net, data, args, CKPT_DIR / kind / "b", seed)
+    return 0
+
+
+def state_distance(a, b):
+    """(max |a - b| over every leaf of two TrainStates, the first leaf
+    that differs, or None)."""
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_paths
+
+    worst, first = 0.0, None
+    for key, x, y in zip(tree_paths(a), tree_leaves(a), tree_leaves(b),
+                         strict=True):
+        d = (float(abs(x - y)) if isinstance(x, int) else
+             (x.double() - y.double()).abs().max().item())
+        if d > 0 and first is None:
+            first = key
+        worst = max(worst, d)
+    return worst, first
+
+
+def time_checkpoint_writes(kind, est):
+    """Bytes and write time of the trained state's checkpoint, written
+    synchronously (snapshot and commit on the caller) and asynchronously
+    (the caller waits only for the snapshot)."""
+    from analytics_zoo_tpu_torch.ft import atomic
+    from analytics_zoo_tpu_torch.ft.manager import CheckpointManager
+
+    for mode in ("sync", "async"):
+        mgr = CheckpointManager(str(CKPT_DIR / kind / f"timed_{mode}"),
+                                keep_last=1, asynchronous=mode == "async")
+        rows = []
+        for i in range(CKPT_WRITES):
+            t0 = time.perf_counter()
+            path = mgr.save(i, est.tstate, metadata={"i": i})
+            returned = time.perf_counter() - t0
+            mgr.wait()
+            total = time.perf_counter() - t0
+            with open(Path(path) / atomic.COMMIT) as f:
+                nbytes = json.load(f)["bytes"]
+            rows.append((nbytes, returned, total))
+        mgr.close()
+        print(f"resume: {kind} checkpoint {mode}: "
+              + "; ".join(f"{n} bytes, caller blocked {r * 1e3:.1f} ms, "
+                          f"committed after {t * 1e3:.1f} ms "
+                          f"({n / t / 1e9:.3f} GB/s)" for n, r, t in rows),
+              flush=True)
+
+
+def resume_check(fa, kind, seed):
+    """Phase 3e for one model: (a) twice, (b) killed in a child process,
+    (c) resumed; (c) must be as close to (a) as (a) is to itself (bitwise
+    when (a) repeats bitwise). Returns the flash launches of the
+    in-process runs."""
+    from analytics_zoo_tpu_torch.engine import checkpoint as ckpt_lib
+    from analytics_zoo_tpu_torch.ft import chaos
+
+    net, data, args = resume_setup(kind, seed)
+    zero_launches(fa)  # the resume path's in-process runs start here
+    a1, t1 = resume_run(net, data, args, CKPT_DIR / kind / "a1", seed)
+    a2, t2 = resume_run(net, data, args, CKPT_DIR / kind / "a2", seed)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+         "--resume-child", kind], cwd=Path(__file__).resolve().parent,
+        env=dict(os.environ, AZOO_FT_CHAOS="before_commit",
+                 AZOO_FT_CHAOS_SKIP="1"),
+        capture_output=True, text=True, timeout=900)
+    t_child = time.perf_counter() - t0
+    kill_dir = CKPT_DIR / kind / "b"
+    survivors = ckpt_lib.committed_checkpoints(str(kill_dir))
+    print(f"resume: {kind} (b) child exited {child.returncode} (want "
+          f"{chaos.EXIT_CODE}) after {t_child:.1f} s; committed checkpoints "
+          f"{[s for s, _ in survivors]}; its stderr ends: "
+          f"{child.stderr.strip().splitlines()[-1:]}", flush=True)
+    if child.returncode != chaos.EXIT_CODE or len(survivors) != 1:
+        fail(f"the {kind} run did not die at its second checkpoint")
+    c, t3 = resume_run(net, data, args, kill_dir, seed, auto_resume=True)
+    launches = read_launches(fa)  # ... and end here
+    d_aa, first_aa = state_distance(a1.tstate, a2.tstate)
+    d_ca, first_ca = state_distance(c.tstate, a1.tstate)
+    print(f"resume: {kind}: (a) {a1.run_state.iteration} steps in "
+          f"{t1:.2f} s and {t2:.2f} s, (c) resumed at iteration "
+          f"{survivors[0][0]} and ran to {c.run_state.iteration} in "
+          f"{t3:.2f} s; max |a1 - a2| = {d_aa:.6e} (first differing leaf "
+          f"{first_aa}), max |c - a1| = {d_ca:.6e} (first differing leaf "
+          f"{first_ca}); flash kernel launches {launches}", flush=True)
+    if c.run_state.iteration != a1.run_state.iteration:
+        fail(f"the resumed {kind} run ended at another iteration")
+    if d_ca > d_aa:
+        fail(f"the resumed {kind} run is further from (a) than (a) is from "
+             "itself")
+    time_checkpoint_writes(kind, c)
+    # the in-process steps: (a) twice, (c) from the surviving checkpoint
+    steps = 2 * a1.run_state.iteration + (c.run_state.iteration
+                                          - survivors[0][0])
+    return launches, steps
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--resume-child", choices=("ncf", "bert"),
+                    help="phase 3e's run armed to die (started by 3e)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a "
               "CUDA card", file=sys.stderr)
         return 2
+    if args.resume_child:
+        return resume_child(args.resume_child, args.seed)
 
     from analytics_zoo_tpu_torch import init_nncontext
     from analytics_zoo_tpu_torch.inference import InferenceModel
@@ -1388,6 +1684,22 @@ def main(argv=None) -> int:
     resnet_im, resnet_requests = serve_resnet(resnet, rng)
     fit_lenet(rng)
 
+    # -- 3d. the slice: NeuralCF at _ncf_record's configuration -------------
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ncf_slice(fa, args.seed + 3)
+
+    # -- 3e. checkpoint and resume on the card: NCF and a 2-block BERT ------
+    resume_check(fa, "ncf", args.seed + 3)
+    resume_launches, resume_steps = resume_check(fa, "bert", args.seed + 4)
+    want = RESUME_BERT["n_block"] * resume_steps
+    print(f"resume: bert launches forward, dq, dk/dv {resume_launches} "
+          f"(want {RESUME_BERT['n_block']} x {resume_steps} = {want} each)",
+          flush=True)
+    if any(n != want for n in resume_launches):
+        fail("a resume-phase BERT step did not launch each attention "
+             "kernel once per layer")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
     # -- 4. times -----------------------------------------------------------
     fwd = time_forward(fa, device, gen)
     for batch, seq in BUCKETS:
@@ -1450,8 +1762,9 @@ def main(argv=None) -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "analytics_zoo_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "analytics_zoo_tpu/ops/flash_attention.py:156",
-        # the serving path's run and the training path's run
-        "launches": launches + train_launches[0], "max_abs_err": serve_err,
+        # the serving, training and resume paths' runs
+        "launches": launches + train_launches[0] + resume_launches[0],
+        "max_abs_err": serve_err,
         # device times at the (32, 512) serving shape; every main-path
         # shape, the training one included, under "shapes"
         "ms": serve["ms"], "event_ms": serve["event_ms"],
@@ -1462,9 +1775,9 @@ def main(argv=None) -> int:
             "shape", "ms", "event_ms", "library_ms", "bound_ms", "bound_by")}
             for r in fwd],
     }, bwd_row("dq", 0, "analytics_zoo_tpu/ops/flash_attention.py:323",
-               train_launches[1], dq_err),
+               train_launches[1] + resume_launches[1], dq_err),
         bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
-                train_launches[2], dkv_err)]
+                train_launches[2] + resume_launches[2], dkv_err)]
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

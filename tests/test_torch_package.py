@@ -51,6 +51,16 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import analytics_zoo_tpu_torch.models.image.imageclassification\n"
             "import analytics_zoo_tpu_torch.ops.batch_norm\n"
             "import analytics_zoo_tpu_torch.autograd.variable\n"
+            "import analytics_zoo_tpu_torch.engine.checkpoint\n"
+            "import analytics_zoo_tpu_torch.engine.summary\n"
+            "import analytics_zoo_tpu_torch.ft.atomic\n"
+            "import analytics_zoo_tpu_torch.ft.chaos\n"
+            "import analytics_zoo_tpu_torch.ft.manager\n"
+            "import analytics_zoo_tpu_torch.ft.preemption\n"
+            "import analytics_zoo_tpu_torch.keras.layers.embeddings\n"
+            "import analytics_zoo_tpu_torch.models.common\n"
+            "import analytics_zoo_tpu_torch.models.recommendation\n"
+            "import analytics_zoo_tpu_torch.predictor\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'analytics_zoo_tpu.'))]\n"
             "assert not bad and 'analytics_zoo_tpu' not in sys.modules, bad\n")

@@ -36,7 +36,10 @@ from analytics_zoo_tpu.engine import estimator as jest
 from analytics_zoo_tpu.engine import triggers as jtrig
 from analytics_zoo_tpu.keras import metrics as jmetrics
 from analytics_zoo_tpu.keras import objectives as jobj
+from analytics_zoo_tpu.keras import layers as jlayers
 from analytics_zoo_tpu.keras import optimizers as jopt
+from analytics_zoo_tpu.keras.engine import base as jbase
+from analytics_zoo_tpu.keras.engine import topology as jtopo
 from analytics_zoo_tpu.tfpark.bert import BERTClassifierNet as JaxBERT
 from analytics_zoo_tpu_torch.common.tree import tree_leaves
 from analytics_zoo_tpu_torch.data import feature_set as tfs
@@ -46,8 +49,12 @@ from analytics_zoo_tpu_torch.inference import InferenceModel
 from analytics_zoo_tpu_torch.interop import load_jax_params
 from analytics_zoo_tpu_torch.keras import metrics as tmetrics
 from analytics_zoo_tpu_torch.keras import objectives as tobj
+from analytics_zoo_tpu_torch.keras import layers
 from analytics_zoo_tpu_torch.keras import optimizers as topt
+from analytics_zoo_tpu_torch.keras.engine import topology as topo
 from analytics_zoo_tpu_torch.keras.engine.base import reset_name_counts
+from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
+from analytics_zoo_tpu_torch.keras.layers import Dense
 from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 from analytics_zoo_tpu_torch.tfpark.bert import BERTClassifierNet
 
@@ -426,9 +433,122 @@ def test_frozen_weights_and_clipping():
         assert (a - b).abs().max().item() <= 0.5 * 1e-4 + 1e-7
 
 
+# -- state faults: C1 (state built under inference mode), C2 (float64) ----
+
+
+def _small_nets(kind):
+    """(JAX net, port net, x): a Sequential, or a two-input Model."""
+    jbase.reset_name_counts()
+    reset_name_counts()
+    rng = np.random.default_rng(9)
+    if kind == "sequential":
+        x = rng.normal(size=(20, 5)).astype(np.float32)
+        return (jtopo.Sequential([jlayers.Dense(6, activation="tanh",
+                                                input_shape=(5,)),
+                                  jlayers.Dense(3)]),
+                Sequential([Dense(6, activation="tanh", input_shape=(5,)),
+                            Dense(3)]), x)
+    x = [rng.normal(size=(20, 5)).astype(np.float32),
+         rng.normal(size=(20, 4)).astype(np.float32)]
+    nets = []
+    for mod_topo, mod_layers in ((jtopo, jlayers), (topo, layers)):
+        a, b = mod_topo.Input((5,)), mod_topo.Input((4,))
+        h = mod_layers.Merge(mode="concat")([
+            mod_layers.Dense(6, activation="tanh")(a),
+            mod_layers.Dense(6)(b)])
+        nets.append(mod_topo.Model([a, b], mod_layers.Dense(3)(h)))
+    return nets[0], nets[1], x
+
+
+LOGITS_LOSS = "sparse_categorical_crossentropy_from_logits"
+
+
+@pytest.mark.parametrize("kind", ["sequential", "two_input_model"])
+@pytest.mark.parametrize("first", ["predict", "evaluate"])
+def test_predict_or_evaluate_before_fit_still_trains(kind, first):
+    """C1: a predict or evaluate before the first fit built the train
+    state as inference tensors, and fit then raised. The trajectory after
+    either must equal the fit-only one bitwise, and the JAX package's
+    within F32_TOL."""
+    jnet, _, x = _small_nets(kind)
+    y = np.random.default_rng(2).integers(0, 3, 20).astype(np.int32)
+    jnet.compile(jopt.SGD(0.1, momentum=0.9), LOGITS_LOSS)
+    j_est = jnet._get_estimator()
+    j_est._ensure_state()
+    init = jax.tree_util.tree_map(np.asarray, j_est.tstate.params)
+    jnet.fit(x, y, batch_size=BATCH, nb_epoch=2)
+
+    def run(before):
+        _, net, _ = _small_nets(kind)
+        load_jax_params(net, init)
+        net.compile(topt.SGD(0.1, momentum=0.9), LOGITS_LOSS, ["accuracy"])
+        if before == "predict":
+            net.predict(x, batch_size=BATCH)
+        elif before == "evaluate":
+            net.evaluate(x, y, batch_size=BATCH)
+        net.fit(x, y, batch_size=BATCH, nb_epoch=2)
+        return net
+
+    ref, got = run(None), run(first)
+    assert got._estimator.train_losses == ref._estimator.train_losses
+    for a, b in zip(tree_leaves(got.params), tree_leaves(ref.params),
+                    strict=True):
+        assert torch.equal(a, b)
+    carried = tree_leaves(load_jax_params(_small_nets(kind)[1],
+                                          j_est.tstate.params))
+    for a, b in zip(tree_leaves(got.params), carried, strict=True):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=F32_TOL)
+
+
+@pytest.mark.parametrize("surface", ["fit", "fit_cached", "predict",
+                                     "serve"])
+def test_float64_inputs_are_made_float32(surface):
+    """C2: float64 host inputs reach the device as float32, as the JAX
+    package makes them (x64 off): the same results, bitwise, as the inputs
+    cast to float32 by the caller, and the JAX package's within
+    F32_TOL."""
+    x64 = np.random.default_rng(4).random((20, 5))
+    y = np.random.default_rng(5).integers(0, 3, 20).astype(np.int32)
+    jnet, _, _ = _small_nets("sequential")
+    jnet.compile(jopt.SGD(0.1), LOGITS_LOSS)
+    j_est = jnet._get_estimator()
+    j_est._ensure_state()
+    init = jax.tree_util.tree_map(np.asarray, j_est.tstate.params)
+
+    def run(x):
+        _, net, _ = _small_nets("sequential")
+        load_jax_params(net, init)
+        net.compile(topt.SGD(0.1), LOGITS_LOSS)
+        if surface == "fit":
+            net.fit(x, y, batch_size=BATCH, nb_epoch=2)
+            return np.concatenate([p.numpy().ravel()
+                                   for p in tree_leaves(net.params)])
+        if surface == "fit_cached":
+            net.fit(tfs.ArrayFeatureSet(x, y).cache_device(),
+                    batch_size=BATCH, nb_epoch=2)
+            return np.concatenate([p.numpy().ravel()
+                                   for p in tree_leaves(net.params)])
+        if surface == "predict":
+            return net.predict(x, batch_size=BATCH)
+        return InferenceModel().do_load_keras(net).do_predict(x)
+
+    got, want = run(x64), run(x64.astype(np.float32))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    if surface.startswith("fit"):
+        jnet.fit(x64, y, batch_size=BATCH, nb_epoch=2)
+        ref = np.concatenate([
+            p.numpy().ravel() for p in tree_leaves(load_jax_params(
+                _small_nets("sequential")[1], j_est.tstate.params))])
+    else:
+        ref = np.asarray(jnet.predict(x64, batch_size=BATCH))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=F32_TOL)
+
+
 @pytest.mark.parametrize("call", [
-    lambda e: e.set_checkpoint("/nonexistent"),
-    lambda e: e.set_tensorboard("/nonexistent", "app"),
+    lambda e: e.set_profile("/nonexistent"),
+    lambda e: e.set_step_watchdog(1.0),
     lambda e: e.train_distributed(None, None),
     lambda e: e.train_pipelined(None, None)])
 def test_unported_surfaces_raise(call):
