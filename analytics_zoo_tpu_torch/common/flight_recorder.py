@@ -1,0 +1,433 @@
+"""Request flight recorder — the always-on black box for the request path.
+
+Traces (:mod:`analytics_zoo_tpu_torch.common.observability`) are rich but
+opt-in: the tracer is disabled in steady-state production, and the one
+time an operator needs a timeline — the seconds *before* an incident —
+is exactly when nobody had it enabled. The flight recorder closes that
+gap the way an aircraft recorder does: a bounded ring of **compact
+per-request event records** that is always on (the overhead gate in
+``BENCH_OBS.json`` pins it under 2% of request throughput), plus an
+**anomaly-triggered atomic dump** so the last N requests before the
+incident are recoverable from disk after the process is gone.
+
+Each :class:`RequestRecord` carries the request's trace id, model,
+routed version, cache disposition and the lifecycle timestamps the
+serving path stamps as the request moves through it — submit, route,
+flush pickup, dispatch, fetch, scatter, done — all on the tracer's
+monotonic time base (:func:`~analytics_zoo_tpu_torch.common.observability
+.monotonic_s`), and finally an outcome (``ok`` / ``error:<Type>`` /
+``deadline`` / ``shed`` / ...). Records enter the ring at *submit*, so
+an in-flight request (outcome still ``None``) is already in the ring —
+a dump taken mid-incident shows exactly what was in flight.
+
+Dump triggers (:meth:`FlightRecorder.trigger`) are the anomalies worth
+forensics: a request error, a deadline exceeded, a watchdog restart, a
+circuit-breaker transition, end-to-end latency over a configurable
+threshold, or (at the front door) a proxy transport failure. Every
+trigger is counted (``zoo_flight_triggers_total{trigger}``); a dump is
+written only when a dump directory is configured and the per-recorder
+rate limit allows it (an error burst must not write hundreds of files).
+
+The dump file is atomic and self-verifying, reusing the ft commit
+discipline (stage ``.tmp`` → fsync → ``os.rename`` → dir fsync): a
+one-line JSON header carrying the payload byte length and CRC32,
+followed by the records payload. :func:`read_dump` (what
+``scripts/obs_dump.py`` and the byte-flip test drive) refuses a damaged
+dump loudly with :class:`FlightDumpCorruptError` — a forensic record
+that might be subtly wrong is worse than none.
+
+See docs/observability.md ("Flight recorder") for the dump format and
+the incident runbook.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+import zlib
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+from analytics_zoo_tpu_torch.common.observability import (
+    MetricsRegistry,
+    get_registry,
+    monotonic_s,
+)
+
+__all__ = [
+    "DUMP_FORMAT",
+    "TRIGGERS",
+    "FlightDumpCorruptError",
+    "FlightRecorder",
+    "RequestRecord",
+    "get_flight_recorder",
+    "list_dumps",
+    "read_dump",
+]
+
+DUMP_FORMAT = "azoo-flight-v1"
+
+#: The anomaly triggers a recorder counts (and dumps on, when a dump
+#: directory is configured): request ``error``, ``deadline`` exceeded,
+#: end-to-end ``latency`` over the threshold, a ``watchdog_restart``,
+#: a circuit-``breaker_transition``, a front-door ``proxy_error``
+#: (worker transport failure mid-request), a flywheel
+#: ``canary_rollback``, and operator-invoked ``manual`` snapshots.
+TRIGGERS = ("error", "deadline", "latency", "watchdog_restart",
+            "breaker_transition", "proxy_error", "canary_rollback",
+            "manual")
+
+#: Environment knobs (read once, when the process-global recorder is
+#: first built): the dump directory, ring capacity, and latency
+#: threshold in milliseconds. The front door exports
+#: ``AZOO_FLIGHT_DIR`` into its workers so every process of a serving
+#: tier dumps into one place.
+ENV_DIR = "AZOO_FLIGHT_DIR"
+ENV_CAPACITY = "AZOO_FLIGHT_CAPACITY"
+ENV_LATENCY_MS = "AZOO_FLIGHT_LATENCY_MS"
+
+_TS_FIELDS = ("t_submit", "t_route", "t_flush", "t_dispatch", "t_fetch",
+              "t_scatter", "t_done")
+
+
+class FlightDumpCorruptError(RuntimeError):
+    """A flight-recorder dump failed integrity checks (truncated payload,
+    CRC mismatch, unparseable header) — the reader must refuse it loudly,
+    never present damaged forensics as truth."""
+
+
+class RequestRecord:
+    """One request's compact lifecycle record. Fields are stamped by the
+    serving path as the request moves through it; timestamps are seconds
+    on the tracer's monotonic base (None until stamped). Mutated without
+    a lock — each field has exactly one writer thread and a torn read in
+    a snapshot only costs one partially-stamped record."""
+
+    __slots__ = ("trace_id", "model", "version", "kind", "tenant",
+                 "worker", "cache", "outcome", "error", "t_submit",
+                 "t_route", "t_flush", "t_dispatch", "t_fetch",
+                 "t_scatter", "t_done")
+
+    def __init__(self, model: str, trace_id: Optional[str] = None,
+                 kind: str = "predict", tenant: Optional[str] = None):
+        self.trace_id = trace_id
+        self.model = model
+        self.version: Optional[str] = None
+        self.kind = kind
+        self.tenant = tenant
+        self.worker: Optional[str] = None   # front-door slot, when proxied
+        self.cache: Optional[str] = None    # hit|miss|coalesced|bypass
+        self.outcome: Optional[str] = None  # None while in flight
+        self.error: Optional[str] = None
+        self.t_submit: Optional[float] = None
+        self.t_route: Optional[float] = None
+        self.t_flush: Optional[float] = None
+        self.t_dispatch: Optional[float] = None
+        self.t_fetch: Optional[float] = None
+        self.t_scatter: Optional[float] = None
+        self.t_done: Optional[float] = None
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        """End-to-end submit→done seconds, or None while in flight."""
+        if self.t_submit is None or self.t_done is None:
+            return None
+        return self.t_done - self.t_submit
+
+    def to_dict(self) -> Dict[str, Any]:
+        """JSON-ready view (the dump/endpoint wire format)."""
+        out: Dict[str, Any] = {
+            "trace_id": self.trace_id, "model": self.model,
+            "version": self.version, "kind": self.kind,
+            "tenant": self.tenant, "worker": self.worker,
+            "cache": self.cache, "outcome": self.outcome,
+            "error": self.error,
+        }
+        for f in _TS_FIELDS:
+            out[f] = getattr(self, f)
+        return out
+
+
+def _fsync_file(f) -> None:
+    f.flush()
+    os.fsync(f.fileno())
+
+
+def _fsync_dir(path: str) -> None:
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:  # pragma: no cover - platform-dependent
+        return
+    try:
+        os.fsync(fd)
+    except OSError:  # pragma: no cover - platform-dependent
+        pass
+    finally:
+        os.close(fd)
+
+
+class FlightRecorder:
+    """Bounded always-on ring of :class:`RequestRecord` with
+    anomaly-triggered atomic dumps.
+
+    Args:
+      capacity: ring size — the "last N requests" an incident dump
+        recovers.
+      dump_dir: where triggered dumps land (None = count triggers but
+        never write; the in-memory ring still serves
+        ``GET /v1/debug/flightrecorder``).
+      latency_threshold_s: an ``ok`` request slower than this fires the
+        ``latency`` trigger (None = latency never triggers).
+      min_dump_interval_s: rate limit between written dumps — an error
+        burst fires many triggers but writes one file per window.
+      registry: where the ``zoo_flight_*`` counters live (default: the
+        process-global registry; the front door passes its own so it
+        stays separate).
+      role: stamped into dump headers (``serving`` / ``frontdoor``) so a
+        shared dump directory stays attributable.
+    """
+
+    def __init__(self, capacity: int = 512,
+                 dump_dir: Optional[str] = None,
+                 latency_threshold_s: Optional[float] = None,
+                 min_dump_interval_s: float = 1.0,
+                 registry: Optional[MetricsRegistry] = None,
+                 role: str = "serving"):
+        self.dump_dir = dump_dir
+        self.latency_threshold_s = latency_threshold_s
+        self.min_dump_interval_s = min_dump_interval_s
+        self.role = role
+        self._ring: "deque[RequestRecord]" = deque(maxlen=max(1, capacity))
+        self._lock = threading.Lock()
+        self._last_dump = -float("inf")
+        self._dump_seq = 0
+        reg = registry if registry is not None else get_registry()
+        self._records_total = reg.counter(
+            "zoo_flight_records_total",
+            "Requests recorded by the flight recorder.").labels()
+        self._triggers_fam = reg.counter(
+            "zoo_flight_triggers_total",
+            "Flight-recorder anomaly triggers fired, by trigger.",
+            labels=("trigger",))
+        self._dumps_total = reg.counter(
+            "zoo_flight_dumps_total",
+            "Flight-recorder dumps durably written (triggers surviving "
+            "the rate limit, with a dump directory configured).").labels()
+        self._dump_errors_total = reg.counter(
+            "zoo_flight_dump_errors_total",
+            "Flight-recorder dump writes that failed (the incident is "
+            "never made worse by a dump error).").labels()
+
+    @property
+    def capacity(self) -> int:
+        """Ring capacity (the "last N requests" window)."""
+        return self._ring.maxlen or 0
+
+    def configure(self, dump_dir: Optional[str] = None,
+                  latency_threshold_s: Optional[float] = None,
+                  capacity: Optional[int] = None,
+                  min_dump_interval_s: Optional[float] = None) -> None:
+        """Adjust recorder knobs in place (None = leave unchanged).
+        Changing ``capacity`` re-rings, keeping the newest records."""
+        if dump_dir is not None:
+            self.dump_dir = dump_dir
+        if latency_threshold_s is not None:
+            self.latency_threshold_s = latency_threshold_s
+        if min_dump_interval_s is not None:
+            self.min_dump_interval_s = min_dump_interval_s
+        if capacity is not None and capacity != self.capacity:
+            with self._lock:
+                self._ring = deque(self._ring, maxlen=max(1, capacity))
+
+    # -- recording --------------------------------------------------------
+
+    def begin(self, model: str, trace_id: Optional[str] = None,
+              kind: str = "predict",
+              tenant: Optional[str] = None) -> RequestRecord:
+        """Open a record (stamps ``t_submit``, enters the ring NOW — an
+        in-flight request is already recoverable from a dump)."""
+        rec = RequestRecord(model, trace_id=trace_id, kind=kind,
+                            tenant=tenant)
+        rec.t_submit = monotonic_s()
+        with self._lock:
+            self._ring.append(rec)
+        self._records_total.inc()
+        return rec
+
+    def finish(self, rec: RequestRecord, outcome: str,
+               error: Optional[str] = None) -> None:
+        """Close a record: stamp ``t_done`` + outcome, fire the matching
+        anomaly trigger (``error`` / ``deadline`` / over-threshold
+        ``latency``; ``ok`` under the threshold and policy rejections
+        like ``shed`` trigger nothing)."""
+        rec.t_done = monotonic_s()
+        rec.outcome = outcome
+        rec.error = error
+        if outcome == "error":
+            self.trigger("error")
+        elif outcome == "deadline":
+            self.trigger("deadline")
+        elif outcome == "ok" and self.latency_threshold_s is not None:
+            lat = rec.latency_s
+            if lat is not None and lat > self.latency_threshold_s:
+                self.trigger("latency")
+
+    # -- triggers + dumps -------------------------------------------------
+
+    def trigger(self, reason: str) -> Optional[str]:
+        """An anomaly happened: count it, and write a dump when a dump
+        directory is configured and the rate limit allows. Returns the
+        dump path (None when no file was written). Never raises — the
+        recorder must not make an incident worse."""
+        self._triggers_fam.labels(trigger=reason).inc()
+        if self.dump_dir is None:
+            return None
+        now = time.monotonic()
+        with self._lock:
+            if now - self._last_dump < self.min_dump_interval_s:
+                return None
+            self._last_dump = now
+        try:
+            return self.dump(reason)
+        except Exception:  # noqa: BLE001 — forensics must never cascade
+            self._dump_errors_total.inc()
+            return None
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        """The ring's records oldest-first, as dicts."""
+        with self._lock:
+            recs = list(self._ring)
+        return [r.to_dict() for r in recs]
+
+    def dump(self, reason: str = "manual") -> str:
+        """Write the ring to an atomic self-verifying dump file in
+        ``dump_dir`` and return its path.
+
+        Layout: one JSON header line (format, reason, pid, role, wall
+        time, monotonic anchor, payload byte length, payload CRC32)
+        then the records payload — staged to ``.tmp``, fsynced, renamed
+        into place, parent fsynced, so a reader can never see a torn
+        dump (:func:`read_dump` catches external damage via the CRC)."""
+        if self.dump_dir is None:
+            raise ValueError("no dump_dir configured on this recorder")
+        os.makedirs(self.dump_dir, exist_ok=True)
+        payload = json.dumps({"records": self.snapshot()}).encode()
+        header = {
+            "format": DUMP_FORMAT,
+            "reason": reason,
+            "pid": os.getpid(),
+            "role": self.role,
+            "wall_time": time.time(),
+            "monotonic_s": monotonic_s(),
+            "capacity": self.capacity,
+            "payload_bytes": len(payload),
+            "crc32": zlib.crc32(payload) & 0xFFFFFFFF,
+        }
+        with self._lock:
+            self._dump_seq += 1
+            seq = self._dump_seq
+        fname = f"flight_{os.getpid()}_{seq:06d}_{reason}.json"
+        path = os.path.join(self.dump_dir, fname)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(json.dumps(header).encode() + b"\n" + payload)
+            _fsync_file(f)
+        os.rename(tmp, path)
+        _fsync_dir(self.dump_dir)
+        self._dumps_total.inc()
+        return path
+
+    def stats(self) -> Dict[str, Any]:
+        """The ``GET /v1/debug/flightrecorder`` view: knobs, counters and
+        the current ring."""
+        return {
+            "capacity": self.capacity,
+            "dump_dir": self.dump_dir,
+            "latency_threshold_s": self.latency_threshold_s,
+            "role": self.role,
+            "records_total": self._records_total.value,
+            "dumps_total": self._dumps_total.value,
+            "records": self.snapshot(),
+        }
+
+
+def read_dump(path: str) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
+    """Parse and verify a dump file; returns ``(header, records)``.
+
+    Raises :class:`FlightDumpCorruptError` on any damage — unparseable
+    header, wrong format tag, truncated payload, or CRC mismatch (the
+    byte-flip case). A dump that cannot be verified must never be
+    presented as forensic truth."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError as e:
+        raise FlightDumpCorruptError(f"dump {path!r}: unreadable "
+                                     f"({e})") from e
+    nl = data.find(b"\n")
+    if nl < 0:
+        raise FlightDumpCorruptError(f"dump {path!r}: no header line")
+    try:
+        header = json.loads(data[:nl])
+    except ValueError as e:
+        raise FlightDumpCorruptError(
+            f"dump {path!r}: header unparseable ({e})") from e
+    if header.get("format") != DUMP_FORMAT:
+        raise FlightDumpCorruptError(
+            f"dump {path!r}: format {header.get('format')!r}, expected "
+            f"{DUMP_FORMAT!r}")
+    payload = data[nl + 1:]
+    want_len = header.get("payload_bytes")
+    if want_len != len(payload):
+        raise FlightDumpCorruptError(
+            f"dump {path!r}: payload is {len(payload)} bytes, header "
+            f"says {want_len} — truncated or padded")
+    got_crc = zlib.crc32(payload) & 0xFFFFFFFF
+    if got_crc != header.get("crc32"):
+        raise FlightDumpCorruptError(
+            f"dump {path!r}: payload checksum mismatch (stored "
+            f"{header.get('crc32')}, computed {got_crc}) — the dump is "
+            "damaged")
+    try:
+        records = json.loads(payload)["records"]
+    except (ValueError, KeyError) as e:  # pragma: no cover - CRC caught it
+        raise FlightDumpCorruptError(
+            f"dump {path!r}: payload unparseable ({e})") from e
+    return header, records
+
+
+def list_dumps(dump_dir: str) -> List[str]:
+    """Dump file paths under ``dump_dir``, oldest-first by (pid, seq)
+    filename order; ``.tmp`` staging debris never appears."""
+    try:
+        names = os.listdir(dump_dir)
+    except OSError:
+        return []
+    out = [n for n in names
+           if n.startswith("flight_") and n.endswith(".json")]
+    return [os.path.join(dump_dir, n) for n in sorted(out)]
+
+
+_global_recorder: Optional[FlightRecorder] = None
+_recorder_lock = threading.Lock()
+
+
+def get_flight_recorder() -> FlightRecorder:
+    """The process-global recorder every built-in instrumentation point
+    (engine, batcher, sequence decode, batch runner) reports to. Built
+    on first use from the ``AZOO_FLIGHT_*`` environment — how the front
+    door points its workers' dumps at one directory — and adjustable
+    afterwards via :meth:`FlightRecorder.configure`."""
+    global _global_recorder
+    with _recorder_lock:
+        if _global_recorder is None:
+            capacity = int(os.environ.get(ENV_CAPACITY, "512"))
+            latency_ms = os.environ.get(ENV_LATENCY_MS)
+            _global_recorder = FlightRecorder(
+                capacity=capacity,
+                dump_dir=os.environ.get(ENV_DIR),
+                latency_threshold_s=(float(latency_ms) / 1e3
+                                     if latency_ms else None))
+        return _global_recorder

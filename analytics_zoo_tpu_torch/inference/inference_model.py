@@ -4,19 +4,39 @@ load → warm each bucket shape → concurrent predict. The forward is the JAX
 package's compiled ``forward``: float32 params and inputs are cast to the
 model's ``compute_dtype``, the model runs under ``torch.inference_mode()``,
 and floating outputs come back as float32 (float64 requests reach the card
-as float32, as in the JAX package). PyTorch runs eagerly, so there is
-no executable cache: ``do_optimize`` runs a bucket shape once, which builds
-the CUDA kernels and warms cuBLAS for it, and records the shape in
-``_warmed``.
+as float32, as in the JAX package).
 
-Quantization and calibration, sharding and stage plans, the AOT cache and
-the TF/ONNX loaders are not ported yet.
+**The executable cache** keeps the JAX package's semantics: one
+executable per input signature (:meth:`InferenceModel._shape_key`) in an
+LRU capped by ``executable_cache_size`` (``None``: unbounded), counted in
+``cache_stats`` (hits, misses, evictions) and in the process-wide
+``zoo_inference_cache_events_total``; ``do_optimize`` records the warmed
+signatures and counts a warm-up that overflows the cap
+(``warmup_overflows``). ``_gen`` is bumped by every load and release: an
+executable built for generation *g* is cached and replayed only while
+``_gen == g``. What an executable is depends on the device:
+
+- on the CPU, the eager forward (:class:`_EagerExecutable`);
+- on the card, a CUDA graph captured over the whole forward
+  (:class:`_GraphExecutable`): the request is copied into the graph's
+  static input buffers, cast to the compute dtype inside the graph, and
+  the replay's float32 outputs are copied out on the card before the
+  lock is released. A capture that fails raises; there is no eager
+  fallback on the card.
+
+Quantization and calibration, sharding and stage plans, compiled
+programs (``compile_program``), the AOT cache and the TF/ONNX loaders are
+not ported yet (ROADMAP A4).
 """
 
 from __future__ import annotations
 
+import collections
+import logging
 import threading
-from typing import Any, Tuple
+import time
+import weakref
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,23 +45,205 @@ from analytics_zoo_tpu_torch.common.nncontext import (
     get_nncontext,
     host_to_device,
 )
-from analytics_zoo_tpu_torch.common.tree import tree_map
+from analytics_zoo_tpu_torch.common.observability import (
+    get_tracer,
+    inference_cache_counters,
+)
+from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+from analytics_zoo_tpu_torch.ops import _kernels
+
+logger = logging.getLogger("analytics_zoo_tpu_torch")
+
+# One CUDA graph capture at a time in the process: two models' captures must
+# not overlap (each begins with a warm-up that synchronises its side stream,
+# and a capture's memory-pool routing is process-wide).
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _Snapshot:
+    """What one executable was built from: the model, its parameters cast
+    to the compute dtype, its state, the device and the generation. An
+    executable holds its snapshot, so the tensors a graph captured by
+    address stay alive as long as the graph does."""
+
+    __slots__ = ("model", "params", "state", "device", "gen", "dtype")
+
+    def __init__(self, model, params, state, device, gen):
+        self.model, self.params, self.state = model, params, state
+        self.device, self.gen = device, gen
+        cd = getattr(model, "compute_dtype", None)
+        self.dtype = getattr(torch, cd) if cd else None
+
+    def forward(self, xs):
+        """The forward on device tensors (inputs as :func:`host_to_device`
+        gives them): float32 cast to the compute dtype, the model under
+        ``inference_mode``, floating outputs made float32."""
+        dt = self.dtype
+
+        def cast(t):
+            return t.to(dt) if dt is not None and t.dtype == torch.float32 \
+                else t
+
+        with torch.inference_mode():
+            xs = (list(map(cast, xs)) if isinstance(xs, list) else cast(xs))
+            y, _ = self.model.apply(self.params, self.state, xs,
+                                    training=False, rng=None)
+            return tree_map(
+                lambda t: t.float() if t.is_floating_point() else t, y)
+
+
+def _as_list(x):
+    return (list(x), True) if isinstance(x, (list, tuple)) else ([x], False)
+
+
+class _EagerExecutable:
+    """The CPU executable: the eager forward over a copy of the request."""
+
+    def __init__(self, snap: _Snapshot):
+        self.snap = snap
+        self.gen = snap.gen
+        self.capture_bytes = 0
+        self.launches: Dict[Any, int] = {}  # nothing to replay
+
+    def __call__(self, x):
+        xs, multi = _as_list(x)
+        ts = [host_to_device(a, self.snap.device) for a in xs]
+        return self.snap.forward(ts if multi else ts[0])
+
+
+class _GraphExecutable:
+    """The card's executable: one ``torch.cuda.CUDAGraph`` captured over
+    the whole forward of one input signature.
+
+    Capture (under :data:`_CAPTURE_LOCK`): static input buffers of the
+    signature (float64 made float32, integers kept), one eager forward on
+    the model's side stream (it builds the CUDA kernels, creates the
+    cuBLAS handle and workspace of that stream and runs the flash kernel's
+    ``cudaFuncSetAttribute``, none of which may happen inside a capture),
+    then the capture itself into the model's shared memory pool.
+    ``capture_bytes`` is what the pool grew by during the capture.
+
+    Replay, under the model's replay lock: copy the request into the
+    static inputs (from pageable host memory: the copy has read the host
+    buffer when it returns, so a batcher may reuse its staging buffer at
+    once), replay, and clone the static outputs on the card, so the next
+    replay cannot overwrite an output that is still to be fetched. The
+    caller's stream waits for the side stream. The lock is the model's,
+    not the executable's: the graphs share one pool, so a block that one
+    graph uses as scratch may hold another's static outputs, and a replay
+    of one between another's replay and its clone would overwrite them;
+    and work enqueued on the side stream while it captures would be
+    captured too. The launch counters that the capture recorded are added
+    once per replay: a replay launches the captured kernels with no
+    Python.
+    """
+
+    def __init__(self, snap: _Snapshot, sig, pool, stream, lock):
+        """``sig``: (multi-input, ((shape, dtype name), ...))."""
+        self.snap = snap
+        self.gen = snap.gen
+        self.stream = stream
+        self.lock = lock
+        dev = snap.device
+        multi, specs = sig
+        self.inputs = [torch.zeros(shape, device=dev, dtype=(
+            torch.float32 if dtype == "float64" else _torch_dtype(dtype)))
+            for shape, dtype in specs]
+        args = self.inputs if multi else self.inputs[0]
+        cur = torch.cuda.current_stream(dev)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            snap.forward(args)  # warm-up: real launches, counted
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        before = torch.cuda.memory_reserved(dev)
+        with _kernels.recording_launches() as record, \
+                torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = snap.forward(args)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is invalid anyway; report the cause
+                raise
+            graph.capture_end()
+        stream.synchronize()
+        self.capture_bytes = torch.cuda.memory_reserved(dev) - before
+        self.graph = graph
+        self.outputs = out
+        self.launches = dict(record)
+
+    def __call__(self, x):
+        xs, _ = _as_list(x)
+        host = [np.ascontiguousarray(
+            a.astype(np.float32) if a.dtype == np.float64 else a)
+            for a in xs]
+        cur = torch.cuda.current_stream(self.snap.device)
+        with self.lock:
+            with torch.cuda.stream(self.stream):
+                for dst, a in zip(self.inputs, host):
+                    dst.copy_(torch.from_numpy(a), non_blocking=True)
+                self.graph.replay()
+                out = tree_map(torch.clone, self.outputs)
+            cur.wait_stream(self.stream)
+        for counter, n in self.launches.items():
+            counter.add(n)
+        for t in tree_leaves(out):
+            t.record_stream(cur)
+        return out
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, dtype=name)).dtype
 
 
 class InferenceModel:
     """load → (optional) warm → thread-safe predict, on the context's device
-    (the CUDA card unless the context was made with ``device="cpu"``)."""
+    (the CUDA card unless the context was made with ``device="cpu"``).
 
-    def __init__(self):
+    ``concurrent_num`` is kept for API parity: every executable takes
+    concurrent callers, so there is no model pool."""
+
+    def __init__(self, concurrent_num: int = 1,
+                 executable_cache_size: Optional[int] = 32):
+        self.concurrent_num = concurrent_num
         self.model = None
         self.params = None
         self.model_state = None
         self.device = None
         self._exec_params = None  # params cast to the compute dtype
+        self.executable_cache_size = executable_cache_size
+        self._compiled: "collections.OrderedDict[Tuple, Any]" = \
+            collections.OrderedDict()
+        self.cache_stats: Dict[str, int] = {
+            "hits": 0, "misses": 0, "evictions": 0}
+        # bytes of card memory each captured signature's graph added
+        self.capture_bytes: Dict[Tuple, int] = {}
         self._warmed: set = set()
+        self.warmup_overflows = 0
         self._lock = threading.Lock()
-        # bumped on every load/release; a warm-up that raced one is dropped
+        # bumped on every load/release; an executable built for generation
+        # g is cached and replayed only while _gen == g
         self._gen = 0
+        # card only: the graphs' shared memory pool, the graphs alive in it,
+        # the side stream they capture and replay on, and the lock that
+        # keeps one graph's capture or replay from interleaving with
+        # another's on it (see _GraphExecutable)
+        self._replay_lock = threading.Lock()
+        self._pool = None
+        self._pool_graphs: "weakref.WeakSet[_GraphExecutable]" = \
+            weakref.WeakSet()
+        self._stream = None
+
+    # -- loaders -----------------------------------------------------------
+
+    def do_load(self, path: str) -> "InferenceModel":
+        """Load a saved ZooModel directory (``ZooModel.save_model``)."""
+        from analytics_zoo_tpu_torch.models.common import ZooModel
+
+        return self.do_load_keras(ZooModel.load_model(path).model)
 
     def do_load_keras(self, keras_net) -> "InferenceModel":
         """Adopt an in-memory KerasNet: its ``params`` and ``model_state``
@@ -49,7 +251,8 @@ class InferenceModel:
         or ``Estimator.train``, the trained ones that the estimator wrote
         back) are copied to the device, and the params cast once to the
         model's compute dtype for the forward. The state stays as it is
-        (batch norm's f32 moving statistics), as in the JAX package."""
+        (batch norm's f32 moving statistics), as in the JAX package. Drops
+        every executable of the previous model."""
         with torch.inference_mode(False):  # the net may train later
             keras_net.ensure_params()
         device = get_nncontext().device
@@ -65,6 +268,7 @@ class InferenceModel:
             exec_params = params
         with self._lock:
             self._gen += 1
+            self._compiled.clear()
             self._warmed.clear()
             self.model = keras_net
             self.device = device
@@ -73,59 +277,166 @@ class InferenceModel:
             self.model_state = state
         return self
 
+    load = do_load
+
+    # -- the executable cache ------------------------------------------------
+
     @staticmethod
     def _shape_key(x) -> Tuple:
         if isinstance(x, (list, tuple)):
             return tuple((tuple(a.shape), str(a.dtype)) for a in x)
         return ((tuple(x.shape), str(x.dtype)),)
 
-    def _forward(self, x) -> Any:
-        """Run the model on host arrays; returns device tensors."""
+    def _snapshot(self) -> _Snapshot:
+        # call under self._lock
+        return _Snapshot(self.model, self._exec_params, self.model_state,
+                         self.device, self._gen)
+
+    def _eager(self, x):
+        """The eager forward of ``x`` (host arrays) on the current model,
+        through no executable; returns device tensors. The yardstick that
+        a graph replay is held to (bitwise, at the same shape) and timed
+        against on the card; never a fallback of the serving path."""
         with self._lock:
-            model, params = self.model, self._exec_params
-            state, device = self.model_state, self.device
-        if model is None:
-            raise RuntimeError("No model loaded — call do_load_keras")
-        cd = getattr(model, "compute_dtype", None)
-        dt = getattr(torch, cd) if cd else None
+            if self.model is None:
+                raise RuntimeError(
+                    "No model loaded — call do_load / do_load_keras")
+            snap = self._snapshot()
+        return _EagerExecutable(snap)(self._host(x))
 
-        def to_device(a):
-            # a copy (a batcher reusing its staging buffers may overwrite
-            # the array as soon as this returns), float64 made float32
-            t = host_to_device(a, device)
-            return t.to(dt) if dt is not None and t.dtype == torch.float32 \
-                else t
+    def _build(self, snap: _Snapshot, x):
+        """A new executable for ``x``'s signature (a capture on the
+        card)."""
+        if snap.device.type != "cuda":
+            return _EagerExecutable(snap)
+        xs, multi = _as_list(x)
+        sig = (multi, tuple((tuple(a.shape), str(a.dtype)) for a in xs))
+        with _CAPTURE_LOCK, self._replay_lock:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(snap.device)
+            if not self._pool_graphs:
+                # PyTorch retires a pool once no graph holds it (a reload
+                # or an eviction dropped the last one); start a new one
+                self._pool = torch.cuda.graph_pool_handle()
+            t0 = time.perf_counter()
+            exe = _GraphExecutable(snap, sig, self._pool, self._stream,
+                                   self._replay_lock)
+            self._pool_graphs.add(exe)
+            _kernels.compiled(time.perf_counter() - t0)
+        return exe
 
-        with torch.inference_mode():
-            xs = (list(map(to_device, x)) if isinstance(x, (list, tuple))
-                  else to_device(x))
-            y, _ = model.apply(params, state, xs, training=False, rng=None)
-            return tree_map(
-                lambda t: t.float() if t.is_floating_point() else t, y)
+    def _get_executable(self, key, example):
+        # Snapshot (model, params, state, gen) in ONE lock acquisition so a
+        # build never sees a torn combination; build outside the lock so a
+        # new shape does not stall concurrent predicts of built ones.
+        with self._lock:
+            if self.model is None:
+                raise RuntimeError(
+                    "No model loaded — call do_load / do_load_keras")
+            fn = self._compiled.get(key)
+            if fn is not None:
+                self._compiled.move_to_end(key)  # LRU touch
+                self.cache_stats["hits"] += 1
+            else:
+                self.cache_stats["misses"] += 1
+            snap = None if fn is not None else self._snapshot()
+        inference_cache_counters()["hits" if fn is not None
+                                   else "misses"].inc()
+        tracer = get_tracer()
+        if tracer.enabled:
+            cur = tracer.current()
+            if cur is not None:  # annotate the enclosing predict span
+                cur.attrs["cache"] = "hit" if fn is not None else "miss"
+        if fn is not None:
+            return fn
+        with tracer.span("inference.compile", cache="miss", key=str(key)):
+            compiled = self._build(snap, example)
+        # Two threads may race-build one shape; last insert wins, both are
+        # valid. An insert is skipped when a load or release bumped _gen
+        # meanwhile: caching it would serve a stale executable.
+        evicted = 0
+        with self._lock:
+            if self._gen == snap.gen:
+                self._compiled[key] = compiled
+                self._compiled.move_to_end(key)
+                self.capture_bytes[key] = compiled.capture_bytes
+                cap = self.executable_cache_size
+                while cap is not None and len(self._compiled) > max(1, cap):
+                    old, _ = self._compiled.popitem(last=False)
+                    self.capture_bytes.pop(old, None)
+                    self.cache_stats["evictions"] += 1
+                    evicted += 1
+        if evicted:
+            inference_cache_counters()["evictions"].inc(evicted)
+        return compiled
+
+    def _run(self, x):
+        """Run ``x`` (host arrays) through its signature's executable;
+        returns device tensors. An executable of an older generation is
+        never replayed: a load or release that raced the lookup sends the
+        call back for the current model's executable."""
+        key = self._shape_key(x)
+        while True:
+            fn = self._get_executable(key, x)
+            if fn.gen == self._gen:
+                return fn(x)
 
     def do_optimize(self, example_input) -> "InferenceModel":
-        """Warm one bucket shape: run it once (building the kernels and
-        warming cuBLAS for it) and record it in ``_warmed``."""
+        """Warm one bucket shape: build its executable (on the card,
+        capture its CUDA graph) and record it in ``_warmed``.
+
+        Warm-up overflow: warming more distinct shapes than
+        ``executable_cache_size`` means the LRU is evicting just-warmed
+        executables and serve-time captures return — logged and counted
+        (``zoo_inference_cache_events_total{event="warmup_overflow"}``,
+        plus the instance's ``warmup_overflows``)."""
+        x = ([np.asarray(a) for a in example_input]
+             if isinstance(example_input, (list, tuple))
+             else np.asarray(example_input))
+        key = self._shape_key(x)
+        self._get_executable(key, x)
+        cap = self.executable_cache_size
         with self._lock:
-            gen = self._gen
-        self.do_fetch(self._forward(example_input))
-        with self._lock:
-            if self._gen == gen:
-                self._warmed.add(self._shape_key(example_input))
+            self._warmed.add(key)
+            overflow = (cap is not None and len(self._warmed) > max(1, cap))
+            if overflow:
+                self.warmup_overflows += 1
+        if overflow:
+            inference_cache_counters()["warmup_overflow"].inc()
+            logger.warning(
+                "do_optimize warmed %d distinct shapes but "
+                "executable_cache_size=%d — the LRU is evicting just-"
+                "warmed executables and requests will capture again at "
+                "serve time; raise executable_cache_size or shrink the "
+                "bucket ladder", len(self._warmed), cap)
         return self
 
+    # -- predict -------------------------------------------------------------
+
+    @staticmethod
+    def _host(x):
+        if isinstance(x, (list, tuple)):
+            return [np.asarray(a) for a in x]
+        return np.asarray(x)
+
     def do_predict(self, x):
-        """Thread-safe predict: host arrays in, host float32 arrays out."""
-        return self.do_fetch(self.do_dispatch(x))
+        """Thread-safe predict: host arrays in, host float32 arrays out.
+        With the global tracer enabled, records an ``inference.predict``
+        span whose ``cache`` attr says whether the shape hit a built
+        executable (an ``inference.compile`` child span appears on a
+        miss)."""
+        x = self._host(x)
+        with get_tracer().span("inference.predict"):
+            out = self._run(x)
+        return self.do_fetch(out)
 
     def do_dispatch(self, x):
-        """Enqueue the forward and return the device output without waiting
-        for it; pair with :meth:`do_fetch`."""
-        if isinstance(x, (list, tuple)):
-            x = [np.asarray(a) for a in x]
-        else:
-            x = np.asarray(x)
-        return self._forward(x)
+        """The serving fast path's asynchronous half: enqueue the forward
+        (on the card, the graph replay and the copy-out of its outputs)
+        and return the device outputs without waiting for them; pair with
+        :meth:`do_fetch`. Same executables (and bitwise the same results)
+        as :meth:`do_predict`."""
+        return self._run(self._host(x))
 
     def do_fetch(self, out):
         """Materialize a :meth:`do_dispatch` output as host numpy arrays
@@ -135,9 +446,10 @@ class InferenceModel:
     predict = do_predict
 
     def release(self) -> None:
-        """Drop the model and its parameters."""
+        """Drop the executables, the model and its parameters."""
         with self._lock:
             self._gen += 1
+            self._compiled.clear()
             self._warmed.clear()
             self.model = None
             self.params = None

@@ -11,14 +11,16 @@ tensor never reaches the loader.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, List, Tuple
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG_DIR / "csrc"
@@ -29,23 +31,70 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# this thread's launch record while it captures a CUDA graph (None: not
+# capturing)
+_capture = threading.local()
+_compile_listeners: List[Callable[[float], None]] = []
 
 
 class LaunchCounter:
     """A wrapper's count of its kernel launches: a plain integer, bumped
-    under a lock because serving threads launch concurrently."""
+    under a lock because serving threads launch concurrently.
+
+    A wrapper called while its thread captures a CUDA graph
+    (:func:`recording_launches`) launches nothing: the kernel is recorded
+    into the graph, so the call goes to the capture's record instead, and
+    whoever replays the graph adds that record once per replay
+    (:meth:`add`)."""
 
     def __init__(self):
         self.count = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        record = getattr(_capture, "record", None)
+        if record is not None:
+            record[self] = record.get(self, 0) + n
+            return
         with self._lock:
-            self.count += 1
+            self.count += n
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's wrapper calls are recorded into a
+    CUDA graph being captured, not launched: yields the record, a dict
+    ``{LaunchCounter: calls}`` that the graph's replays add to the
+    counters."""
+    if getattr(_capture, "record", None) is not None:
+        raise RuntimeError("nested CUDA graph captures on one thread")
+    _capture.record = record = {}
+    try:
+        yield record
+    finally:
+        _capture.record = None
+
+
+def add_compile_listener(fn: Callable[[float], None]) -> None:
+    """Call ``fn(seconds)`` after every compile: each fresh ``nvcc`` build
+    of a kernel source here and each CUDA graph capture
+    (:func:`compiled`). The observability layer's compile counters are
+    such a listener."""
+    _compile_listeners.append(fn)
+
+
+def compiled(seconds: float) -> None:
+    """Report one compile that took ``seconds`` to the listeners; a
+    listener's fault is never the compile's."""
+    for fn in list(_compile_listeners):
+        try:
+            fn(seconds)
+        except Exception:  # pragma: no cover - defensive
+            pass
 
 
 def _nvcc() -> str:
@@ -80,6 +129,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     ``RuntimeError`` with the log if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
+    t0 = time.perf_counter()
     for name in names:
         src, lib = _paths(name)
         if lib.exists():
@@ -98,6 +148,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         if rc == 0:
             # atomic: another process never loads a half-written library
             os.replace(tmp, lib)
+            compiled(time.perf_counter() - t0)
         else:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exited {rc}\n{logs[name]}")

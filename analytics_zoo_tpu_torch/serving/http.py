@@ -1,0 +1,686 @@
+"""HTTP frontend for :class:`~analytics_zoo_tpu_torch.serving.engine.ServingEngine`
+(port of ``analytics_zoo_tpu.serving.http``).
+
+The thin stdlib layer (no framework dependency — same stance as
+``apps/web-service/serve.py``) exposing the TF-Serving-shaped surface:
+
+- ``POST /v1/models/<name>:predict`` (also
+  ``/v1/models/<name>/versions/<v>:predict``) — body is either JSON
+  ``{"instances": [...], "timeout_ms": <optional float>}`` or a raw
+  ``.npy`` array (``Content-Type: application/x-npy``). A multi-input
+  model (BERT's ids, segment ids and mask) takes the columnar JSON form
+  ``{"inputs": [[...], [...], ...]}``, one array per input in the
+  model's input order, each with the batch as its leading axis (the JAX
+  package's HTTP layer has no multi-input body). JSON replies with
+  ``{"predictions": ...}``; non-finite floats (NaN/Inf) are encoded as
+  ``null`` and flagged with a top-level ``"non_finite": true`` marker
+  (``json.dumps`` would otherwise emit non-standard ``NaN``/``Infinity``
+  tokens). An npy request whose model returns a single array gets npy
+  bytes back when ``Accept: application/x-npy`` (bit-exact, NaN/Inf
+  preserved).
+- ``POST /v1/models/<name>:generate`` (also ``/versions/<v>:generate``)
+  — sequence serving. JSON body ``{"prompts": [[ids...], ...],
+  "max_new_tokens", "eos_token", "timeout_ms"}``. The engine does not
+  serve generation yet (ROADMAP A5), so the route answers 501 as
+  :meth:`ServingEngine.generate_async` raises.
+- ``GET /metrics`` — Prometheus text exposition
+  (:meth:`ServingEngine.metrics_text`): the serving families plus the
+  process-global registry (inference-cache, compile, build-info and
+  process families) in one scrape.
+- ``GET /healthz`` — liveness + per-model stats. Returns 503 with
+  ``{"status": "draining"}`` while the engine is draining or drained,
+  so load balancers stop routing before shutdown.
+- ``GET /v1/models`` / ``GET /v1/models/<name>`` — the control-plane
+  view: registry (versions, latest), traffic policy, shadow
+  registrations, rollout state and quota config as JSON.
+- ``POST /v1/admin/rollout`` — control-plane mutation
+  (:meth:`ServingEngine.admin_action`): start/promote/rollback a
+  rollout, install manual weights, set shadows and tenant quotas.
+
+Control-plane request headers: ``X-Zoo-Tenant`` names the
+tenant whose token bucket admits the request (absent → the ``default``
+tenant; over quota → 429 + ``Retry-After``); ``X-Zoo-Route-Key`` makes
+weighted routing sticky — a given key always lands on the same version
+under the current policy.
+
+Result cache (engines built with ``result_cache=``): predict
+responses — JSON and npy alike — carry ``X-Zoo-Cache:
+hit|miss|coalesced|bypass`` (no header when the engine has no cache), and
+a request with ``Cache-Control: no-cache`` explicitly bypasses the cache
+for one request (it still pays quota). Explicit-version predicts are
+always ``bypass``. See docs/result-cache.md.
+
+Every response carries an ``X-Zoo-Trace-Id`` header (plus the same id
+as a W3C ``traceparent``, so external proxies and load balancers can
+join our traces). A request that already carries a well-formed
+``X-Zoo-Trace-Id`` (16 hex chars) keeps it — that is how the front
+door's trace ids survive the process hop to its workers;
+failing that, a well-formed incoming ``traceparent`` is adopted (the
+house header wins when both arrive), and otherwise a fresh id is
+minted. When the global tracer
+(:func:`analytics_zoo_tpu_torch.common.observability.get_tracer`) is
+enabled, a predict request's whole lifecycle — submit, queue wait, batch
+assembly, predict, result scatter — is recorded as spans under that
+trace id; export with ``get_tracer().export_chrome_trace(path)`` and
+open in Perfetto. See docs/observability.md.
+
+Ops-plane debug surface (all JSON):
+
+- ``GET /v1/debug/traces`` — per-trace rollup of this process's span
+  ring plus the process ``wall_anchor`` (what the front door uses to
+  place spans from different processes on one wall clock).
+- ``GET /v1/debug/traces/<id>`` — every collected span of one trace.
+- ``GET /v1/debug/flightrecorder`` — the engine's flight-recorder
+  stats and the current ring snapshot (oldest first).
+- ``GET /v1/debug/slo`` — the SLO engine's burn-rate report
+  (:meth:`analytics_zoo_tpu_torch.common.slo.SLOEngine.evaluate`).
+
+Transport details: the handler speaks HTTP/1.1 with
+keep-alive (every response carries ``Content-Length``), so the front
+door's persistent per-worker connections amortize the TCP handshake;
+``TCP_NODELAY`` is set on accepted sockets (small JSON responses must
+not wait out Nagle) and the listener binds with ``SO_REUSEADDR`` +
+``SO_REUSEPORT`` so a respawned worker can rebind its address
+immediately. Every 429/503 response carries ``Retry-After`` in integer
+seconds — from the exception's actual ``retry_after_s`` deficit when it
+has one, else the 1-second floor — so a client's backoff never needs a
+parser special case.
+
+Error mapping (:func:`status_for_exception`): unknown model/version
+(:class:`~analytics_zoo_tpu_torch.serving.engine.ModelNotFoundError` — a plain
+``KeyError`` from inside a model's predict path is a 500, not a routing
+miss) → 404, malformed body or signature mismatch → 400, queue full
+(backpressure) or admission shed → 429, breaker open or draining → 503,
+deadline → 504, body over the cap → 413, missing ``Content-Length`` →
+411, a surface the port has not ported yet (``NotImplementedError``) →
+501, anything else → 500. Retryable rejections (shed/breaker/draining)
+carry a ``Retry-After`` header.
+
+Two defensive behaviors: the request body size is
+capped (``max_body_bytes``, default 64 MiB — one client cannot exhaust
+server memory through an unbounded read), and a client that hangs up
+mid-response is swallowed and counted
+(``zoo_serving_client_disconnects_total``) instead of surfacing as a
+handler-thread stack trace.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import math
+import os
+import re
+import socket
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from analytics_zoo_tpu_torch.common.observability import (
+    format_traceparent,
+    get_tracer,
+    new_trace_id,
+    parse_traceparent,
+    refresh_process_metrics,
+    wall_anchor,
+)
+from analytics_zoo_tpu_torch.serving.batcher import (
+    DeadlineExceededError,
+    QueueFullError,
+)
+from analytics_zoo_tpu_torch.serving.engine import ModelNotFoundError
+from analytics_zoo_tpu_torch.serving.quota import QuotaExceededError
+from analytics_zoo_tpu_torch.serving.resilience import (
+    CircuitOpenError,
+    DrainingError,
+    ShedError,
+)
+
+__all__ = ["make_handler", "serve", "status_for_exception",
+           "retry_after_headers", "ZooHTTPServer",
+           "RequestTooLargeError", "LengthRequiredError",
+           "DEFAULT_MAX_BODY_BYTES"]
+
+_PREDICT_RE = re.compile(
+    r"^/v1/models/([\w.\-]+)(?:/versions/([\w.\-]+))?:predict$")
+_GENERATE_RE = re.compile(
+    r"^/v1/models/([\w.\-]+)(?:/versions/([\w.\-]+))?:generate$")
+_OUTCOME_RE = re.compile(r"^/v1/models/([\w.\-]+):outcome$")
+_MODEL_RE = re.compile(r"^/v1/models/([\w.\-]+)$")
+_TRACE_ID_RE = re.compile(r"^[0-9a-f]{16}$")
+_TRACES_RE = re.compile(r"^/v1/debug/traces/([0-9a-f]{16})$")
+_CACHE_RE = re.compile(r"^/v1/cache/([0-9a-f]{64})$")
+
+#: Request-body cap: large enough for any reasonable inference batch,
+#: small enough that one client cannot exhaust server memory.
+DEFAULT_MAX_BODY_BYTES = 64 << 20
+
+
+class RequestTooLargeError(ValueError):
+    """Request body exceeds the configured cap — HTTP 413."""
+
+
+class LengthRequiredError(ValueError):
+    """Request without a ``Content-Length`` header — HTTP 411 (the
+    frontend does not read chunked bodies)."""
+
+
+def status_for_exception(e: BaseException) -> int:
+    """HTTP status for a predict-path exception — the documented contract
+    for clients deciding whether to retry (429/503/504) or fix the
+    request (400/404/411/413)."""
+    if isinstance(e, (QueueFullError, ShedError, QuotaExceededError)):
+        return 429
+    if isinstance(e, (CircuitOpenError, DrainingError)):
+        return 503
+    if isinstance(e, DeadlineExceededError):
+        return 504
+    if isinstance(e, ModelNotFoundError):
+        return 404
+    if isinstance(e, RequestTooLargeError):
+        return 413
+    if isinstance(e, LengthRequiredError):
+        return 411
+    if isinstance(e, (ValueError, TypeError, json.JSONDecodeError)):
+        return 400
+    if isinstance(e, NotImplementedError):
+        return 501
+    return 500
+
+
+def retry_after_headers(status: int,
+                        e: Optional[BaseException] = None,
+                        ) -> Optional[Dict[str, str]]:
+    """The ``Retry-After`` header dict for an error response, or None.
+
+    The contract: every 429 and 503 carries ``Retry-After``
+    in integer seconds — the exception's ``retry_after_s`` deficit
+    rounded up when it has one, else a 1-second floor. Other statuses
+    get the header only when the exception explicitly carries a
+    deficit."""
+    retry_after = getattr(e, "retry_after_s", None) if e is not None \
+        else None
+    if status in (429, 503):
+        return {"Retry-After": str(max(1, math.ceil(retry_after))
+                                   if retry_after is not None else 1)}
+    if retry_after is not None:
+        return {"Retry-After": str(max(1, math.ceil(retry_after)))}
+    return None
+
+
+def _jsonable(out, nonfinite: Optional[Dict[str, bool]] = None):
+    """Nested arrays → JSON-ready lists. Non-finite floats (NaN/Inf)
+    become ``null`` — ``json.dumps`` would otherwise emit the
+    non-standard ``NaN``/``Infinity`` tokens most parsers reject — and
+    ``nonfinite["flag"]`` is set so the response can carry the
+    documented ``"non_finite": true`` marker."""
+    if isinstance(out, (list, tuple)):
+        return [_jsonable(o, nonfinite) for o in out]
+    if isinstance(out, dict):
+        return {k: _jsonable(v, nonfinite) for k, v in out.items()}
+    arr = np.asarray(out)
+    if np.issubdtype(arr.dtype, np.floating):
+        mask = ~np.isfinite(arr)
+        if mask.any():
+            if nonfinite is not None:
+                nonfinite["flag"] = True
+            if arr.ndim == 0:
+                return None
+            sanitized = arr.astype(object)
+            sanitized[mask] = None
+            return sanitized.tolist()
+    return arr.tolist()
+
+
+def _json_array(value, field: str) -> np.ndarray:
+    """A JSON request array: rectangular, floats made float32 (the
+    signature coerces the rest to the warmed dtypes)."""
+    x = np.asarray(value)
+    if x.dtype == object:
+        raise ValueError(f"{field} must form a rectangular array")
+    if np.issubdtype(x.dtype, np.floating):
+        x = x.astype(np.float32)
+    return x
+
+
+def make_handler(engine, max_body_bytes: int = DEFAULT_MAX_BODY_BYTES):
+    """Build the request-handler class bound to ``engine`` (the
+    ``BaseHTTPRequestHandler`` pattern needs a class, not an instance).
+    ``max_body_bytes`` caps ``POST`` bodies (413 beyond it)."""
+
+    class Handler(BaseHTTPRequestHandler):
+        """Routes the serving surface onto one ServingEngine."""
+
+        # HTTP/1.1: keep-alive by default (every response carries
+        # Content-Length), so the front door's persistent per-worker
+        # connections survive across requests
+        protocol_version = "HTTP/1.1"
+        # small JSON responses must not wait out Nagle's algorithm
+        disable_nagle_algorithm = True
+
+        def log_message(self, *a):  # quiet; metrics carry the signal
+            pass
+
+        _trace_id = None
+
+        def _adopt_trace_id(self) -> None:
+            # a well-formed incoming trace id (the front door's, or any
+            # upstream proxy's) is adopted so spans on both sides of the
+            # process hop share one id; anything else gets a fresh one
+            incoming = self.headers.get("X-Zoo-Trace-Id", "")
+            if _TRACE_ID_RE.match(incoming):
+                self._trace_id = incoming
+                return
+            # W3C traceparent as an alias (how external proxies and load
+            # balancers join our traces) — consulted only when no
+            # well-formed X-Zoo-Trace-Id arrived: the house header wins
+            # when both are present
+            parsed = parse_traceparent(
+                self.headers.get("traceparent", ""))
+            self._trace_id = parsed if parsed is not None \
+                else new_trace_id()
+
+        def _send(self, code: int, body: bytes,
+                  content_type: str = "application/json",
+                  extra_headers: Optional[Dict[str, str]] = None):
+            try:
+                self.send_response(code)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                tid = self._trace_id or new_trace_id()
+                self.send_header("X-Zoo-Trace-Id", tid)
+                # the same id in W3C clothing, so external tooling that
+                # only speaks traceparent can still follow the request
+                self.send_header("traceparent", format_traceparent(tid))
+                for k, v in (extra_headers or {}).items():
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(body)
+            except (BrokenPipeError, ConnectionResetError):
+                # the client hung up mid-response: its problem, not a
+                # handler-thread stack trace — count it and move on (the
+                # batcher already did, or will do, the work either way)
+                metrics = getattr(engine, "metrics", None)
+                if metrics is not None and hasattr(metrics,
+                                                   "client_disconnects"):
+                    metrics.client_disconnects.inc()
+                self.close_connection = True
+
+        def _send_json(self, code: int, payload,
+                       extra_headers: Optional[Dict[str, str]] = None):
+            self._send(code, json.dumps(payload).encode(),
+                       extra_headers=extra_headers)
+
+        def do_GET(self):
+            """``/metrics`` (Prometheus text), ``/healthz`` (JSON) and
+            the control-plane listing (``/v1/models[/<name>]``)."""
+            self._adopt_trace_id()
+            if self.path == "/metrics":
+                # sample the process gauges at scrape time HERE, not
+                # only inside engine.metrics_text() — the scrape must
+                # see current rss/fd values whatever renders the text
+                refresh_process_metrics()
+                self._send(200, engine.metrics_text().encode(),
+                           "text/plain; version=0.0.4; charset=utf-8")
+            elif self.path == "/healthz":
+                state = getattr(engine, "state", "serving")
+                if state == "serving":
+                    self._send_json(200, {"status": "ok",
+                                          "models": engine.stats()})
+                else:
+                    self._send_json(503, {"status": state,
+                                          "models": engine.stats()},
+                                    extra_headers=retry_after_headers(503))
+            elif self.path == "/v1/debug/traces":
+                tracer = get_tracer()
+                self._send_json(200, {
+                    "enabled": tracer.enabled,
+                    "pid": os.getpid(),
+                    "wall_anchor": wall_anchor(),
+                    "traces": tracer.trace_rollup(),
+                })
+            elif (t := _TRACES_RE.match(self.path)) is not None:
+                tracer = get_tracer()
+                self._send_json(200, {
+                    "trace_id": t.group(1),
+                    "enabled": tracer.enabled,
+                    "pid": os.getpid(),
+                    "wall_anchor": wall_anchor(),
+                    "spans": [s.to_dict()
+                              for s in tracer.spans_for(t.group(1))],
+                })
+            elif self.path == "/v1/debug/flightrecorder":
+                fr = getattr(engine, "flight", None)
+                if fr is None:
+                    self._send_json(404,
+                                    {"error": "no flight recorder"})
+                else:
+                    self._send_json(200, fr.stats())
+            elif self.path == "/v1/debug/slo":
+                slo = getattr(engine, "slo", None)
+                if slo is None:
+                    self._send_json(404, {"error": "no SLO engine"})
+                else:
+                    self._send_json(200, slo.evaluate())
+            elif self.path == "/v1/debug/outcomes":
+                fn = getattr(engine, "outcome_debug", None)
+                if fn is None:
+                    self._send_json(404, {"error": "no outcome plane"})
+                else:
+                    self._send_json(200, fn())
+            elif (c := _CACHE_RE.match(self.path)) is not None:
+                # cooperative-cache peek (fleet fabric): a
+                # peer asks whether this engine holds a cached result.
+                # peek() deliberately skips hit counting and LRU
+                # recency — a peer probe must not distort local stats
+                # or keep cold entries warm. Unencodable trees (exotic
+                # leaves) are honestly a 404: not shareable.
+                cache = getattr(engine, "result_cache", None)
+                master = cache.peek(c.group(1)) if cache is not None \
+                    else None
+                if master is None:
+                    self._send_json(404, {"error": "cache miss"})
+                else:
+                    from analytics_zoo_tpu_torch.serving.fabric.coopcache \
+                        import TREE_CONTENT_TYPE, encode_tree
+                    try:
+                        body = encode_tree(master)
+                    except TypeError:
+                        self._send_json(404,
+                                        {"error": "entry not shareable"})
+                    else:
+                        self._send(200, body, TREE_CONTENT_TYPE)
+            elif self.path == "/v1/models":
+                self._send_json(200, engine.describe_models())
+            elif (m := _MODEL_RE.match(self.path)) is not None:
+                try:
+                    self._send_json(200, engine.describe_model(m.group(1)))
+                except ModelNotFoundError as e:
+                    self._send_json(404,
+                                    {"error": f"{type(e).__name__}: {e}"})
+            else:
+                self._send_json(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            """``/v1/models/<name>[:versions/<v>]:predict``. The whole
+            request runs under a fresh trace id (echoed in the
+            ``X-Zoo-Trace-Id`` header of every outcome, errors
+            included) so a client report can be joined to its spans."""
+            self._adopt_trace_id()
+            if self.path == "/v1/admin/rollout":
+                self._do_admin()
+                return
+            g = _GENERATE_RE.match(self.path)
+            if g:
+                self._do_generate(g.group(1), g.group(2))
+                return
+            o = _OUTCOME_RE.match(self.path)
+            if o:
+                self._do_outcome(o.group(1))
+                return
+            m = _PREDICT_RE.match(self.path)
+            if not m:
+                self._send_json(404, {"error": "unknown path"})
+                return
+            name, version = m.group(1), m.group(2)
+            tenant = self.headers.get("X-Zoo-Tenant")
+            route_key = self.headers.get("X-Zoo-Route-Key")
+            # RFC 9111 semantics for the one directive that matters to
+            # an inference cache: a client that must see a fresh
+            # execution (e.g. validating a repoint) sends
+            # Cache-Control: no-cache and gets X-Zoo-Cache: bypass back
+            cache_control = self.headers.get("Cache-Control", "")
+            bypass_cache = "no-cache" in cache_control.lower()
+            cache_status = None
+            try:
+                with get_tracer().span("serving.request",
+                                       trace_id=self._trace_id,
+                                       model=name) as sp:
+                    x, timeout_ms = self._parse_body()
+                    fut = engine.predict_async(
+                        name, x, timeout_ms=timeout_ms,
+                        version=version, tenant=tenant,
+                        route_key=route_key, bypass_cache=bypass_cache,
+                        trace_id=self._trace_id)
+                    out = fut.result()
+                    # hit|miss|coalesced|bypass; absent (no header) when
+                    # the engine runs without a result cache
+                    cache_status = getattr(fut, "cache_status", None)
+                    if sp is not None:
+                        sp.attrs["rows"] = int(np.asarray(
+                            x[0] if isinstance(x, (list, tuple)) else x
+                        ).shape[0])
+            except Exception as e:  # noqa: BLE001 — mapped to status codes
+                status = status_for_exception(e)
+                self._send_json(status,
+                                {"error": f"{type(e).__name__}: {e}"},
+                                extra_headers=retry_after_headers(status, e))
+                return
+            cache_headers = ({"X-Zoo-Cache": cache_status}
+                             if cache_status is not None else None)
+            if "application/x-npy" in self.headers.get("Accept", "") and \
+                    isinstance(out, np.ndarray):
+                # np.save streams straight from the (possibly cached,
+                # read-only) array — the zero-copy npy path
+                buf = io.BytesIO()
+                np.save(buf, out, allow_pickle=False)
+                self._send(200, buf.getvalue(), "application/x-npy",
+                           extra_headers=cache_headers)
+            else:
+                # non-finite floats encode as null (json.dumps would emit
+                # the non-standard NaN/Infinity tokens), flagged by the
+                # documented top-level "non_finite": true marker
+                nonfinite: Dict[str, bool] = {}
+                payload = {"predictions": _jsonable(out, nonfinite)}
+                if nonfinite.get("flag"):
+                    payload["non_finite"] = True
+                self._send_json(200, payload,
+                                extra_headers=cache_headers)
+
+        def _do_generate(self, name: str, version: Optional[str]):
+            """``/v1/models/<name>[:versions/<v>]:generate``.
+
+            JSON body: ``{"prompts": [[ids...], ...], "max_new_tokens":
+            <optional int>, "eos_token": <optional int or null>,
+            "timeout_ms": <optional float>}``. Prompts may be ragged —
+            each is one generation request, submitted concurrently so
+            the continuous batcher interleaves them across decode
+            slots. Replies ``{"sequences": [[tokens...], ...]}`` in
+            prompt order. Generate responses are never result-cached
+            and never shadow-mirrored (see docs/result-cache.md and
+            :meth:`ServingEngine.generate_async`); errors share the
+            predict path's status mapping (decode-queue full → 429,
+            deadline evicting the slot mid-decode → 504)."""
+            tenant = self.headers.get("X-Zoo-Tenant")
+            route_key = self.headers.get("X-Zoo-Route-Key")
+            try:
+                with get_tracer().span("serving.request",
+                                       trace_id=self._trace_id,
+                                       model=name, kind="generate") as sp:
+                    req = json.loads(self._read_raw_body())
+                    if not isinstance(req, dict) or "prompts" not in req:
+                        raise ValueError(
+                            'JSON body needs a "prompts" field (a list '
+                            "of token-id lists; ragged is fine)")
+                    prompts = req["prompts"]
+                    if (not isinstance(prompts, list) or not prompts
+                            or not all(isinstance(p, list) and p
+                                       for p in prompts)):
+                        raise ValueError(
+                            '"prompts" must be a non-empty list of '
+                            "non-empty token-id lists")
+                    mnt = req.get("max_new_tokens")
+                    eos = req.get("eos_token", "__config__")
+                    timeout_ms = req.get("timeout_ms")
+                    timeout_ms = (float(timeout_ms)
+                                  if timeout_ms is not None else None)
+                    # no dtype coercion: a float in a prompt must fail
+                    # submit's integer check (400), not round silently
+                    futs = [engine.generate_async(
+                        name, np.asarray(p),
+                        max_new_tokens=(int(mnt) if mnt is not None
+                                        else None),
+                        eos=eos, timeout_ms=timeout_ms,
+                        version=version, tenant=tenant,
+                        route_key=route_key,
+                        trace_id=self._trace_id) for p in prompts]
+                    seqs = [f.result().tolist() for f in futs]
+                    if sp is not None:
+                        sp.attrs["prompts"] = len(prompts)
+                        sp.attrs["tokens"] = sum(len(s) for s in seqs)
+            except Exception as e:  # noqa: BLE001 — mapped to status codes
+                status = status_for_exception(e)
+                self._send_json(status,
+                                {"error": f"{type(e).__name__}: {e}"},
+                                extra_headers=retry_after_headers(status,
+                                                                  e))
+                return
+            self._send_json(200, {"sequences": seqs})
+
+        def _do_admin(self):
+            """``POST /v1/admin/rollout`` — one control-plane action per
+            request, JSON in / model description out. Errors share the
+            predict path's status mapping (malformed → 400, unknown
+            model/version/rollout → 404)."""
+            try:
+                payload = json.loads(self._read_raw_body())
+                if not isinstance(payload, dict):
+                    raise ValueError("admin body must be a JSON object")
+                result = engine.admin_action(payload)
+            except Exception as e:  # noqa: BLE001 — mapped to status codes
+                self._send_json(status_for_exception(e),
+                                {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send_json(200, result)
+
+        def _do_outcome(self, name: str):
+            """``POST /v1/models/<name>:outcome`` — record
+            ground-truth outcome labels for captured traffic. JSON body:
+            one ``{"trace_id": ..., "label": ..., "ts": <optional>}``
+            record, or a batch as ``{"outcomes": [record, ...]}``. The
+            batch is validated whole — any bad record is a 400 with
+            nothing buffered. 404 when this worker has no label store or
+            does not serve the model."""
+            try:
+                payload = json.loads(self._read_raw_body())
+                if not isinstance(payload, dict):
+                    raise ValueError("outcome body must be a JSON object")
+                if "outcomes" in payload:
+                    records = payload["outcomes"]
+                    if not isinstance(records, list):
+                        raise ValueError('"outcomes" must be a list of '
+                                         "records")
+                else:
+                    records = [payload]
+                result = engine.ingest_outcomes(name, records)
+            except Exception as e:  # noqa: BLE001 — mapped to status codes
+                self._send_json(status_for_exception(e),
+                                {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send_json(200, result)
+
+        def _parse_body(self) -> Tuple[np.ndarray, Optional[float]]:
+            body = self._read_raw_body()
+            ctype = self.headers.get("Content-Type", "application/json")
+            if "application/x-npy" in ctype:
+                return np.load(io.BytesIO(body), allow_pickle=False), None
+            req = json.loads(body)
+            if not isinstance(req, dict):
+                raise ValueError("JSON body must be an object")
+            if "inputs" in req:
+                # columnar multi-input: one array per model input
+                cols = req["inputs"]
+                if not isinstance(cols, list) or not cols:
+                    raise ValueError('"inputs" must be a non-empty list '
+                                     "with one array per model input")
+                x = [_json_array(c, "inputs") for c in cols]
+            elif "instances" in req:
+                x = _json_array(req["instances"], "instances")
+            else:
+                raise ValueError('JSON body needs an "instances" or '
+                                 '"inputs" field')
+            timeout_ms = req.get("timeout_ms")
+            return x, (float(timeout_ms) if timeout_ms is not None else None)
+
+        def _read_raw_body(self) -> bytes:
+            raw = self.headers.get("Content-Length")
+            if raw is None:
+                # we cannot safely skip an unread body of unknown size,
+                # so also stop reusing this connection
+                self.close_connection = True
+                raise LengthRequiredError(
+                    "POST requires a Content-Length header (chunked "
+                    "bodies are not supported)")
+            try:
+                n = int(raw)
+            except ValueError:
+                self.close_connection = True
+                raise ValueError(
+                    f"invalid Content-Length: {raw!r}") from None
+            if n <= 0:
+                raise ValueError("empty request body")
+            if n > max_body_bytes:
+                # reject WITHOUT reading the body; the unread bytes make
+                # this connection unreusable
+                self.close_connection = True
+                raise RequestTooLargeError(
+                    f"request body of {n} bytes exceeds the "
+                    f"{max_body_bytes}-byte cap")
+            body = self.rfile.read(n)
+            if len(body) < n:
+                self.close_connection = True
+                raise ValueError(
+                    f"truncated request body: Content-Length said {n} "
+                    f"bytes, got {len(body)}")
+            return body
+
+    return Handler
+
+
+class ZooHTTPServer(ThreadingHTTPServer):
+    """The serving tier's listener: threaded, daemonic handler threads,
+    and explicit socket options — ``SO_REUSEADDR`` +
+    ``SO_REUSEPORT`` so a respawned worker (or a restarted front door)
+    rebinds its address without waiting out TIME_WAIT, ``TCP_NODELAY``
+    on the listener so accepted connections inherit it where the
+    platform supports that (the handler's ``disable_nagle_algorithm``
+    sets it per-connection regardless). The listen backlog is raised
+    from socketserver's default of 5: a front door fanning N workers'
+    worth of traffic opens connections in bursts that overflow a
+    5-deep accept queue into client-visible resets."""
+
+    daemon_threads = True
+    request_queue_size = 128
+
+    def server_bind(self):
+        self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if hasattr(socket, "SO_REUSEPORT"):
+            try:
+                self.socket.setsockopt(socket.SOL_SOCKET,
+                                       socket.SO_REUSEPORT, 1)
+            except OSError:  # pragma: no cover — platform-dependent
+                pass
+        try:
+            self.socket.setsockopt(socket.IPPROTO_TCP,
+                                   socket.TCP_NODELAY, 1)
+        except OSError:  # pragma: no cover — platform-dependent
+            pass
+        super().server_bind()
+
+
+def serve(engine, host: str = "127.0.0.1", port: int = 0,
+          max_body_bytes: int = DEFAULT_MAX_BODY_BYTES,
+          ) -> Tuple[ThreadingHTTPServer, threading.Thread]:
+    """Start the frontend on a daemon thread; returns ``(server, thread)``
+    (``port=0`` picks a free port — read ``server.server_port``). Stop
+    with ``server.shutdown()``. ``max_body_bytes`` caps POST bodies
+    (413 beyond it)."""
+    srv = ZooHTTPServer((host, port),
+                        make_handler(engine,
+                                     max_body_bytes=max_body_bytes))
+    t = threading.Thread(target=srv.serve_forever, daemon=True,
+                         name="zoo-serving-http")
+    t.start()
+    return srv, t

@@ -1,0 +1,512 @@
+"""Serving metrics — the adapter over the shared observability layer.
+
+The reference's Cluster Serving publishes queue/batch/latency metrics to
+a Prometheus endpoint (ClusterServingManager + the monitoring docs); this
+keeps that surface for the in-process engine, now backed by the unified
+:mod:`analytics_zoo_tpu_torch.common.observability` primitives: ``Counter`` /
+``Gauge`` / ``Summary`` live there (re-exported here for compatibility),
+and :class:`ServingMetrics` is a thin view over a
+:class:`~analytics_zoo_tpu_torch.common.observability.MetricsRegistry` of
+labeled families — ``{model="<name>"}`` — with text exposition handled
+by the registry (label values escaped per the exposition grammar, so a
+model name containing ``"`` or ``\\`` cannot break the scrape).
+
+Each :class:`ServingMetrics` owns a private registry (engines are
+isolated units; two engines' counters must not merge), while the
+process-global registry (training / inference-cache / compile families,
+:func:`~analytics_zoo_tpu_torch.common.observability.get_registry`) is appended
+by the HTTP layer so one ``/metrics`` scrape carries everything.
+
+Metric families (all labeled ``{model="<name>"}``):
+
+- ``zoo_serving_requests_total`` / ``rejected_total`` / ``timeouts_total``
+  / ``errors_total`` — request outcomes (counter).
+- ``zoo_serving_flushes_total`` / ``rows_total`` / ``padded_rows_total``
+  — batcher work (counter).
+- ``zoo_serving_queue_depth`` — requests waiting right now (gauge).
+- ``zoo_serving_pipeline_inflight`` — batches dispatched and awaiting
+  their result in the pipelined flush's completion stage (gauge).
+- ``zoo_serving_batch_fill_ratio`` — real rows / bucket size per flush
+  (summary; mean is the headline utilization number).
+- ``zoo_serving_queue_wait_seconds`` / ``latency_seconds`` — time in
+  queue / end-to-end request latency (summary with p50/p95 quantiles).
+
+Resilience families:
+
+- ``zoo_serving_shed_total{model,reason}`` — requests refused before the
+  queue, by cause (``deadline_unmeetable`` from admission control,
+  ``breaker_open``, ``draining``) (counter).
+- ``zoo_serving_breaker_state{model}`` — circuit-breaker state gauge
+  (0 = closed, 1 = half-open, 2 = open).
+- ``zoo_serving_breaker_transitions_total{model,to}`` — breaker state
+  changes by destination state (counter).
+- ``zoo_serving_watchdog_restarts_total{model}`` — flush threads the
+  watchdog replaced (counter).
+- ``zoo_serving_draining`` / ``zoo_serving_drain_pending`` — engine-level
+  (unlabeled) drain gauges: 1 while draining; requests still queued or
+  in flight during the drain.
+- ``zoo_serving_client_disconnects_total`` — engine-level counter of
+  responses abandoned because the client hung up mid-write.
+
+Control-plane families (router / rollout / shadow / quota):
+
+- ``zoo_serving_version_requests_total`` / ``version_errors_total`` /
+  ``version_latency_seconds`` — per-``{model,version}`` outcomes of
+  *routed* traffic, the rollout controller's promotion signal.
+- ``zoo_serving_rollout_stage{model}`` — ladder rung of the active
+  rollout (gauge; ``-1`` = rolled back, ``len(ladder)`` = finalized).
+- ``zoo_serving_rollbacks_total{model,reason}`` /
+  ``promotions_total{model}`` — rollout outcomes (reason ∈
+  ``error_rate`` / ``latency`` / ``breaker_open`` / ``superseded`` /
+  ``manual``).
+- ``zoo_serving_shadow_requests_total`` / ``shadow_failures_total`` /
+  ``shadow_dropped_total`` / ``shadow_latency_seconds`` — per-
+  ``{model,version}`` shadow-traffic outcomes (failures never surface
+  to clients; ``dropped`` counts mirrors shed under load).
+- ``zoo_serving_quota_rejections_total{tenant}`` /
+  ``tenant_requests_total{tenant}`` /
+  ``tenant_latency_seconds{tenant}`` — engine-level per-tenant surface.
+  Cardinality is allowlist-bounded: tenants outside the quota config's
+  allowlist fold into the single label value ``other`` (see
+  docs/known-issues.md).
+
+Sequence-serving families (the continuous decode batcher,
+all labeled ``{model}``):
+
+- ``zoo_seq_requests_total`` / ``rejected_total`` / ``tokens_total`` /
+  ``prefills_total`` / ``decode_steps_total`` — generation outcomes and
+  decode work (counter).
+- ``zoo_seq_queue_depth`` / ``zoo_seq_slots_live`` — requests waiting
+  for a slot / slots occupied now (gauge).
+- ``zoo_seq_slot_occupancy_ratio`` — live slots / capacity per step
+  (summary; the decode-utilization headline).
+- ``zoo_seq_time_to_first_token_seconds`` / ``zoo_seq_latency_seconds``
+  — TTFT and end-to-end generation latency (summary).
+- ``zoo_seq_evicted_total{model,reason}`` — slots freed, by reason
+  (``eos`` / ``max_new_tokens`` / ``deadline`` / ``restart`` /
+  ``error``).
+
+Result-cache families (engine-level, rendered from the
+:class:`~analytics_zoo_tpu_torch.serving.result_cache.ResultCache` counters by
+:func:`render_result_cache`, same pattern as the executable-cache block):
+
+- ``zoo_serving_result_cache_hits_total`` / ``misses_total`` /
+  ``coalesced_total`` / ``evictions_total`` / ``invalidations_total`` —
+  cache outcomes (counter). ``coalesced`` counts followers attached to
+  an in-flight leader; ``invalidations`` counts entries dropped by
+  version retirement.
+- ``zoo_serving_result_cache_bytes`` / ``entries`` — resident result
+  bytes and entry count (gauge).
+
+Summaries expose ``quantile="0.5"/"0.95"/"0.99"`` samples; the JSON-side
+``snapshot()`` carries the matching ``*_p50_s``/``*_p95_s``/``*_p99_s``
+keys (the p99 the hit-rate→latency bench curve plots).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Tuple
+
+from analytics_zoo_tpu_torch.common.observability import (
+    Counter,
+    Gauge,
+    MetricsRegistry,
+    Summary,
+)
+
+__all__ = ["Counter", "Gauge", "Summary", "ModelMetrics", "ServingMetrics",
+           "render_result_cache"]
+
+
+# (stats key, family suffix, kind, help) — the result-cache schema,
+# rendered by render_result_cache() from ResultCache.stats() so the
+# counters have a single source of truth (the cache's own ints).
+_RESULT_CACHE_FAMILIES: "List[Tuple[str, str, str, str]]" = [
+    ("hits", "zoo_serving_result_cache_hits_total", "counter",
+     "Predict requests served from the result cache."),
+    ("misses", "zoo_serving_result_cache_misses_total", "counter",
+     "Predict requests that executed for real (single-flight leaders)."),
+    ("coalesced", "zoo_serving_result_cache_coalesced_total", "counter",
+     "Requests coalesced onto an identical in-flight leader."),
+    ("evictions", "zoo_serving_result_cache_evictions_total", "counter",
+     "Entries evicted (LRU capacity, byte budget, or TTL expiry)."),
+    ("invalidations", "zoo_serving_result_cache_invalidations_total",
+     "counter",
+     "Entries dropped because their version was retired "
+     "(unregister / rollback / hot-reload)."),
+    ("bytes", "zoo_serving_result_cache_bytes", "gauge",
+     "Resident result bytes in the cache."),
+    ("entries", "zoo_serving_result_cache_entries", "gauge",
+     "Resident entries in the cache."),
+    ("peer_hits", "zoo_serving_result_cache_peer_hits_total", "counter",
+     "Misses served from another fleet replica's cache (cooperative "
+     "peer fetch)."),
+    ("peer_misses", "zoo_serving_result_cache_peer_misses_total",
+     "counter",
+     "Peer-fetch attempts that found nothing anywhere in the fleet."),
+]
+
+
+def render_result_cache(stats: Optional[Dict[str, float]]) -> str:
+    """Prometheus text for the ``zoo_serving_result_cache_*`` families
+    from a :meth:`~analytics_zoo_tpu_torch.serving.result_cache.ResultCache
+    .stats` dict (``None`` → every family at 0, so scrapers see a stable
+    family set whether or not a cache is configured)."""
+    stats = stats or {}
+    lines = []
+    for key, fam, kind, help_text in _RESULT_CACHE_FAMILIES:
+        lines.append(f"# HELP {fam} {help_text}")
+        lines.append(f"# TYPE {fam} {kind}")
+        lines.append(f"{fam} {stats.get(key, 0):g}")
+    return "\n".join(lines) + "\n"
+
+
+# (attribute, family, kind, help) — the serving schema, registered in this
+# order so the exposition groups each family's samples under its header.
+_FAMILIES: List[Tuple[str, str, str, str]] = [
+    ("requests", "zoo_serving_requests_total", "counter",
+     "Requests accepted into the batching queue."),
+    ("rejected", "zoo_serving_rejected_total", "counter",
+     "Requests rejected because the queue was full (backpressure)."),
+    ("timeouts", "zoo_serving_timeouts_total", "counter",
+     "Requests whose deadline expired before their batch ran."),
+    ("errors", "zoo_serving_errors_total", "counter",
+     "Requests failed by a model fault during a flush."),
+    ("flushes", "zoo_serving_flushes_total", "counter",
+     "Batches executed."),
+    ("rows", "zoo_serving_rows_total", "counter",
+     "Real (non-padding) rows served."),
+    ("padded_rows", "zoo_serving_padded_rows_total", "counter",
+     "Padding rows added to reach a bucket size."),
+    ("queue_depth", "zoo_serving_queue_depth", "gauge",
+     "Requests queued now."),
+    ("pipeline_inflight", "zoo_serving_pipeline_inflight", "gauge",
+     "Batches dispatched and awaiting their result in the completion "
+     "stage."),
+    ("batch_fill", "zoo_serving_batch_fill_ratio", "summary",
+     "Real rows / bucket size per flush."),
+    ("queue_wait", "zoo_serving_queue_wait_seconds", "summary",
+     "Seconds a request waited in the queue before its flush."),
+    ("latency", "zoo_serving_latency_seconds", "summary",
+     "End-to-end seconds from submit to result."),
+    ("breaker_state", "zoo_serving_breaker_state", "gauge",
+     "Circuit-breaker state: 0=closed, 1=half-open, 2=open."),
+    ("watchdog_restarts", "zoo_serving_watchdog_restarts_total", "counter",
+     "Flush threads replaced by the watchdog (dead or wedged)."),
+]
+
+# Families with a second label dimension — exposed through the
+# ModelMetrics.shed(reason) / .breaker_transition(to) accessors rather
+# than fixed attributes, since the label value set is open-ended.
+_SHED_FAMILY = ("zoo_serving_shed_total",
+                "Requests refused before the queue, by reason.")
+_TRANSITIONS_FAMILY = ("zoo_serving_breaker_transitions_total",
+                       "Circuit-breaker state changes, by destination.")
+
+# Control-plane families. Per-{model,version}: routed-traffic
+# outcomes (the rollout gate's raw signal) and shadow-traffic outcomes.
+_VERSION_FAMILIES: List[Tuple[str, str, str, str]] = [
+    ("version_requests", "zoo_serving_version_requests_total", "counter",
+     "Routed requests completed, per model version."),
+    ("version_errors", "zoo_serving_version_errors_total", "counter",
+     "Routed requests failed, per model version."),
+    ("version_latency", "zoo_serving_version_latency_seconds", "summary",
+     "End-to-end latency of routed requests, per model version."),
+    ("shadow_requests", "zoo_serving_shadow_requests_total", "counter",
+     "Requests mirrored to a shadow version."),
+    ("shadow_failures", "zoo_serving_shadow_failures_total", "counter",
+     "Mirrored requests the shadow version failed (never "
+     "client-visible)."),
+    ("shadow_dropped", "zoo_serving_shadow_dropped_total", "counter",
+     "Mirrors dropped before the shadow's queue (shadows shed first)."),
+    ("shadow_latency", "zoo_serving_shadow_latency_seconds", "summary",
+     "End-to-end latency of mirrored requests on the shadow version."),
+]
+# Sequence-serving families — the continuous batcher's
+# surface. Same {model} label as the batch families; `seq_evicted` adds
+# a {reason} dimension (eos / max_new_tokens / deadline / restart /
+# error) through an accessor, like shed().
+_SEQ_FAMILIES: List[Tuple[str, str, str, str]] = [
+    ("seq_requests", "zoo_seq_requests_total", "counter",
+     "Generation requests accepted into the decode queue."),
+    ("seq_rejected", "zoo_seq_rejected_total", "counter",
+     "Generation requests rejected because the decode queue was full "
+     "(decode-slot exhaustion backpressure — see docs/known-issues.md)."),
+    ("seq_tokens", "zoo_seq_tokens_total", "counter",
+     "Tokens generated and returned to clients."),
+    ("seq_prefills", "zoo_seq_prefills_total", "counter",
+     "Prefill batches executed (one per admission wave)."),
+    ("seq_decode_steps", "zoo_seq_decode_steps_total", "counter",
+     "Decode-step executions over the slot array."),
+    ("seq_queue_depth", "zoo_seq_queue_depth", "gauge",
+     "Generation requests waiting for a decode slot now."),
+    ("seq_slots_live", "zoo_seq_slots_live", "gauge",
+     "Decode slots occupied after the latest step."),
+    ("seq_occupancy", "zoo_seq_slot_occupancy_ratio", "summary",
+     "Live slots / capacity per decode step (mean is decode "
+     "utilization)."),
+    ("seq_ttft", "zoo_seq_time_to_first_token_seconds", "summary",
+     "Seconds from submit to the request's first generated token."),
+    ("seq_latency", "zoo_seq_latency_seconds", "summary",
+     "End-to-end seconds from submit to the full generated sequence."),
+]
+_SEQ_EVICTIONS_FAMILY = ("zoo_seq_evicted_total",
+                         "Decode slots freed, by reason (eos / "
+                         "max_new_tokens / deadline / restart / error).")
+
+_ROLLBACKS_FAMILY = ("zoo_serving_rollbacks_total",
+                     "Canary rollbacks, by reason.")
+_PROMOTIONS_FAMILY = ("zoo_serving_promotions_total",
+                      "Canaries promoted to full traffic.")
+_ROLLOUT_STAGE_FAMILY = ("zoo_serving_rollout_stage",
+                         "Active rollout ladder rung (-1 = rolled back, "
+                         "len(ladder) = finalized).")
+_QUOTA_REJECTIONS_FAMILY = ("zoo_serving_quota_rejections_total",
+                            "Requests rejected over tenant quota (429).")
+_TENANT_REQUESTS_FAMILY = ("zoo_serving_tenant_requests_total",
+                           "Requests admitted, by tenant label "
+                           "(allowlist-bounded).")
+_TENANT_LATENCY_FAMILY = ("zoo_serving_tenant_latency_seconds",
+                          "End-to-end latency, by tenant label "
+                          "(allowlist-bounded).")
+
+
+class ModelMetrics:
+    """The per-model metric bundle the batcher and engine write into:
+    one labeled child per serving family (``.requests``, ``.latency``,
+    ...), all sharing ``{model="<name>"}``. Construct standalone (its own
+    private registry) or let :meth:`ServingMetrics.for_model` wire it
+    into the engine's registry."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 model: str = "model"):
+        registry = registry or MetricsRegistry()
+        self.model = model
+        for attr, fam_name, kind, help_text in _FAMILIES:
+            fam = getattr(registry, kind)(fam_name, help_text,
+                                          labels=("model",))
+            setattr(self, attr, fam.labels(model=model))
+        for attr, fam_name, kind, help_text in _SEQ_FAMILIES:
+            fam = getattr(registry, kind)(fam_name, help_text,
+                                          labels=("model",))
+            setattr(self, attr, fam.labels(model=model))
+        self._shed_fam = registry.counter(*_SHED_FAMILY,
+                                          labels=("model", "reason"))
+        self._transitions_fam = registry.counter(
+            *_TRANSITIONS_FAMILY, labels=("model", "to"))
+        self._seq_evicted_fam = registry.counter(
+            *_SEQ_EVICTIONS_FAMILY, labels=("model", "reason"))
+        self._seq_evicted_children: Dict[str, Counter] = {}
+        self._shed_children: Dict[str, Counter] = {}
+        self._version_fams = {}
+        for attr, fam_name, kind, help_text in _VERSION_FAMILIES:
+            self._version_fams[attr] = getattr(registry, kind)(
+                fam_name, help_text, labels=("model", "version"))
+        self._version_children: Dict[Tuple[str, str], object] = {}
+        self._lock = threading.Lock()
+
+    def shed(self, reason: str) -> Counter:
+        """The ``zoo_serving_shed_total{model,reason}`` child for
+        ``reason`` (``deadline_unmeetable`` / ``breaker_open`` /
+        ``draining``)."""
+        with self._lock:
+            child = self._shed_children.get(reason)
+            if child is None:
+                child = self._shed_fam.labels(model=self.model,
+                                              reason=reason)
+                self._shed_children[reason] = child
+            return child
+
+    def seq_evicted(self, reason: str) -> Counter:
+        """The ``zoo_seq_evicted_total{model,reason}`` child for
+        ``reason`` (``eos`` / ``max_new_tokens`` / ``deadline`` /
+        ``restart`` / ``error``)."""
+        with self._lock:
+            child = self._seq_evicted_children.get(reason)
+            if child is None:
+                child = self._seq_evicted_fam.labels(model=self.model,
+                                                     reason=reason)
+                self._seq_evicted_children[reason] = child
+            return child
+
+    def breaker_transition(self, to: str) -> Counter:
+        """The ``zoo_serving_breaker_transitions_total{model,to}`` child
+        for destination state ``to``."""
+        return self._transitions_fam.labels(model=self.model, to=to)
+
+    def _version_child(self, attr: str, version: str):
+        key = (attr, version)
+        with self._lock:
+            child = self._version_children.get(key)
+            if child is None:
+                child = self._version_fams[attr].labels(
+                    model=self.model, version=version)
+                self._version_children[key] = child
+            return child
+
+    def version_requests(self, version: str) -> Counter:
+        """``zoo_serving_version_requests_total{model,version}``."""
+        return self._version_child("version_requests", version)
+
+    def version_errors(self, version: str) -> Counter:
+        """``zoo_serving_version_errors_total{model,version}``."""
+        return self._version_child("version_errors", version)
+
+    def version_latency(self, version: str) -> Summary:
+        """``zoo_serving_version_latency_seconds{model,version}``."""
+        return self._version_child("version_latency", version)
+
+    def shadow_requests(self, version: str) -> Counter:
+        """``zoo_serving_shadow_requests_total{model,version}``."""
+        return self._version_child("shadow_requests", version)
+
+    def shadow_failures(self, version: str) -> Counter:
+        """``zoo_serving_shadow_failures_total{model,version}``."""
+        return self._version_child("shadow_failures", version)
+
+    def shadow_dropped(self, version: str) -> Counter:
+        """``zoo_serving_shadow_dropped_total{model,version}``."""
+        return self._version_child("shadow_dropped", version)
+
+    def shadow_latency(self, version: str) -> Summary:
+        """``zoo_serving_shadow_latency_seconds{model,version}``."""
+        return self._version_child("shadow_latency", version)
+
+    def snapshot(self) -> Dict[str, float]:
+        """Flat dict of every value — the JSON-side view (bench records,
+        ``/healthz``)."""
+        out: Dict[str, float] = {
+            "requests": self.requests.value,
+            "rejected": self.rejected.value,
+            "timeouts": self.timeouts.value,
+            "errors": self.errors.value,
+            "flushes": self.flushes.value,
+            "rows": self.rows.value,
+            "padded_rows": self.padded_rows.value,
+            "queue_depth": self.queue_depth.value,
+            "pipeline_inflight": self.pipeline_inflight.value,
+            "batch_fill_mean": self.batch_fill.mean,
+            "breaker_state": self.breaker_state.value,
+            "watchdog_restarts": self.watchdog_restarts.value,
+            "seq_requests": self.seq_requests.value,
+            "seq_rejected": self.seq_rejected.value,
+            "seq_tokens": self.seq_tokens.value,
+            "seq_prefills": self.seq_prefills.value,
+            "seq_decode_steps": self.seq_decode_steps.value,
+            "seq_queue_depth": self.seq_queue_depth.value,
+            "seq_slots_live": self.seq_slots_live.value,
+            "seq_occupancy_mean": self.seq_occupancy.mean,
+        }
+        with self._lock:
+            shed = list(self._shed_children.items())
+            seq_ev = list(self._seq_evicted_children.items())
+        for reason, child in shed:
+            out[f"shed_{reason}"] = child.value
+        for reason, child in seq_ev:
+            out[f"seq_evicted_{reason}"] = child.value
+        for name, s in (("queue_wait", self.queue_wait),
+                        ("latency", self.latency),
+                        ("seq_ttft", self.seq_ttft),
+                        ("seq_latency", self.seq_latency)):
+            pct = s.percentiles()
+            out[f"{name}_p50_s"] = pct.get("p50_s", 0.0)
+            out[f"{name}_p95_s"] = pct.get("p95_s", 0.0)
+            out[f"{name}_p99_s"] = pct.get("p99_s", 0.0)
+        return out
+
+
+class ServingMetrics:
+    """Registry of :class:`ModelMetrics` keyed by model name, with the
+    Prometheus text-exposition dump (the serving part of the
+    ``GET /metrics`` body). Backed by a private
+    :class:`~analytics_zoo_tpu_torch.common.observability.MetricsRegistry`
+    (``.registry``) so every family keeps the grammar-correct exposition
+    the shared layer implements."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = registry or MetricsRegistry()
+        self._models: Dict[str, ModelMetrics] = {}
+        self._lock = threading.Lock()
+        # register the schema up front: HELP/TYPE headers render even
+        # before any model exists (scrapers see a stable family set)
+        for _attr, fam_name, kind, help_text in _FAMILIES:
+            getattr(self.registry, kind)(fam_name, help_text,
+                                         labels=("model",))
+        for _attr, fam_name, kind, help_text in _SEQ_FAMILIES:
+            getattr(self.registry, kind)(fam_name, help_text,
+                                         labels=("model",))
+        self.registry.counter(*_SHED_FAMILY, labels=("model", "reason"))
+        self.registry.counter(*_TRANSITIONS_FAMILY, labels=("model", "to"))
+        self.registry.counter(*_SEQ_EVICTIONS_FAMILY,
+                              labels=("model", "reason"))
+        for _attr, fam_name, kind, help_text in _VERSION_FAMILIES:
+            getattr(self.registry, kind)(fam_name, help_text,
+                                         labels=("model", "version"))
+        # control-plane families (rollout outcomes + per-tenant surface)
+        self._rollbacks_fam = self.registry.counter(
+            *_ROLLBACKS_FAMILY, labels=("model", "reason"))
+        self._promotions_fam = self.registry.counter(
+            *_PROMOTIONS_FAMILY, labels=("model",))
+        self._rollout_stage_fam = self.registry.gauge(
+            *_ROLLOUT_STAGE_FAMILY, labels=("model",))
+        self._quota_rejections_fam = self.registry.counter(
+            *_QUOTA_REJECTIONS_FAMILY, labels=("tenant",))
+        self._tenant_requests_fam = self.registry.counter(
+            *_TENANT_REQUESTS_FAMILY, labels=("tenant",))
+        self._tenant_latency_fam = self.registry.summary(
+            *_TENANT_LATENCY_FAMILY, labels=("tenant",))
+        # engine-level (unlabeled) resilience metrics
+        self.draining = self.registry.gauge(
+            "zoo_serving_draining",
+            "1 while the engine is draining or drained, else 0.").child()
+        self.drain_pending = self.registry.gauge(
+            "zoo_serving_drain_pending",
+            "Requests still queued or in flight during a drain.").child()
+        self.client_disconnects = self.registry.counter(
+            "zoo_serving_client_disconnects_total",
+            "Responses abandoned because the client hung up "
+            "mid-write.").child()
+
+    def for_model(self, name: str) -> ModelMetrics:
+        """The (lazily created) bundle for ``name``."""
+        with self._lock:
+            if name not in self._models:
+                self._models[name] = ModelMetrics(self.registry, name)
+            return self._models[name]
+
+    def rollbacks(self, model: str, reason: str) -> Counter:
+        """``zoo_serving_rollbacks_total{model,reason}``."""
+        return self._rollbacks_fam.labels(model=model, reason=reason)
+
+    def promotions(self, model: str) -> Counter:
+        """``zoo_serving_promotions_total{model}``."""
+        return self._promotions_fam.labels(model=model)
+
+    def rollout_stage(self, model: str) -> Gauge:
+        """``zoo_serving_rollout_stage{model}`` (-1 = rolled back)."""
+        return self._rollout_stage_fam.labels(model=model)
+
+    def quota_rejections(self, tenant: str) -> Counter:
+        """``zoo_serving_quota_rejections_total{tenant}`` (tenant is the
+        folded metric label, not the raw id)."""
+        return self._quota_rejections_fam.labels(tenant=tenant)
+
+    def tenant_requests(self, tenant: str) -> Counter:
+        """``zoo_serving_tenant_requests_total{tenant}``."""
+        return self._tenant_requests_fam.labels(tenant=tenant)
+
+    def tenant_latency(self, tenant: str) -> Summary:
+        """``zoo_serving_tenant_latency_seconds{tenant}``."""
+        return self._tenant_latency_fam.labels(tenant=tenant)
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        """``{model_name: flat metric dict}`` for JSON consumers."""
+        with self._lock:
+            items = list(self._models.items())
+        return {name: m.snapshot() for name, m in items}
+
+    def render(self) -> str:
+        """Prometheus text exposition (version 0.0.4) of every family for
+        every model."""
+        return self.registry.render()

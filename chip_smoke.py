@@ -33,10 +33,11 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    lse cotangent;
 3. serving: serves BERT-base (12 x 768, 12 heads, vocab 30522, seq up to
    512, bf16 compute, random weights from ``--seed``) through
-   ``InferenceModel``: warms buckets (8, 128) and (32, 512), answers
-   requests from two threads plus one dispatch/fetch pair, checks shapes,
-   finiteness and row sums, checks that the kernel launched 12 times per
-   forward, and checks the same requests with attention forced onto the
+   ``InferenceModel``: warms buckets (8, 128) and (32, 512) (one CUDA
+   graph each), answers requests from two threads plus one dispatch/fetch
+   pair, checks shapes, finiteness and row sums, checks that the kernel
+   launched 12 times per forward (graph replays included), and checks the
+   same requests through the eager forward with attention forced onto the
    kernel's plain version;
 3b. training: BERT-base (seq 128, bf16 compute, dropout 0, random weights
    from ``--seed``) trains 2 epochs through ``Estimator.train`` on a
@@ -70,7 +71,8 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
 3e. checkpoint and resume: NCF (as in 3d, 3 epochs, a checkpoint each
    epoch) and BERT-base at full width cut to 2 blocks (bf16 compute,
    hidden dropout 0.1, batch 64, 2 epochs of 320 rows, a checkpoint every
-   2 iterations) each run (a) uninterrupted twice, (b) in a child process
+   2 iterations, under ``torch.use_deterministic_algorithms`` so that its
+   embedding gradients repeat) each run (a) uninterrupted twice, (b) in a child process
    (``--resume-child``) armed with ``AZOO_FT_CHAOS=before_commit`` to die
    at its second checkpoint (exit 43, one committed checkpoint left), and
    (c) from a fresh ``Estimator`` with ``auto_resume=True``; (c) must be
@@ -97,7 +99,28 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    forced) and their bounds; the per-bucket
    ``do_predict`` latency over fresh requests; the train step's p50/p90,
    tokens/s and MFU; ResNet-50's train step p50/p90 (images/s, MFU at
-   4.09e9 x 3 flop per image) and its ``do_predict`` latency per bucket.
+   4.09e9 x 3 flop per image) and its ``do_predict`` latency per bucket;
+5. the serving tier: BERT-base (as in phase 3, requests of 128 tokens) and
+   the trained ResNet-50 registered in one ``ServingEngine`` with the
+   bucket ladder (1, 2, 4, 8, 16, 32) and ``max_wait_ms`` 2, each bucket
+   warmed to one CUDA graph (the MiB each capture added printed); 1 and 4
+   client threads, each sending 64 BERT requests of 1-8 rows with random
+   padding lengths and 32 ResNet-50 requests of 1-4 rows, in-process
+   (``engine.predict``) and over ``serving.http`` (BERT as columnar JSON,
+   ResNet-50 as ``.npy``); every batch the batcher dispatched is recorded,
+   every response must equal its batch's replayed rows bitwise, every
+   replay the eager forward of the same bucket-shaped batch bitwise, and
+   every BERT response the plain attention route within ``PROB_BOUND``;
+   ``cache_stats`` must show one miss per bucket after ``register`` and
+   none after it; the flash forward must launch 12 times per BERT replay
+   and never for ResNet-50; dispatch, dispatch, fetch, fetch on one bucket
+   must give both answers; 4 threads predicting random buckets at once
+   must each get the eager answer; a reload must capture anew and serve
+   the new weights; a capture that fails must raise; ``/metrics`` must carry
+   ``zoo_build_info`` and the cache counters. It prints requests/s, p50
+   and p90 latency per model and per bucket, the flush fill, and graph
+   replay against the eager forward for BERT (8, 128) and ResNet-50 (1,
+   224, 224, 3).
 
 The build phase prints each kernel's ptxas registers and spills and, for
 the wgmma kernels, the SASS's top register and local-memory instructions
@@ -114,6 +137,7 @@ of the sort.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -1484,6 +1508,25 @@ def resume_run(net, data, args, ckpt_dir, seed, auto_resume=False):
     return est, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def repeatable(kind):
+    """Phase 3e's BERT runs under ``torch.use_deterministic_algorithms``
+    (``warn_only``: an op without a deterministic form still runs):
+    ``F.embedding``'s CUDA backward into the f32 position and segment
+    tables is otherwise unrepeatable (``scripts/torch_determinism.py``),
+    so two uninterrupted runs differ by noise, and holding the resumed run
+    to "no further than that noise" compared two draws of it. With its deterministic form the
+    runs repeat bitwise and the resumed run must equal them bitwise."""
+    if kind != "bert":
+        yield
+        return
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def resume_child(kind, seed) -> int:
     """Phase 3e (b), in a process of its own: the run armed to die at the
     second checkpoint. Returns only if it did not die."""
@@ -1491,7 +1534,8 @@ def resume_child(kind, seed) -> int:
 
     init_nncontext(seed=seed)
     net, data, args = resume_setup(kind, seed)
-    resume_run(net, data, args, CKPT_DIR / kind / "b", seed)
+    with repeatable(kind):
+        resume_run(net, data, args, CKPT_DIR / kind / "b", seed)
     return 0
 
 
@@ -1549,8 +1593,9 @@ def resume_check(fa, kind, seed):
 
     net, data, args = resume_setup(kind, seed)
     zero_launches(fa)  # the resume path's in-process runs start here
-    a1, t1 = resume_run(net, data, args, CKPT_DIR / kind / "a1", seed)
-    a2, t2 = resume_run(net, data, args, CKPT_DIR / kind / "a2", seed)
+    with repeatable(kind):
+        a1, t1 = resume_run(net, data, args, CKPT_DIR / kind / "a1", seed)
+        a2, t2 = resume_run(net, data, args, CKPT_DIR / kind / "a2", seed)
     t0 = time.perf_counter()
     child = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
@@ -1567,7 +1612,8 @@ def resume_check(fa, kind, seed):
           f"{child.stderr.strip().splitlines()[-1:]}", flush=True)
     if child.returncode != chaos.EXIT_CODE or len(survivors) != 1:
         fail(f"the {kind} run did not die at its second checkpoint")
-    c, t3 = resume_run(net, data, args, kill_dir, seed, auto_resume=True)
+    with repeatable(kind):
+        c, t3 = resume_run(net, data, args, kill_dir, seed, auto_resume=True)
     launches = read_launches(fa)  # ... and end here
     d_aa, first_aa = state_distance(a1.tstate, a2.tstate)
     d_ca, first_ca = state_distance(c.tstate, a1.tstate)
@@ -1587,6 +1633,540 @@ def resume_check(fa, kind, seed):
     steps = 2 * a1.run_state.iteration + (c.run_state.iteration
                                           - survivors[0][0])
     return launches, steps
+
+
+# Phase 5: the serving tier. One ServingEngine holds BERT-base (BERT_BASE,
+# bf16, requests of SERVE_SEQ tokens) and ResNet-50 (224², bf16) behind the
+# bucket ladder SERVE_LADDER, each bucket warmed to one CUDA graph at
+# register; SERVE_CLIENTS client threads each send SERVE_BERT_REQUESTS BERT
+# requests of 1-8 rows (random padding lengths) and SERVE_RESNET_REQUESTS
+# ResNet-50 requests of 1-4 rows, in-process (engine.predict) and over
+# serving.http, at each client count.
+SERVE_LADDER = (1, 2, 4, 8, 16, 32)
+SERVE_WAIT_MS = 2.0
+SERVE_SEQ = 128
+SERVE_CLIENTS = (1, 4)
+SERVE_BERT_REQUESTS, SERVE_BERT_ROWS = 64, 8
+SERVE_RESNET_REQUESTS, SERVE_RESNET_ROWS = 32, 4
+SERVE_LATENCY_REQUESTS = 40  # graph replay vs eager, per model, sequential
+SERVE_RELOAD_BERT = dict(BERT_BASE, n_block=2)  # the reload check's models
+
+
+class DispatchRecorder:
+    """Stands in for an InferenceModel's ``do_dispatch`` (installed before
+    ``register``, which wires the batcher to it): keeps a copy of every
+    batch the batcher dispatched with the device output of its replay, so
+    each response can be traced to its batch and the batch run again
+    eagerly."""
+
+    def __init__(self, im):
+        self.im, self.batches = im, []
+        self._dispatch = im.do_dispatch
+        self._lock = threading.Lock()
+        im.do_dispatch = self
+
+    def __call__(self, x):
+        copy = ([np.array(a) for a in x] if isinstance(x, (list, tuple))
+                else np.array(x))
+        out = self._dispatch(x)
+        with self._lock:
+            self.batches.append((copy, out))
+        return out
+
+    def take(self):
+        with self._lock:
+            batches, self.batches = self.batches, []
+        return batches
+
+
+def serve_requests(rng, vocab):
+    """Each client's requests, in the order it sends them: BERT and
+    ResNet-50 interleaved."""
+    out = []
+    for _ in range(max(SERVE_CLIENTS)):
+        reqs = [("bert", make_request(rng, int(rng.integers(
+            1, SERVE_BERT_ROWS + 1)), SERVE_SEQ, vocab))
+            for _ in range(SERVE_BERT_REQUESTS)]
+        every = SERVE_BERT_REQUESTS // SERVE_RESNET_REQUESTS
+        for i in range(SERVE_RESNET_REQUESTS):
+            rows = int(rng.integers(1, SERVE_RESNET_ROWS + 1))
+            x = (resnet_images(rng, rows)[0].astype(np.float32)
+                 - 127.5) / 127.5
+            reqs.insert(i * (every + 1) + every, ("resnet", x))
+        out.append(reqs)
+    return out
+
+
+def http_predict(conn, name, x):
+    """One predict over HTTP on a kept-alive connection: BERT's three
+    inputs as columnar JSON, ResNet-50's image batch as an .npy body with
+    an .npy reply."""
+    import io
+
+    if isinstance(x, list):
+        body = json.dumps({"inputs": [a.tolist() for a in x]}).encode()
+        headers = {"Content-Type": "application/json"}
+    else:
+        buf = io.BytesIO()
+        np.save(buf, x, allow_pickle=False)
+        body = buf.getvalue()
+        headers = {"Content-Type": "application/x-npy",
+                   "Accept": "application/x-npy"}
+    conn.request("POST", f"/v1/models/{name}:predict", body=body,
+                 headers=headers)
+    resp = conn.getresponse()
+    data = resp.read()
+    if resp.status != 200:
+        fail(f"HTTP predict of {name} answered {resp.status}: {data[:300]}")
+    if resp.getheader("Content-Type", "").startswith("application/x-npy"):
+        return np.load(io.BytesIO(data), allow_pickle=False)
+    return np.asarray(json.loads(data)["predictions"], np.float32)
+
+
+def serve_traffic(engine, clients, via_http, port):
+    """Every client thread sends its requests in order and waits for each
+    answer, in-process or over HTTP. Returns ([(model, request, response,
+    seconds)], wall seconds)."""
+    import http.client
+
+    results, errors = [], []
+    lock = threading.Lock()
+
+    def client(reqs):
+        conn = (http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+                if via_http else None)
+        try:
+            for name, x in reqs:
+                t0 = time.perf_counter()
+                y = (http_predict(conn, name, x) if via_http
+                     else engine.predict(name, x))
+                dt = time.perf_counter() - t0
+                with lock:
+                    results.append((name, x, y, dt))
+        except BaseException as e:  # reported after join
+            errors.append(e)
+        finally:
+            if conn is not None:
+                conn.close()
+
+    threads = [threading.Thread(target=client, args=(reqs,))
+               for reqs in clients]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail("a serving client did not finish")
+    if errors:
+        raise errors[0]
+    return results, wall
+
+
+def _row_key(x, i):
+    xs = x if isinstance(x, list) else [x]
+    return b"".join(a[i].tobytes() for a in xs)
+
+
+def check_served(fa, name, im, batches, results):
+    """Each response of ``name`` against the batch the batcher put it in:
+    equal bitwise to that batch's replayed rows, the replay equal bitwise
+    to an eager forward of the same bucket-shaped batch on the card, and,
+    for BERT, within PROB_BOUND of the plain attention route. Returns
+    ({bucket: [seconds]}, [rows / bucket per batch])."""
+    index = {}
+    outs = []
+    for j, (x, out) in enumerate(batches):
+        outs.append(im.do_fetch(out))
+        for i in range(len(x[0] if isinstance(x, list) else x)):
+            index.setdefault(_row_key(x, i), []).append((j, i))
+    real = [0] * len(batches)
+    spans = []  # (batch, first row, rows, response)
+    by_bucket = {}
+    for model, x, y, secs in results:
+        if model != name:
+            continue
+        rows = len(x[0] if isinstance(x, list) else x)
+        hit = None
+        for j, i in index.get(_row_key(x, 0), []):
+            bx = batches[j][0]
+            if i + rows <= len(bx[0] if isinstance(bx, list) else bx) and \
+                    all(_row_key(bx, i + r) == _row_key(x, r)
+                        for r in range(rows)):
+                hit = (j, i)
+                break
+        if hit is None:
+            fail(f"{name}: a response's rows were in no dispatched batch")
+        j, i = hit
+        if y.shape != outs[j][i:i + rows].shape or \
+                not np.array_equal(y, outs[j][i:i + rows]):
+            fail(f"{name}: a response differs from its batch's replayed "
+                 f"rows")
+        real[j] += rows
+        spans.append((j, i, rows, y))
+        bucket = len(batches[j][0][0] if isinstance(batches[j][0], list)
+                     else batches[j][0])
+        by_bucket.setdefault(bucket, []).append(secs)
+    for j, (x, _) in enumerate(batches):
+        eager = im.do_fetch(im._eager(x))
+        if not np.array_equal(eager, outs[j]):
+            fail(f"{name}: a replay differs from the eager forward of its "
+                 f"batch at the same bucket (max "
+                 f"{np.abs(eager - outs[j]).max():.3e})")
+    worst = 0.0
+    if name == "bert":
+        kernel_fwd = fa._flash_forward
+        fa._flash_forward = fa._flash_forward_plain
+        try:
+            plain = [im.do_fetch(im._eager(x)) for x, _ in batches]
+        finally:
+            fa._flash_forward = kernel_fwd
+        for j, i, rows, y in spans:
+            worst = max(worst, float(np.abs(y - plain[j][i:i + rows]).max()))
+        if not worst <= PROB_BOUND:
+            fail(f"bert: served probabilities {worst:.3e} from the plain "
+                 f"route (bound {PROB_BOUND:g})")
+    for _, _, _, y in spans:
+        if not np.isfinite(y).all():
+            fail(f"{name}: a response is not finite")
+    fill = [r / len(x[0] if isinstance(x, list) else x)
+            for r, (x, _) in zip(real, batches) if r]
+    return by_bucket, fill, worst
+
+
+SERVE_CPU_SAMPLE = 16  # BERT responses also held against the CPU route
+
+
+def check_cpu_route(net, results):
+    """The first SERVE_CPU_SAMPLE BERT responses of a run against the same
+    weights' forward on the CPU, where attention takes its plain route
+    (the CPU tests' route), within PROB_BOUND."""
+    from analytics_zoo_tpu_torch.common.tree import tree_map
+
+    dt = getattr(torch, net.compute_dtype) if net.compute_dtype else None
+
+    def cpu(t):
+        t = t.detach().to("cpu", copy=True)
+        return t.to(dt) if dt is not None and t.dtype == torch.float32 \
+            else t
+
+    params = tree_map(cpu, net.params)
+    state = tree_map(cpu, net.model_state or {})
+    sample = [r for r in results if r[0] == "bert"][:SERVE_CPU_SAMPLE]
+    worst = 0.0
+    with torch.inference_mode():
+        for _, x, y, _ in sample:
+            xs = [cpu(torch.from_numpy(a)) for a in x]
+            out, _ = net.apply(params, state, xs, training=False, rng=None)
+            worst = max(worst, float(np.abs(out.float().numpy() - y).max()))
+    print(f"serve: {len(sample)} BERT responses against the CPU plain "
+          f"route: max |served - cpu| {worst:.3e} (bound {PROB_BOUND:g})",
+          flush=True)
+    if not worst <= PROB_BOUND:
+        fail("served BERT probabilities are off the CPU plain route")
+
+
+def serve_tier(fa, net, resnet, rng):
+    """Phase 5: register BERT-base and ResNet-50 in one ServingEngine
+    (every bucket warmed to a CUDA graph), serve them in-process and over
+    serving.http at each client count, and check every response, the
+    executable cache, the launch counts, the aliasing and reload traps,
+    that a failing capture raises, and ``/metrics``. Returns the flash
+    forward launches of the served runs."""
+    import http.client
+
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import (
+        BatcherConfig,
+        ServingEngine,
+        serve_http,
+    )
+
+    cfg = BatcherConfig(max_batch_size=max(SERVE_LADDER),
+                        buckets=SERVE_LADDER, max_wait_ms=SERVE_WAIT_MS)
+    models = {"bert": InferenceModel().do_load_keras(net),
+              "resnet": InferenceModel().do_load_keras(resnet)}
+    examples = {
+        "bert": [np.zeros((1, SERVE_SEQ), np.int32),
+                 np.zeros((1, SERVE_SEQ), np.int32),
+                 np.zeros((1, SERVE_SEQ), np.float32)],
+        "resnet": np.zeros((1,) + RESNET_INPUT, np.float32)}
+    recorders = {n: DispatchRecorder(im) for n, im in models.items()}
+    engine = ServingEngine()
+    for name, im in models.items():
+        t0 = time.perf_counter()
+        engine.register(name, im, examples[name], config=cfg)
+        torch.cuda.synchronize()
+        graph_mb = {k[0][0][0]: round(v / 2 ** 20, 1)
+                    for k, v in sorted(im.capture_bytes.items())}
+        print(f"serve: {name} registered in "
+              f"{time.perf_counter() - t0:.2f} s, one CUDA graph per bucket "
+              f"{list(SERVE_LADDER)}; MiB each capture added to the pool "
+              f"{graph_mb}; cache {im.cache_stats}", flush=True)
+        if im.cache_stats != {"hits": 0, "misses": len(SERVE_LADDER),
+                              "evictions": 0}:
+            fail(f"{name}: register warmed {im.cache_stats}, want "
+                 f"{len(SERVE_LADDER)} misses and nothing else")
+    launches = {n: [e.launches.get(fa.launches, 0)
+                    for e in im._compiled.values()]
+                for n, im in models.items()}
+    n_block = BERT_BASE["n_block"]
+    print(f"serve: flash launches each graph replays: {launches}",
+          flush=True)
+    if launches["bert"] != [n_block] * len(SERVE_LADDER) or \
+            any(launches["resnet"]):
+        fail("a BERT graph does not launch the flash kernel once per block, "
+             "or a ResNet-50 graph launches it")
+    server, _ = serve_http(engine, port=0)
+    port = server.server_address[1]
+    clients = serve_requests(rng, BERT_BASE["vocab"])
+    total_launches = 0
+    try:
+        for n_clients in SERVE_CLIENTS:
+            for via_http in (False, True):
+                fa.launches.reset()  # the main path's run starts here
+                results, wall = serve_traffic(
+                    engine, clients[:n_clients], via_http, port)
+                torch.cuda.synchronize()
+                run_launches = fa.launches.count  # ... and ends here
+                total_launches += run_launches
+                batches = {n: r.take() for n, r in recorders.items()}
+                mode = "http" if via_http else "in-process"
+                if run_launches != n_block * len(batches["bert"]):
+                    fail(f"serve: {run_launches} flash launches for "
+                         f"{len(batches['bert'])} BERT replays")
+                print(f"serve: {mode}, {n_clients} client(s): "
+                      f"{len(results)} requests in {wall:.3f} s, "
+                      f"{len(results) / wall:.1f} requests/s; replays "
+                      f"bert {len(batches['bert'])}, resnet "
+                      f"{len(batches['resnet'])}; flash launches "
+                      f"{run_launches} (= {n_block} x bert replays)",
+                      flush=True)
+                for name in models:
+                    by_bucket, fill, worst = check_served(
+                        fa, name, models[name], batches[name], results)
+                    lat = [r[3] * 1e3 for r in results if r[0] == name]
+                    p50, p90 = np.percentile(lat, (50, 90))
+                    buckets = {b: "p50 %.3f p90 %.3f ms (n=%d)" % (
+                        *np.percentile(np.asarray(v) * 1e3, (50, 90)),
+                        len(v)) for b, v in sorted(by_bucket.items())}
+                    print(f"serve: {mode}, {n_clients} client(s), {name}: "
+                          f"{len(lat)} requests p50 {p50:.3f} ms p90 "
+                          f"{p90:.3f} ms; flush fill mean "
+                          f"{np.mean(fill):.3f} over {len(fill)} flushes; "
+                          f"by bucket {buckets}; every response bitwise = "
+                          f"its replayed batch rows = eager at the same "
+                          f"bucket" + (f"; max |served - plain route| "
+                                       f"{worst:.3e} (bound {PROB_BOUND:g})"
+                                       if name == "bert" else ""),
+                          flush=True)
+        check_cpu_route(net, results)  # the last run: HTTP, most clients
+        for name, im in models.items():
+            if im.cache_stats["misses"] != len(SERVE_LADDER) or \
+                    im.cache_stats["evictions"]:
+                fail(f"{name}: a request missed the executable cache after "
+                     f"register: {im.cache_stats}")
+        print(f"serve: after traffic, cache "
+              f"{ {n: im.cache_stats for n, im in models.items()} }: no "
+              f"miss followed register", flush=True)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.request("GET", "/metrics")
+            metrics = conn.getresponse().read().decode()
+        finally:
+            conn.close()
+        want = ['zoo_build_info{', 'zoo_inference_cache_events_total{'
+                'event="hits"}', 'zoo_serving_executable_cache{model="bert"',
+                'zoo_serving_executable_cache{model="resnet"',
+                'zoo_compile_total ']
+        missing = [w for w in want if w not in metrics]
+        build = [ln for ln in metrics.splitlines()
+                 if ln.startswith("zoo_build_info")]
+        print(f"serve: /metrics {len(metrics)} bytes; {build}", flush=True)
+        if missing:
+            fail(f"/metrics lacks {missing}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+    for im in models.values():
+        del im.do_dispatch  # the class's own again
+    check_aliasing(models["bert"], rng)
+    check_concurrent(models["bert"], rng)
+    time_replay_vs_eager(models, rng)
+    check_reload(rng)
+    check_capture_raises(models["bert"], rng)
+    return total_launches
+
+
+def check_aliasing(im, rng):
+    """Trap (a): dispatch, dispatch, fetch, fetch on one bucket with two
+    inputs; the second replay must not overwrite the first output."""
+    x1, x2 = (make_request(rng, 8, SERVE_SEQ, BERT_BASE["vocab"])
+              for _ in range(2))
+    o1, o2 = im.do_dispatch(x1), im.do_dispatch(x2)
+    f1, f2 = im.do_fetch(o1), im.do_fetch(o2)
+    ok = (np.array_equal(f1, im.do_predict(x1))
+          and np.array_equal(f2, im.do_predict(x2))
+          and not np.array_equal(f1, f2))
+    print(f"serve: dispatch, dispatch, fetch, fetch on bucket 8: "
+          f"{'both answers right' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("a replay overwrote the output of the one before it")
+
+
+def check_concurrent(im, rng, threads=4, per_thread=12):
+    """Trap (c): ``threads`` threads call ``do_predict`` at once on random
+    buckets of one model (so replays of different graphs of its shared
+    pool are in flight together); every answer must equal the eager
+    forward of the same request bitwise."""
+    reqs = [[make_request(rng, int(rng.choice(SERVE_LADDER)), SERVE_SEQ,
+                          BERT_BASE["vocab"]) for _ in range(per_thread)]
+            for _ in range(threads)]
+    outs = [[None] * per_thread for _ in range(threads)]
+    errors = []
+    start = threading.Barrier(threads)
+
+    def worker(t):
+        try:
+            start.wait(timeout=60)
+            for i, x in enumerate(reqs[t]):
+                outs[t][i] = im.do_predict(x)
+        except BaseException as e:  # reported after join
+            errors.append(e)
+
+    pool = [threading.Thread(target=worker, args=(t,))
+            for t in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in pool):
+        fail("a concurrent do_predict thread did not finish")
+    if errors:
+        raise errors[0]
+    ok = all(np.array_equal(outs[t][i], im.do_fetch(im._eager(reqs[t][i])))
+             for t in range(threads) for i in range(per_thread))
+    print(f"serve: {threads} threads x {per_thread} do_predict on random "
+          f"buckets at once: every answer bitwise = eager {ok}", flush=True)
+    if not ok:
+        fail("concurrent replays of one model's graphs corrupted an answer")
+
+
+def check_reload(rng):
+    """Trap (d): a graph captures parameters by address; load A, warm,
+    load B: predict must give B's answer (a fresh capture), bitwise equal
+    to B's eager forward and different from A's. Then, with room for one
+    executable, two other shapes in turn evict each other's graphs (trap
+    e): every answer still bitwise equal to the eager forward."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.tfpark.bert import BERTClassifierNet
+
+    net_a, net_b = (BERTClassifierNet(num_classes=2, hidden_drop=0.0,
+                                      attn_drop=0.0, **SERVE_RELOAD_BERT)
+                    for _ in range(2))
+    x = make_request(rng, 4, SERVE_SEQ, BERT_BASE["vocab"])
+    im = InferenceModel(executable_cache_size=1).do_load_keras(net_a)
+    im.do_optimize(x)
+    y_a = im.do_predict(x)
+    im.do_load_keras(net_b)
+    dropped = not im._compiled
+    y_b = im.do_predict(x)
+    eager_b = im.do_fetch(im._eager(x))
+    ok = (dropped and np.array_equal(y_b, eager_b)
+          and not np.array_equal(y_a, y_b)
+          and im.cache_stats["misses"] == 2)
+    print(f"serve: load A, warm, load B: graphs dropped {dropped}, B's "
+          f"answer bitwise {np.array_equal(y_b, eager_b)}, differs from A's "
+          f"{not np.array_equal(y_a, y_b)}, cache {im.cache_stats}",
+          flush=True)
+    if not ok:
+        fail("a reload served the old parameters or kept old graphs")
+    x2 = make_request(rng, 2, SERVE_SEQ, BERT_BASE["vocab"])
+    same = all(np.array_equal(im.do_predict(r), im.do_fetch(im._eager(r)))
+               for r in (x2, x, x2))
+    print(f"serve: executable_cache_size=1, shapes 2, 4, 2 in turn: cache "
+          f"{im.cache_stats}, every answer bitwise = eager {same}",
+          flush=True)
+    if not same or im.cache_stats["evictions"] != 3:
+        fail("an eviction broke a later capture or answer")
+    im.release()
+
+
+class _SyncingModel:
+    """A model whose forward reads a value back to the host: it cannot be
+    captured, so warming it must raise."""
+
+    compute_dtype = None
+    params: dict = {}
+    model_state: dict = {}
+
+    def ensure_params(self):
+        pass
+
+    def apply(self, params, state, x, training=False, rng=None):
+        return x * float(x.sum().item()), state
+
+
+def check_capture_raises(im, rng):
+    """A capture that fails raises: there is no eager fallback on the card.
+    Afterwards the card still serves (one BERT predict)."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+
+    bad = InferenceModel().do_load_keras(_SyncingModel())
+    try:
+        bad.do_optimize(np.ones((2, 4), np.float32))
+    except RuntimeError as e:
+        raised = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    else:
+        raised = None
+    x = make_request(rng, 2, SERVE_SEQ, BERT_BASE["vocab"])
+    after = np.array_equal(im.do_predict(x), im.do_fetch(im._eager(x)))
+    print(f"serve: capturing a forward that syncs with the host raised "
+          f"{raised!r}; nothing cached {not bad._compiled}; the card serves "
+          f"afterwards {after}", flush=True)
+    if raised is None or bad._compiled or not after:
+        fail("a failed capture did not raise, or was cached, or broke the "
+             "card")
+
+
+def time_replay_vs_eager(models, rng):
+    """Graph replay (``do_predict``) against the eager forward of the same
+    request (``do_fetch(_eager(x))``, the earlier ``do_predict``), in turns,
+    SERVE_LATENCY_REQUESTS fresh requests each: BERT (8, 128) and ResNet-50
+    (1, 224, 224, 3); then each one's device time under torch.profiler and
+    its share of the p50 (the card's busy share)."""
+    cases = {"bert": lambda: make_request(rng, 8, SERVE_SEQ,
+                                          BERT_BASE["vocab"]),
+             "resnet": lambda: (resnet_images(rng, 1)[0].astype(np.float32)
+                                - 127.5) / 127.5}
+    for name, make in cases.items():
+        im = models[name]
+        lat = {"graph": [], "eager": []}
+        for i in range(SERVE_LATENCY_REQUESTS):
+            x = make()
+            order = ("graph", "eager") if i % 2 == 0 else ("eager", "graph")
+            for route in order:
+                t0 = time.perf_counter()
+                (im.do_predict(x) if route == "graph"
+                 else im.do_fetch(im._eager(x)))
+                lat[route].append((time.perf_counter() - t0) * 1e3)
+        shape = ((8, SERVE_SEQ) if name == "bert" else (1,) + RESNET_INPUT)
+        p = {r: np.percentile(v, (50, 90)) for r, v in lat.items()}
+        x = make()
+        dev = {"graph": device_ms(lambda: im.do_predict(x), calls=10)[0],
+               "eager": device_ms(lambda: im.do_fetch(im._eager(x)),
+                                  calls=10)[0]}
+        busy = "; ".join(f"{r} device {dev[r]:.3f} ms a request, busy "
+                         f"{dev[r] / p[r][0]:.3f} of its p50"
+                         for r in ("graph", "eager"))
+        print(f"times: {name} {shape} over {SERVE_LATENCY_REQUESTS} requests "
+              f"each, in turns: graph replay p50 {p['graph'][0]:.3f} ms p90 "
+              f"{p['graph'][1]:.3f} ms; eager p50 {p['eager'][0]:.3f} ms p90 "
+              f"{p['eager'][1]:.3f} ms; eager/graph at p50 "
+              f"{p['eager'][0] / p['graph'][0]:.2f}; {busy}", flush=True)
+
 
 
 def main(argv=None) -> int:
@@ -1664,7 +2244,9 @@ def main(argv=None) -> int:
     kernel_fwd = fa._flash_forward
     fa._flash_forward = fa._flash_forward_plain  # route onto the plain version
     try:
-        plain_outputs = [im.do_predict(r) for r in flat]
+        # the eager forward: a predict replays the bucket's CUDA graph,
+        # whose launches no Python patch can reroute
+        plain_outputs = [im.do_fetch(im._eager(r)) for r in flat]
     finally:
         fa._flash_forward = kernel_fwd
     diff = max(np.abs(a - b).max() for a, b in zip(outputs, plain_outputs))
@@ -1721,6 +2303,12 @@ def main(argv=None) -> int:
     time_resnet(resnet_est, resnet_cached, resnet_batch, resnet_im,
                 resnet_requests)
 
+    # -- 5. the serving tier: BERT-base and ResNet-50 behind one engine -----
+    t0 = time.perf_counter()
+    serve_launches = serve_tier(fa, net, resnet, rng)
+    print(f"serve: phase 5 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     bwd_src = "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu"
     bwd_pair = ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
     serve = fwd[0]
@@ -1762,8 +2350,9 @@ def main(argv=None) -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "analytics_zoo_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "analytics_zoo_tpu/ops/flash_attention.py:156",
-        # the serving, training and resume paths' runs
-        "launches": launches + train_launches[0] + resume_launches[0],
+        # the serving, training, resume and serving-tier paths' runs
+        "launches": (launches + train_launches[0] + resume_launches[0]
+                     + serve_launches),
         "max_abs_err": serve_err,
         # device times at the (32, 512) serving shape; every main-path
         # shape, the training one included, under "shapes"

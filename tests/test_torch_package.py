@@ -61,6 +61,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import analytics_zoo_tpu_torch.models.common\n"
             "import analytics_zoo_tpu_torch.models.recommendation\n"
             "import analytics_zoo_tpu_torch.predictor\n"
+            "import analytics_zoo_tpu_torch.serving\n"
+            "import analytics_zoo_tpu_torch.serving.fabric.coopcache\n"
+            "import analytics_zoo_tpu_torch.common.profiling\n"
+            "import analytics_zoo_tpu_torch.common.slo\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'analytics_zoo_tpu.'))]\n"
             "assert not bad and 'analytics_zoo_tpu' not in sys.modules, bad\n")
