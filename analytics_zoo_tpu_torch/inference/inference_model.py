@@ -24,6 +24,15 @@ executable built for generation *g* is cached and replayed only while
   lock is released. A capture that fails raises; there is no eager
   fallback on the card.
 
+On the card a model's graphs share one memory pool, and PyTorch lets its
+allocator hand a pool's blocks back to the device (at its next release of
+cached blocks, such as ``torch.cuda.empty_cache``) only once no graph of
+the pool is left: after a load, a release, or the eviction of the last
+graph. An eviction that leaves other graphs alive frees no card memory;
+its blocks are reused by the pool's next capture. So
+``executable_cache_size`` bounds the number of graphs, not the card memory
+they hold.
+
 Quantization and calibration, sharding and stage plans, compiled
 programs (``compile_program``), the AOT cache and the TF/ONNX loaders are
 not ported yet (ROADMAP A4).
@@ -103,7 +112,6 @@ class _EagerExecutable:
         self.snap = snap
         self.gen = snap.gen
         self.capture_bytes = 0
-        self.launches: Dict[Any, int] = {}  # nothing to replay
 
     def __call__(self, x):
         xs, multi = _as_list(x)
@@ -133,9 +141,9 @@ class _GraphExecutable:
     graph uses as scratch may hold another's static outputs, and a replay
     of one between another's replay and its clone would overwrite them;
     and work enqueued on the side stream while it captures would be
-    captured too. The launch counters that the capture recorded are added
-    once per replay: a replay launches the captured kernels with no
-    Python.
+    captured too. The kernel wrappers' launch counters see the warm-up's
+    launches and the capture's, never a replay's: a replay launches the
+    captured kernels with no Python.
     """
 
     def __init__(self, snap: _Snapshot, sig, pool, stream, lock):
@@ -157,8 +165,7 @@ class _GraphExecutable:
         stream.synchronize()
         graph = torch.cuda.CUDAGraph()
         before = torch.cuda.memory_reserved(dev)
-        with _kernels.recording_launches() as record, \
-                torch.cuda.stream(stream):
+        with torch.cuda.stream(stream):
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 out = snap.forward(args)
@@ -173,7 +180,6 @@ class _GraphExecutable:
         self.capture_bytes = torch.cuda.memory_reserved(dev) - before
         self.graph = graph
         self.outputs = out
-        self.launches = dict(record)
 
     def __call__(self, x):
         xs, _ = _as_list(x)
@@ -188,8 +194,6 @@ class _GraphExecutable:
                 self.graph.replay()
                 out = tree_map(torch.clone, self.outputs)
             cur.wait_stream(self.stream)
-        for counter, n in self.launches.items():
-            counter.add(n)
         for t in tree_leaves(out):
             t.record_stream(cur)
         return out

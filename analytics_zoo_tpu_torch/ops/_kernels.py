@@ -11,7 +11,6 @@ tensor never reaches the loader.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Tuple
 
@@ -31,9 +31,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# this thread's launch record while it captures a CUDA graph (None: not
-# capturing)
-_capture = threading.local()
 _compile_listeners: List[Callable[[float], None]] = []
 
 
@@ -41,42 +38,23 @@ class LaunchCounter:
     """A wrapper's count of its kernel launches: a plain integer, bumped
     under a lock because serving threads launch concurrently.
 
-    A wrapper called while its thread captures a CUDA graph
-    (:func:`recording_launches`) launches nothing: the kernel is recorded
-    into the graph, so the call goes to the capture's record instead, and
-    whoever replays the graph adds that record once per replay
-    (:meth:`add`)."""
+    Only the wrapper adds to it, once per call of its kernel's launcher. A
+    launch into a CUDA graph being captured counts like any other; a
+    replay of that graph launches the captured kernels with no Python, so
+    no counter sees it: a replay's launches are read from the card (a
+    ``torch.profiler`` trace of its kernels)."""
 
     def __init__(self):
         self.count = 0
         self._lock = threading.Lock()
 
-    def add(self, n: int = 1) -> None:
-        record = getattr(_capture, "record", None)
-        if record is not None:
-            record[self] = record.get(self, 0) + n
-            return
+    def add(self) -> None:
         with self._lock:
-            self.count += n
+            self.count += 1
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
-
-
-@contextlib.contextmanager
-def recording_launches():
-    """Within the block, this thread's wrapper calls are recorded into a
-    CUDA graph being captured, not launched: yields the record, a dict
-    ``{LaunchCounter: calls}`` that the graph's replays add to the
-    counters."""
-    if getattr(_capture, "record", None) is not None:
-        raise RuntimeError("nested CUDA graph captures on one thread")
-    _capture.record = record = {}
-    try:
-        yield record
-    finally:
-        _capture.record = None
 
 
 def add_compile_listener(fn: Callable[[float], None]) -> None:
@@ -124,12 +102,13 @@ def _paths(name: str) -> Tuple[Path, Path]:
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel that is not built yet: one ``nvcc`` per
-    source, all started together. Returns each fresh build's compiler log
-    (``-Xptxas -v``: registers, shared memory, spills); raises
-    ``RuntimeError`` with the log if a build fails."""
+    source, all started together. Each fresh build reports its own
+    seconds, from its start to its end, to the compile listeners. Returns
+    each fresh build's compiler log (``-Xptxas -v``: registers, shared
+    memory, spills); raises ``RuntimeError`` with the log if a build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
-    t0 = time.perf_counter()
     for name in names:
         src, lib = _paths(name)
         if lib.exists():
@@ -137,18 +116,25 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         log = lib.with_suffix(".log")
         with open(log, "w") as fh:
+            t0 = time.perf_counter()
             proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=fh, stderr=subprocess.STDOUT)
-        jobs.append((name, proc, tmp, lib, log))
+        jobs.append((name, proc, t0, tmp, lib, log))
+
+    def wait(job):
+        rc = job[1].wait()
+        return rc, time.perf_counter() - job[2]
+
+    with ThreadPoolExecutor(max(1, len(jobs))) as pool:
+        ends = list(pool.map(wait, jobs))
     logs, failed = {}, []
-    for name, proc, tmp, lib, log in jobs:
-        rc = proc.wait()
+    for (name, _, _, tmp, lib, log), (rc, seconds) in zip(jobs, ends):
         logs[name] = log.read_text()
         if rc == 0:
             # atomic: another process never loads a half-written library
             os.replace(tmp, lib)
-            compiled(time.perf_counter() - t0)
+            compiled(seconds)
         else:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exited {rc}\n{logs[name]}")

@@ -35,8 +35,10 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    512, bf16 compute, random weights from ``--seed``) through
    ``InferenceModel``: warms buckets (8, 128) and (32, 512) (one CUDA
    graph each), answers requests from two threads plus one dispatch/fetch
-   pair, checks shapes, finiteness and row sums, checks that the kernel
-   launched 12 times per forward (graph replays included), and checks the
+   pair, checks shapes, finiteness and row sums, checks that the kernel's
+   wrapper launched it 12 times for each bucket's warm-up and 12 times
+   into each capture, that the card ran it 12 times per graph replay
+   (counted in a torch.profiler trace of the traffic), and checks the
    same requests through the eager forward with attention forced onto the
    kernel's plain version;
 3b. training: BERT-base (seq 128, bf16 compute, dropout 0, random weights
@@ -112,8 +114,11 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    replay the eager forward of the same bucket-shaped batch bitwise, and
    every BERT response the plain attention route within ``PROB_BOUND``;
    ``cache_stats`` must show one miss per bucket after ``register`` and
-   none after it; the flash forward must launch 12 times per BERT replay
-   and never for ResNet-50; dispatch, dispatch, fetch, fetch on one bucket
+   none after it; the flash wrapper must launch 24 times per BERT bucket
+   at ``register`` (its eager warm-up and its capture), never for
+   ResNet-50 and never during traffic; a last run (HTTP, 4 clients) under
+   torch.profiler must show the card running the flash kernel 12 times
+   per BERT replay; dispatch, dispatch, fetch, fetch on one bucket
    must give both answers; 4 threads predicting random buckets at once
    must each get the eager answer; a reload must capture anew and serve
    the new weights; a capture that fails must raise; ``/metrics`` must carry
@@ -643,14 +648,18 @@ def make_request(rng, batch, seq, vocab):
     return [ids, types, mask]
 
 
-def serve_slice(im, requests, n_threads):
-    """Phase 3's traffic: warm every bucket, answer the requests from
-    ``n_threads`` threads through do_predict, then one dispatch/fetch pair.
-    Returns (outputs in request order, dispatch output, forwards run)."""
-    forwards = 0
+def warm_slice(im, requests):
+    """Warm every bucket of ``requests`` (one eager forward and one CUDA
+    graph capture each). Returns the buckets warmed."""
     for reqs in requests.values():
         im.do_optimize(reqs[0])
-        forwards += 1
+    return len(requests)
+
+
+def serve_slice(im, requests, n_threads):
+    """Phase 3's traffic on warmed buckets: answer the requests from
+    ``n_threads`` threads through do_predict, then one dispatch/fetch pair.
+    Returns (outputs in request order, dispatch output, graph replays)."""
     flat = [r for reqs in requests.values() for r in reqs]
     outputs = [None] * len(flat)
     errors = []
@@ -673,10 +682,8 @@ def serve_slice(im, requests, n_threads):
         fail("a serving thread did not finish")
     if errors:
         raise errors[0]
-    forwards += len(flat)
     dispatched = im.do_fetch(im.do_dispatch(flat[-1]))
-    forwards += 1
-    return outputs, dispatched, forwards
+    return outputs, dispatched, len(flat) + 1
 
 
 def check_outputs(outputs, flat, dispatched, num_classes):
@@ -834,6 +841,25 @@ def device_ms(fn, calls: int = 20):
         fail("torch.profiler recorded no device time")
     us = sum(e.self_device_time_total for e in events)
     return us / calls / 1e3, sorted(e.key for e in events)
+
+
+def traced_launches(fn, kernel: str = "flash_fwd_"):
+    """``fn()`` under torch.profiler. Returns its result and how many times
+    the card ran a kernel whose name holds ``kernel`` (by default the
+    forward's ``flash_fwd_wgmma`` and ``flash_fwd_f32``), the kernels of
+    CUDA graph replays included: the launches that no wrapper sees."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        fail("torch.profiler recorded no kernel")
+    return out, sum(e.count for e in events if kernel in e.key)
 
 
 def forward_bound(q, k, v, bias, out):
@@ -1282,7 +1308,8 @@ def serve_resnet(net, rng):
     requests = {(b,): [(resnet_images(rng, b)[0].astype(np.float32) - 127.5)
                        / 127.5 for _ in range(THREADS * REQUESTS_PER_THREAD)]
                 for b in RESNET_BUCKETS}
-    outputs, dispatched, forwards = serve_slice(im, requests, THREADS)
+    warmed = warm_slice(im, requests)
+    outputs, dispatched, replays = serve_slice(im, requests, THREADS)
     flat = [r for reqs in requests.values() for r in reqs]
     for out, req in zip(outputs, flat):
         if out.shape != (len(req), RESNET_CLASSES) or \
@@ -1291,7 +1318,8 @@ def serve_resnet(net, rng):
                  f"{np.isfinite(out).all()}) for a batch of {len(req)}")
     if not np.array_equal(dispatched, outputs[-1]):
         fail("do_dispatch/do_fetch differs from do_predict on one request")
-    print(f"resnet: served {forwards} forwards over buckets "
+    print(f"resnet: warmed {warmed} buckets and replayed {replays} "
+          f"graphs over buckets "
           f"{[(b,) + RESNET_INPUT for b in RESNET_BUCKETS]} from {THREADS} "
           f"threads plus a dispatch/fetch pair: shapes and values ok",
           flush=True)
@@ -1873,7 +1901,8 @@ def serve_tier(fa, net, resnet, rng):
     serving.http at each client count, and check every response, the
     executable cache, the launch counts, the aliasing and reload traps,
     that a failing capture raises, and ``/metrics``. Returns the flash
-    forward launches of the served runs."""
+    forward wrapper's launches over register and the served runs, and the
+    flash_fwd kernels that the card ran in the traced run's replays."""
     import http.client
 
     from analytics_zoo_tpu_torch.inference import InferenceModel
@@ -1894,73 +1923,99 @@ def serve_tier(fa, net, resnet, rng):
         "resnet": np.zeros((1,) + RESNET_INPUT, np.float32)}
     recorders = {n: DispatchRecorder(im) for n, im in models.items()}
     engine = ServingEngine()
+    n_block = BERT_BASE["n_block"]
+    fa.launches.reset()  # the main path's run starts here
     for name, im in models.items():
         t0 = time.perf_counter()
+        before = fa.launches.count
         engine.register(name, im, examples[name], config=cfg)
         torch.cuda.synchronize()
+        captured = fa.launches.count - before
+        want = 2 * n_block * len(SERVE_LADDER) if name == "bert" else 0
         graph_mb = {k[0][0][0]: round(v / 2 ** 20, 1)
                     for k, v in sorted(im.capture_bytes.items())}
         print(f"serve: {name} registered in "
               f"{time.perf_counter() - t0:.2f} s, one CUDA graph per bucket "
               f"{list(SERVE_LADDER)}; MiB each capture added to the pool "
-              f"{graph_mb}; cache {im.cache_stats}", flush=True)
+              f"{graph_mb}; cache {im.cache_stats}; flash wrapper launches "
+              f"{captured} (want {want}: per bucket, the eager warm-up's and "
+              f"the capture's, {n_block} each for BERT)", flush=True)
         if im.cache_stats != {"hits": 0, "misses": len(SERVE_LADDER),
                               "evictions": 0}:
             fail(f"{name}: register warmed {im.cache_stats}, want "
                  f"{len(SERVE_LADDER)} misses and nothing else")
-    launches = {n: [e.launches.get(fa.launches, 0)
-                    for e in im._compiled.values()]
-                for n, im in models.items()}
-    n_block = BERT_BASE["n_block"]
-    print(f"serve: flash launches each graph replays: {launches}",
-          flush=True)
-    if launches["bert"] != [n_block] * len(SERVE_LADDER) or \
-            any(launches["resnet"]):
-        fail("a BERT graph does not launch the flash kernel once per block, "
-             "or a ResNet-50 graph launches it")
+        if captured != want:
+            fail(f"{name}: register launched the flash kernel {captured} "
+                 f"times, want {want}")
+    launches = fa.launches.count  # ... and ends here, and so each run
     server, _ = serve_http(engine, port=0)
     port = server.server_address[1]
     clients = serve_requests(rng, BERT_BASE["vocab"])
-    total_launches = 0
+    # the timed runs, then the heaviest again under torch.profiler, whose
+    # trace counts the flash kernels that the replays ran on the card
+    runs = [(n, via_http, False) for n in SERVE_CLIENTS
+            for via_http in (False, True)] + [(max(SERVE_CLIENTS), True,
+                                               True)]
+    replayed = 0
     try:
-        for n_clients in SERVE_CLIENTS:
-            for via_http in (False, True):
-                fa.launches.reset()  # the main path's run starts here
-                results, wall = serve_traffic(
-                    engine, clients[:n_clients], via_http, port)
-                torch.cuda.synchronize()
-                run_launches = fa.launches.count  # ... and ends here
-                total_launches += run_launches
-                batches = {n: r.take() for n, r in recorders.items()}
-                mode = "http" if via_http else "in-process"
-                if run_launches != n_block * len(batches["bert"]):
-                    fail(f"serve: {run_launches} flash launches for "
-                         f"{len(batches['bert'])} BERT replays")
+        for n_clients, via_http, traced in runs:
+            run = lambda: serve_traffic(  # noqa: E731
+                engine, clients[:n_clients], via_http, port)
+            fa.launches.reset()  # the main path's run starts here
+            if traced:
+                (results, wall), replayed = traced_launches(run)
+            else:
+                results, wall = run()
+            torch.cuda.synchronize()
+            run_launches = fa.launches.count  # ... and ends here
+            launches += run_launches
+            batches = {n: r.take() for n, r in recorders.items()}
+            mode = "http" if via_http else "in-process"
+            if run_launches:
+                fail(f"serve: {mode} traffic called the flash wrapper "
+                     f"{run_launches} times: a flush did not replay a graph")
+            if traced:
+                want = n_block * len(batches["bert"])
+                print(f"serve: {mode}, {n_clients} client(s) under "
+                      f"torch.profiler: {len(results)} requests; replays "
+                      f"bert {len(batches['bert'])}, resnet "
+                      f"{len(batches['resnet'])}; flash_fwd kernels the card "
+                      f"ran {replayed} (want {n_block} x bert replays = "
+                      f"{want}); latencies under the profiler not reported",
+                      flush=True)
+                if replayed != want:
+                    fail(f"serve: the card ran the flash kernel {replayed} "
+                         f"times in {len(batches['bert'])} BERT replays")
+            else:
                 print(f"serve: {mode}, {n_clients} client(s): "
                       f"{len(results)} requests in {wall:.3f} s, "
                       f"{len(results) / wall:.1f} requests/s; replays "
                       f"bert {len(batches['bert'])}, resnet "
-                      f"{len(batches['resnet'])}; flash launches "
-                      f"{run_launches} (= {n_block} x bert replays)",
+                      f"{len(batches['resnet'])}", flush=True)
+            for name in models:
+                by_bucket, fill, worst = check_served(
+                    fa, name, models[name], batches[name], results)
+                if traced:
+                    continue
+                lat = [r[3] * 1e3 for r in results if r[0] == name]
+                p50, p90 = np.percentile(lat, (50, 90))
+                buckets = {b: "p50 %.3f p90 %.3f ms (n=%d)" % (
+                    *np.percentile(np.asarray(v) * 1e3, (50, 90)),
+                    len(v)) for b, v in sorted(by_bucket.items())}
+                print(f"serve: {mode}, {n_clients} client(s), {name}: "
+                      f"{len(lat)} requests p50 {p50:.3f} ms p90 "
+                      f"{p90:.3f} ms; flush fill mean "
+                      f"{np.mean(fill):.3f} over {len(fill)} flushes; "
+                      f"by bucket {buckets}; every response bitwise = "
+                      f"its replayed batch rows = eager at the same "
+                      f"bucket" + (f"; max |served - plain route| "
+                                   f"{worst:.3e} (bound {PROB_BOUND:g})"
+                                   if name == "bert" else ""),
                       flush=True)
-                for name in models:
-                    by_bucket, fill, worst = check_served(
-                        fa, name, models[name], batches[name], results)
-                    lat = [r[3] * 1e3 for r in results if r[0] == name]
-                    p50, p90 = np.percentile(lat, (50, 90))
-                    buckets = {b: "p50 %.3f p90 %.3f ms (n=%d)" % (
-                        *np.percentile(np.asarray(v) * 1e3, (50, 90)),
-                        len(v)) for b, v in sorted(by_bucket.items())}
-                    print(f"serve: {mode}, {n_clients} client(s), {name}: "
-                          f"{len(lat)} requests p50 {p50:.3f} ms p90 "
-                          f"{p90:.3f} ms; flush fill mean "
-                          f"{np.mean(fill):.3f} over {len(fill)} flushes; "
-                          f"by bucket {buckets}; every response bitwise = "
-                          f"its replayed batch rows = eager at the same "
-                          f"bucket" + (f"; max |served - plain route| "
-                                       f"{worst:.3e} (bound {PROB_BOUND:g})"
-                                       if name == "bert" else ""),
-                          flush=True)
+        print(f"serve: every response of the traced run bitwise = its "
+              f"replayed batch rows = eager at the same bucket; flash "
+              f"wrapper launches over phase 5's main path {launches}, all "
+              f"at register", flush=True)
         check_cpu_route(net, results)  # the last run: HTTP, most clients
         for name, im in models.items():
             if im.cache_stats["misses"] != len(SERVE_LADDER) or \
@@ -1997,7 +2052,7 @@ def serve_tier(fa, net, resnet, rng):
     time_replay_vs_eager(models, rng)
     check_reload(rng)
     check_capture_raises(models["bert"], rng)
-    return total_launches
+    return launches, replayed
 
 
 def check_aliasing(im, rng):
@@ -2084,14 +2139,22 @@ def check_reload(rng):
     if not ok:
         fail("a reload served the old parameters or kept old graphs")
     x2 = make_request(rng, 2, SERVE_SEQ, BERT_BASE["vocab"])
+    torch.cuda.synchronize()
+    mib = [torch.cuda.memory_reserved() / 2 ** 20]
     same = all(np.array_equal(im.do_predict(r), im.do_fetch(im._eager(r)))
                for r in (x2, x, x2))
+    torch.cuda.synchronize()
+    mib.append(torch.cuda.memory_reserved() / 2 ** 20)
+    im.release()
+    torch.cuda.empty_cache()
+    mib.append(torch.cuda.memory_reserved() / 2 ** 20)
     print(f"serve: executable_cache_size=1, shapes 2, 4, 2 in turn: cache "
-          f"{im.cache_stats}, every answer bitwise = eager {same}",
-          flush=True)
+          f"{im.cache_stats}, every answer bitwise = eager {same}; card "
+          f"memory reserved {mib[0]:.1f} MiB before the evictions, "
+          f"{mib[1]:.1f} MiB after them, {mib[2]:.1f} MiB after release "
+          f"and empty_cache", flush=True)
     if not same or im.cache_stats["evictions"] != 3:
         fail("an eviction broke a later capture or answer")
-    im.release()
 
 
 class _SyncingModel:
@@ -2231,13 +2294,19 @@ def main(argv=None) -> int:
     flat = [r for reqs in requests.values() for r in reqs]
 
     fa.launches.reset()  # the main path's run starts here
-    outputs, dispatched, forwards = serve_slice(im, requests, THREADS)
+    warmed = warm_slice(im, requests)
+    (outputs, dispatched, replays), replayed = traced_launches(
+        lambda: serve_slice(im, requests, THREADS))
     torch.cuda.synchronize()
     launches = fa.launches.count  # ... and ends here
     n_block = BERT_BASE["n_block"]
-    print(f"slice: {forwards} forwards, flash kernel launches {launches} "
-          f"(want {n_block} x {forwards} = {n_block * forwards})", flush=True)
-    if launches == 0 or launches != n_block * forwards:
+    print(f"slice: {warmed} buckets warmed, {replays} graph replays; flash "
+          f"wrapper launches {launches} (want 2 x {n_block} x {warmed} = "
+          f"{2 * n_block * warmed}: each bucket's eager warm-up and its "
+          f"capture; a replay calls no wrapper); flash_fwd kernels the card "
+          f"ran in the replays (torch.profiler) {replayed} (want {n_block} "
+          f"x {replays} = {n_block * replays})", flush=True)
+    if launches != 2 * n_block * warmed or replayed != n_block * replays:
         fail("the main path did not run the flash kernel once per layer")
     check_outputs(outputs, flat, dispatched, 2)
 
@@ -2305,7 +2374,7 @@ def main(argv=None) -> int:
 
     # -- 5. the serving tier: BERT-base and ResNet-50 behind one engine -----
     t0 = time.perf_counter()
-    serve_launches = serve_tier(fa, net, resnet, rng)
+    serve_launches, serve_replayed = serve_tier(fa, net, resnet, rng)
     print(f"serve: phase 5 took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -2350,9 +2419,15 @@ def main(argv=None) -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "analytics_zoo_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "analytics_zoo_tpu/ops/flash_attention.py:156",
-        # the serving, training, resume and serving-tier paths' runs
+        # the wrapper's launches on the serving, training, resume and
+        # serving-tier paths' runs (on the serving paths: each bucket's
+        # eager warm-up and its capture)
         "launches": (launches + train_launches[0] + resume_launches[0]
                      + serve_launches),
+        # the kernel's runs on the card in CUDA graph replays, which no
+        # wrapper sees, counted in torch.profiler traces of phase 3's
+        # traffic and of phase 5's traced run
+        "replay_launches": replayed + serve_replayed,
         "max_abs_err": serve_err,
         # device times at the (32, 512) serving shape; every main-path
         # shape, the training one included, under "shapes"

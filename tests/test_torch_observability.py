@@ -2,8 +2,8 @@
 text, flight recorder, SLO engine, profiling helpers — held alike in the
 JAX package and the port's copies (every shared case runs once per
 package), and the parts the port rewrote: ``zoo_build_info``'s labels, the
-compile accounting fed by ``ops._kernels``, the capture-aware launch
-counters and ``profile_trace`` on ``torch.profiler``."""
+compile accounting fed by ``ops._kernels``, the launch counters and
+``profile_trace`` on ``torch.profiler``."""
 
 import importlib
 import json
@@ -231,25 +231,54 @@ def test_compile_accounting_counts_port_compiles():
     assert (n.value, secs.value) == (before[0] + 2, before[1] + 0.75)
 
 
-def test_launch_counter_records_captures_instead_of_counting():
-    """A wrapper called while its thread captures a CUDA graph launches
-    nothing: the call goes to the capture's record, other threads keep
-    counting, and a replay adds the record."""
+def test_launch_counter_counts_every_call_across_threads():
+    """Every wrapper call adds one, whichever thread makes it (a launch
+    into a CUDA graph being captured included: nothing reroutes it)."""
     c = _kernels.LaunchCounter()
-    c.add()
-    other = threading.Thread(target=c.add)
-    with _kernels.recording_launches() as record:
-        c.add()
-        c.add()
-        other.start()
-        other.join(timeout=10)
-        with pytest.raises(RuntimeError, match="nested"):
-            with _kernels.recording_launches():
-                pass
-    assert record == {c: 2} and c.count == 2
-    for counter, calls in record.items():  # what a replay does
-        counter.add(calls)
-    assert c.count == 4
+    threads = [threading.Thread(target=lambda: [c.add() for _ in range(50)])
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+    assert c.count == 200
+    c.reset()
+    assert c.count == 0
+
+
+_FAKE_NVCC = """#!/bin/sh
+out=""; src=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; shift 2; else src="$1"; shift; fi
+done
+case "$src" in *slow.cu) sleep 1;; esac
+echo built > "$out"
+"""
+
+
+def test_build_reports_each_job_its_own_seconds(monkeypatch, tmp_path):
+    """The builds run together, and each reports the seconds from its own
+    start to its own end: a fast source listed after a slow one does not
+    report the slow one's time."""
+    src, out = tmp_path / "csrc", tmp_path / "build"
+    src.mkdir()
+    for name in ("slow", "fast"):
+        (src / f"{name}.cu").write_text(f"// {name}\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    seconds = []
+    monkeypatch.setattr(_kernels, "SRC_DIR", src)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", out)
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_kernels, "_compile_listeners", [seconds.append])
+    logs = _kernels.build(("slow", "fast"))
+    assert sorted(logs) == ["fast", "slow"]
+    assert all(_kernels._paths(n)[1].exists() for n in ("slow", "fast"))
+    slow, fast = seconds
+    assert slow >= 1.0 and fast < 0.5, seconds
+    assert _kernels.build(("slow", "fast")) == {} and len(seconds) == 2
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
