@@ -98,6 +98,14 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet")
 
 
+def _host_stat(t):
+    """A metric's summed statistic on the host: a float, or an array
+    for a metric with a vector of partial sums (AUC's bins)."""
+    if t is None:
+        return 0.0
+    return t.item() if t.numel() == 1 else t.cpu().numpy()
+
+
 def _masked_mean(ps, mask):
     """Mean of a per-sample loss over the valid (mask 1) rows, and the
     number of rows it averages (the accumulation weight)."""
@@ -522,9 +530,11 @@ class Estimator:
                     if trainable is not None:
                         updates = [u if t else torch.zeros_like(u)
                                    for u, t in zip(updates, trainable)]
-                    new_params = tree_unflatten(
-                        tstate.params, [p + u for p, u in zip(
-                            tree_leaves(tstate.params), updates)])
+                    # one multi-tensor add over every leaf, the
+                    # arithmetic of p + u per leaf
+                    new_params = tree_unflatten(tstate.params, list(
+                        torch._foreach_add(tree_leaves(tstate.params),
+                                           updates)))
             return (TrainState(new_params, new_mstate, new_opt,
                                tstate.step + 1), loss.detach())
 
@@ -761,8 +771,7 @@ class Estimator:
                     s, c = m.batch_stats(y, pred, mask=mask)
                     totals[i] = s if totals[i] is None else totals[i] + s
                     counts[i] = c if counts[i] is None else counts[i] + c
-        return {m.name: m.finalize(0.0 if t is None else t.item(),
-                                   0.0 if c is None else c.item())
+        return {m.name: m.finalize(_host_stat(t), _host_stat(c))
                 for m, t, c in zip(metric_objs, totals, counts)}
 
     def predict(self, data_set, batch_size: int = 32):

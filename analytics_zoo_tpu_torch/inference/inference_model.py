@@ -14,15 +14,19 @@ LRU capped by ``executable_cache_size`` (``None``: unbounded), counted in
 signatures and counts a warm-up that overflows the cap
 (``warmup_overflows``). ``_gen`` is bumped by every load and release: an
 executable built for generation *g* is cached and replayed only while
-``_gen == g``. What an executable is depends on the device:
+``_gen == g``.
 
-- on the CPU, the eager forward (:class:`_EagerExecutable`);
-- on the card, a CUDA graph captured over the whole forward
-  (:class:`_GraphExecutable`): the request is copied into the graph's
-  static input buffers, cast to the compute dtype inside the graph, and
-  the replay's float32 outputs are copied out on the card before the
-  lock is released. A capture that fails raises; there is no eager
-  fallback on the card.
+An executable is a *program*, ``inner(params, state, *args)`` at one
+argument signature; a predict bucket is the program of the model's
+inference forward with the request as its one argument. What it is
+depends on the device:
+
+- on the CPU, the eager call (:class:`_EagerProgram`);
+- on the card, a CUDA graph captured over the whole call
+  (:class:`_GraphProgram`): the arguments are copied into the graph's
+  static inputs, cast to the compute dtype inside the graph, and the
+  replay's outputs are cloned on the card before the lock is released.
+  A capture that fails raises; there is no eager fallback on the card.
 
 On the card a model's graphs share one memory pool, and PyTorch lets its
 allocator hand a pool's blocks back to the device (at its next release of
@@ -33,9 +37,15 @@ its blocks are reused by the pool's next capture. So
 ``executable_cache_size`` bounds the number of graphs, not the card memory
 they hold.
 
-Quantization and calibration, sharding and stage plans, compiled
-programs (``compile_program``), the AOT cache and the TF/ONNX loaders are
-not ported yet (ROADMAP A4).
+**Programs** (:meth:`InferenceModel.compile_program`, the sequence tier's
+compile surface) are the same executables over argument pytrees, keyed
+``("__prog__", tag, args key)`` in the same LRU, ``cache_stats`` and
+``_gen`` discipline as the buckets; their outputs feed the next program
+(prefill -> admit -> step -> step), and integer tensors keep their dtype
+(int32 tokens stay int32).
+
+Quantization and calibration, sharding and stage plans, the AOT cache and
+the TF/ONNX loaders are not ported yet (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -83,92 +93,119 @@ class _Snapshot:
         cd = getattr(model, "compute_dtype", None)
         self.dtype = getattr(torch, cd) if cd else None
 
-    def forward(self, xs):
-        """The forward on device tensors (inputs as :func:`host_to_device`
-        gives them): float32 cast to the compute dtype, the model under
-        ``inference_mode``, floating outputs made float32."""
-        dt = self.dtype
 
-        def cast(t):
-            return t.to(dt) if dt is not None and t.dtype == torch.float32 \
-                else t
-
-        with torch.inference_mode():
-            xs = (list(map(cast, xs)) if isinstance(xs, list) else cast(xs))
-            y, _ = self.model.apply(self.params, self.state, xs,
-                                    training=False, rng=None)
-            return tree_map(
-                lambda t: t.float() if t.is_floating_point() else t, y)
+def _predict_inner(model):
+    """A predict bucket's program: the model's inference forward of one
+    request (a tensor, or a list of them for a multi-input model)."""
+    def inner(params, state, x):
+        return model.apply(params, state, x, training=False, rng=None)[0]
+    return inner
 
 
-def _as_list(x):
-    return (list(x), True) if isinstance(x, (list, tuple)) else ([x], False)
+def _forward(snap: _Snapshot, inner, args):
+    """``inner(params, state, *args)`` under ``inference_mode``: float32
+    argument leaves cast to the compute dtype (the parameters already
+    are), floating outputs made float32 (integer outputs, such as argmax
+    tokens, pass through)."""
+    dt = snap.dtype
+    if dt is not None:
+        args = tree_map(
+            lambda t: t.to(dt) if t.dtype == torch.float32 else t, args)
+    with torch.inference_mode():
+        out = inner(snap.params, snap.state, *args)
+        return tree_map(
+            lambda t: t.float() if t.is_floating_point() else t, out)
 
 
-class _EagerExecutable:
-    """The CPU executable: the eager forward over a copy of the request."""
+def _to_device_tree(args, device):
+    """Argument pytree on ``device``: tensors as they are (moved if on
+    another device), host arrays through :func:`host_to_device`."""
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        return host_to_device(a, device)
+    return tree_map(one, args)
 
-    def __init__(self, snap: _Snapshot):
-        self.snap = snap
+
+def _host_leaf(a) -> torch.Tensor:
+    """A host array as the CPU tensor copied into its static input
+    (float64 made float32, as :func:`host_to_device` does)."""
+    a = np.asarray(a)
+    return torch.from_numpy(np.ascontiguousarray(
+        a, dtype=np.float32 if a.dtype == np.float64 else a.dtype))
+
+
+class _EagerProgram:
+    """The CPU executable: the eager ``inner`` over the given arguments."""
+
+    def __init__(self, snap: _Snapshot, inner):
+        self.snap, self.inner = snap, inner
         self.gen = snap.gen
         self.capture_bytes = 0
 
-    def __call__(self, x):
-        xs, multi = _as_list(x)
-        ts = [host_to_device(a, self.snap.device) for a in xs]
-        return self.snap.forward(ts if multi else ts[0])
+    def __call__(self, params, state, *args):
+        return self.run(*args)
+
+    def run(self, *args):
+        """``inner`` on ``args`` (device tensors or host arrays)."""
+        return _forward(self.snap, self.inner,
+                        _to_device_tree(args, self.snap.device))
+
+    eager = run
 
 
-class _GraphExecutable:
-    """The card's executable: one ``torch.cuda.CUDAGraph`` captured over
-    the whole forward of one input signature.
+class _GraphProgram:
+    """The card's executable: one ``torch.cuda.CUDAGraph`` of ``inner(
+    params, state, *args)`` at one argument signature (a predict bucket's
+    whole forward, or a sequence program).
 
-    Capture (under :data:`_CAPTURE_LOCK`): static input buffers of the
-    signature (float64 made float32, integers kept), one eager forward on
-    the model's side stream (it builds the CUDA kernels, creates the
-    cuBLAS handle and workspace of that stream and runs the flash kernel's
-    ``cudaFuncSetAttribute``, none of which may happen inside a capture),
-    then the capture itself into the model's shared memory pool.
-    ``capture_bytes`` is what the pool grew by during the capture.
+    Capture (under :data:`_CAPTURE_LOCK`): static inputs shaped and typed
+    as the example arguments reach the device (float64 made float32,
+    integers kept), one eager call on the model's side stream (it builds
+    the CUDA kernels, creates the cuBLAS handle and workspace of that
+    stream and runs the flash kernel's ``cudaFuncSetAttribute``, none of
+    which may happen inside a capture), then the capture itself into the
+    model's shared memory pool. ``capture_bytes`` is what the pool grew by
+    during the capture. The captured ``cudaGraph_t`` is kept beside its
+    instantiation, so the graph the card replays can be inspected
+    (``graph.raw_cuda_graph()``).
 
-    Replay, under the model's replay lock: copy the request into the
-    static inputs (from pageable host memory: the copy has read the host
-    buffer when it returns, so a batcher may reuse its staging buffer at
-    once), replay, and clone the static outputs on the card, so the next
-    replay cannot overwrite an output that is still to be fetched. The
-    caller's stream waits for the side stream. The lock is the model's,
-    not the executable's: the graphs share one pool, so a block that one
-    graph uses as scratch may hold another's static outputs, and a replay
-    of one between another's replay and its clone would overwrite them;
-    and work enqueued on the side stream while it captures would be
-    captured too. The kernel wrappers' launch counters see the warm-up's
-    launches and the capture's, never a replay's: a replay launches the
-    captured kernels with no Python.
-    """
+    Call, under the model's replay lock: copy every argument leaf into its
+    static input (device to device for a tensor; host to device for an
+    array, from pageable memory, so the copy has read the host buffer
+    when it returns and a batcher may reuse its staging buffer at once),
+    replay, and clone the static outputs on the card, so the next replay
+    cannot overwrite an output that is still to be fetched and a
+    program's outputs can be the next call's arguments (prefill -> admit
+    -> step -> step). The caller's stream waits for the side stream. The
+    lock is the model's, not the graph's: the graphs share one pool, so a
+    block that one graph uses as scratch may hold another's static
+    outputs, and a replay of one between another's replay and its clone
+    would overwrite them; and work enqueued on the side stream while it
+    captures would be captured too. The kernel wrappers' launch counters
+    see the warm-up's launches and the capture's, never a replay's: a
+    replay launches the captured kernels with no Python. The graph runs on
+    its snapshot's parameters: ``params`` and ``state`` of a call are the
+    ones :meth:`InferenceModel.compile_program` returned with it."""
 
-    def __init__(self, snap: _Snapshot, sig, pool, stream, lock):
-        """``sig``: (multi-input, ((shape, dtype name), ...))."""
-        self.snap = snap
-        self.gen = snap.gen
-        self.stream = stream
-        self.lock = lock
+    def __init__(self, snap: _Snapshot, inner, example_args, pool, stream,
+                 lock):
+        self.snap, self.gen, self.inner = snap, snap.gen, inner
+        self.stream, self.lock = stream, lock
         dev = snap.device
-        multi, specs = sig
-        self.inputs = [torch.zeros(shape, device=dev, dtype=(
-            torch.float32 if dtype == "float64" else _torch_dtype(dtype)))
-            for shape, dtype in specs]
-        args = self.inputs if multi else self.inputs[0]
+        self.inputs = tree_map(torch.clone,
+                               _to_device_tree(example_args, dev))
         cur = torch.cuda.current_stream(dev)
         stream.wait_stream(cur)
         with torch.cuda.stream(stream):
-            snap.forward(args)  # warm-up: real launches, counted
+            _forward(snap, inner, self.inputs)  # warm-up: real launches
         stream.synchronize()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = torch.cuda.memory_reserved(dev)
         with torch.cuda.stream(stream):
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
-                out = snap.forward(args)
+                out = _forward(snap, inner, self.inputs)
             except BaseException:
                 try:
                     graph.capture_end()
@@ -176,21 +213,29 @@ class _GraphExecutable:
                     pass  # the capture is invalid anyway; report the cause
                 raise
             graph.capture_end()
+            graph.instantiate()
         stream.synchronize()
         self.capture_bytes = torch.cuda.memory_reserved(dev) - before
         self.graph = graph
         self.outputs = out
+        self._static = tree_leaves(self.inputs)
 
-    def __call__(self, x):
-        xs, _ = _as_list(x)
-        host = [np.ascontiguousarray(
-            a.astype(np.float32) if a.dtype == np.float64 else a)
-            for a in xs]
+    def __call__(self, params, state, *args):
+        return self.run(*args)
+
+    def run(self, *args):
+        leaves = tree_leaves(args)
+        if len(leaves) != len(self._static):
+            raise ValueError(f"program takes {len(self._static)} argument "
+                             f"leaves, got {len(leaves)}")
+        host = [None if isinstance(a, torch.Tensor) else _host_leaf(a)
+                for a in leaves]
         cur = torch.cuda.current_stream(self.snap.device)
         with self.lock:
+            self.stream.wait_stream(cur)  # device arguments are ready
             with torch.cuda.stream(self.stream):
-                for dst, a in zip(self.inputs, host):
-                    dst.copy_(torch.from_numpy(a), non_blocking=True)
+                for dst, a, h in zip(self._static, leaves, host):
+                    dst.copy_(a if h is None else h, non_blocking=True)
                 self.graph.replay()
                 out = tree_map(torch.clone, self.outputs)
             cur.wait_stream(self.stream)
@@ -198,9 +243,12 @@ class _GraphExecutable:
             t.record_stream(cur)
         return out
 
-
-def _torch_dtype(name: str) -> torch.dtype:
-    return torch.from_numpy(np.zeros(0, dtype=name)).dtype
+    def eager(self, *args):
+        """The eager program on ``args``, through no graph: the yardstick
+        a replay is held to (bitwise, at the same signature); never a
+        fallback of the serving path."""
+        return _forward(self.snap, self.inner,
+                        _to_device_tree(args, self.snap.device))
 
 
 class InferenceModel:
@@ -234,10 +282,10 @@ class InferenceModel:
         # card only: the graphs' shared memory pool, the graphs alive in it,
         # the side stream they capture and replay on, and the lock that
         # keeps one graph's capture or replay from interleaving with
-        # another's on it (see _GraphExecutable)
+        # another's on it (see _GraphProgram)
         self._replay_lock = threading.Lock()
         self._pool = None
-        self._pool_graphs: "weakref.WeakSet[_GraphExecutable]" = \
+        self._pool_graphs: "weakref.WeakSet[_GraphProgram]" = \
             weakref.WeakSet()
         self._stream = None
 
@@ -306,15 +354,16 @@ class InferenceModel:
                 raise RuntimeError(
                     "No model loaded — call do_load / do_load_keras")
             snap = self._snapshot()
-        return _EagerExecutable(snap)(self._host(x))
+        return _EagerProgram(snap, _predict_inner(snap.model)).run(
+            self._host(x))
 
-    def _build(self, snap: _Snapshot, x):
-        """A new executable for ``x``'s signature (a capture on the
-        card)."""
+    def _build(self, snap: _Snapshot, inner, example_args):
+        """A new executable of ``inner`` (``None``: the model's predict
+        forward) at ``example_args``' signature: the eager call on the
+        CPU, a capture on the card."""
+        inner = inner or _predict_inner(snap.model)
         if snap.device.type != "cuda":
-            return _EagerExecutable(snap)
-        xs, multi = _as_list(x)
-        sig = (multi, tuple((tuple(a.shape), str(a.dtype)) for a in xs))
+            return _EagerProgram(snap, inner)
         with _CAPTURE_LOCK, self._replay_lock:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(snap.device)
@@ -323,13 +372,13 @@ class InferenceModel:
                 # or an eviction dropped the last one); start a new one
                 self._pool = torch.cuda.graph_pool_handle()
             t0 = time.perf_counter()
-            exe = _GraphExecutable(snap, sig, self._pool, self._stream,
-                                   self._replay_lock)
+            exe = _GraphProgram(snap, inner, example_args, self._pool,
+                                self._stream, self._replay_lock)
             self._pool_graphs.add(exe)
             _kernels.compiled(time.perf_counter() - t0)
         return exe
 
-    def _get_executable(self, key, example):
+    def _get_executable(self, key, inner, example_args, label):
         # Snapshot (model, params, state, gen) in ONE lock acquisition so a
         # build never sees a torn combination; build outside the lock so a
         # new shape does not stall concurrent predicts of built ones.
@@ -353,14 +402,19 @@ class InferenceModel:
                 cur.attrs["cache"] = "hit" if fn is not None else "miss"
         if fn is not None:
             return fn
-        with tracer.span("inference.compile", cache="miss", key=str(key)):
-            compiled = self._build(snap, example)
-        # Two threads may race-build one shape; last insert wins, both are
-        # valid. An insert is skipped when a load or release bumped _gen
-        # meanwhile: caching it would serve a stale executable.
+        with tracer.span("inference.compile", cache="miss", key=label):
+            compiled = self._build(snap, inner, example_args)
+        self._insert(key, compiled, snap.gen)
+        return compiled
+
+    def _insert(self, key, compiled, gen: int) -> None:
+        """Cache a new executable or program under the LRU cap. Two threads
+        may race-build one key; last insert wins, both are valid. An insert
+        is skipped when a load or release bumped _gen meanwhile: caching it
+        would serve a stale executable."""
         evicted = 0
         with self._lock:
-            if self._gen == snap.gen:
+            if self._gen == gen:
                 self._compiled[key] = compiled
                 self._compiled.move_to_end(key)
                 self.capture_bytes[key] = compiled.capture_bytes
@@ -372,7 +426,6 @@ class InferenceModel:
                     evicted += 1
         if evicted:
             inference_cache_counters()["evictions"].inc(evicted)
-        return compiled
 
     def _run(self, x):
         """Run ``x`` (host arrays) through its signature's executable;
@@ -381,9 +434,9 @@ class InferenceModel:
         call back for the current model's executable."""
         key = self._shape_key(x)
         while True:
-            fn = self._get_executable(key, x)
+            fn = self._get_executable(key, None, (x,), str(key))
             if fn.gen == self._gen:
-                return fn(x)
+                return fn.run(x)
 
     def do_optimize(self, example_input) -> "InferenceModel":
         """Warm one bucket shape: build its executable (on the card,
@@ -398,7 +451,13 @@ class InferenceModel:
              if isinstance(example_input, (list, tuple))
              else np.asarray(example_input))
         key = self._shape_key(x)
-        self._get_executable(key, x)
+        self._get_executable(key, None, (x,), str(key))
+        self._note_warmed(key)
+        return self
+
+    def _note_warmed(self, key) -> None:
+        """Record a warmed key; count and log a warm-up that outgrows the
+        executable cache."""
         cap = self.executable_cache_size
         with self._lock:
             self._warmed.add(key)
@@ -412,8 +471,45 @@ class InferenceModel:
                 "executable_cache_size=%d — the LRU is evicting just-"
                 "warmed executables and requests will capture again at "
                 "serve time; raise executable_cache_size or shrink the "
-                "bucket ladder", len(self._warmed), cap)
-        return self
+                "bucket ladder (or the sequence grid)", len(self._warmed),
+                cap)
+
+    # -- programs ------------------------------------------------------------
+
+    @staticmethod
+    def _args_key(args) -> Tuple:
+        """Shape/dtype/structure key of an argument pytree — the program
+        analogue of :meth:`_shape_key`."""
+        leaves = tree_leaves(args)
+        struct = str(tree_map(lambda _: "*", args))
+        return (struct,) + tuple(
+            (tuple(a.shape), str(a.dtype).replace("torch.", ""))
+            for a in leaves)
+
+    def compile_program(self, tag: str, inner, example_args,
+                        warm: bool = False):
+        """Build (or fetch) the executable of ``inner(params, model_state,
+        *args)`` for ``example_args``' signature (shapes, dtypes and
+        structure; values do not matter): the sequence tier's prefill,
+        admission and decode-step programs.
+
+        The key is ``("__prog__", tag, args key)`` in the same LRU as the
+        buckets; ``cache_stats`` counts program hits and misses, a load or
+        release bumps ``_gen`` and retires them, and ``warm=True`` records
+        the key in the warm-up overflow accounting (:meth:`do_optimize`).
+        On the card the program is a CUDA graph (:class:`_GraphProgram`);
+        a capture that fails raises, nothing is cached, and there is no
+        eager fallback. Float32 argument leaves are cast to the compute
+        dtype and floating outputs come back float32.
+
+        Returns ``(program, params, model_state)``; call
+        ``program(params, model_state, *args)``."""
+        key = ("__prog__", tag, self._args_key(example_args))
+        fn = self._get_executable(key, inner, example_args,
+                                  f"{tag}:{key[2][1:]}")
+        if warm:
+            self._note_warmed(key)
+        return fn, fn.snap.params, fn.snap.state
 
     # -- predict -------------------------------------------------------------
 

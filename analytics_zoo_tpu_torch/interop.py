@@ -7,7 +7,11 @@ statistics), converted to numpy, fill the port's model leaf by leaf.
 the two packages always copies weights this way. A checkpoint directory
 that the JAX package wrote (``Estimator`` checkpoints, ``save_weights``,
 ``ZooModel.save_model``) is read through the port's own
-``ft.atomic``/``engine.checkpoint`` and matched by the same rules.
+``ft.atomic``/``engine.checkpoint`` and matched by the same rules. The
+recurrent layers' leaves (``W``, ``U``, ``U_h``, ``b``, ``b_rec``),
+``Bidirectional``'s ``forward``/``backward`` pair, ``TimeDistributed``'s
+``inner`` and ``Seq2seqNet``'s embeddings, cells, bridges and generator
+fill the same way, leaf by leaf.
 Nothing here imports jax: a leaf only has to convert with ``np.asarray``.
 """
 

@@ -78,8 +78,25 @@ def ones_init(generator, shape, dtype=torch.float32):
     return torch.ones(shape, dtype=dtype)
 
 
+def orthogonal_init(generator, shape, dtype=torch.float32):
+    """Orthogonal matrix initializer (recurrent kernels), as
+    ``jax.nn.initializers.orthogonal()``: a normal draw of (rows, cols)
+    with cols = the last dim, transposed when rows < cols, its QR factor Q
+    with the signs of R's diagonal, transposed back."""
+    cols = shape[-1]
+    rows = math.prod(shape) // cols
+    a = torch.empty(max(rows, cols), min(rows, cols)).normal_(
+        generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if rows < cols:
+        q = q.T
+    return q.reshape(shape).to(dtype)
+
+
 _INITS: Dict[str, Callable] = {
     "glorot_uniform": glorot_uniform,
+    "orthogonal": orthogonal_init,
     "uniform": uniform_init(),
     "normal": normal_init(),
     "zeros": zeros_init,
@@ -101,6 +118,16 @@ def get_initializer(init) -> Callable:
 # ---------------------------------------------------------------------------
 # Weight specs
 # ---------------------------------------------------------------------------
+
+
+def mask_pair_main_shape(input_shape):
+    """Layers may be wired with an ``[x, mask]`` input pair (the keras
+    converter's timestep-mask convention); shape logic keys on the
+    sequence operand."""
+    if input_shape and isinstance(input_shape[0], (list, tuple)):
+        return tuple(input_shape[0])
+    return input_shape
+
 
 
 class WeightSpec:

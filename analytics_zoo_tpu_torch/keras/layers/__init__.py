@@ -9,10 +9,15 @@ from analytics_zoo_tpu_torch.keras.layers.attention import (
     TransformerLayer,
 )
 from analytics_zoo_tpu_torch.keras.layers.convolutional import (
+    AveragePooling1D,
     AveragePooling2D,
+    Convolution1D,
     Convolution2D,
+    GlobalAveragePooling1D,
     GlobalAveragePooling2D,
+    GlobalMaxPooling1D,
     GlobalMaxPooling2D,
+    MaxPooling1D,
     MaxPooling2D,
     ZeroPadding2D,
 )
@@ -32,4 +37,11 @@ from analytics_zoo_tpu_torch.keras.layers.embeddings import (
 from analytics_zoo_tpu_torch.keras.layers.normalization import (
     BatchNormalization,
     LayerNorm,
+)
+from analytics_zoo_tpu_torch.keras.layers.recurrent import (
+    GRU,
+    LSTM,
+    Bidirectional,
+    SimpleRNN,
+    TimeDistributed,
 )

@@ -1,6 +1,13 @@
 """Convolution and pooling layers (port of
-``analytics_zoo_tpu.keras.layers.convolutional``: ``Convolution2D``, max
-and average pooling, global pooling and ``ZeroPadding2D``).
+``analytics_zoo_tpu.keras.layers.convolutional``: ``Convolution1D`` and
+``Convolution2D``, 1-D and 2-D max and average pooling, global pooling
+(``GlobalAveragePooling1D`` with its masked mean over the valid steps of
+an ``[x, mask]`` pair) and ``ZeroPadding2D``).
+
+1-D layers take (batch, steps, dim) ("tf", the default of the 1-D layers
+as in the JAX package) or (batch, dim, steps) ("th"); they run as
+``F.conv1d``/``F.max_pool1d`` on the channels-first view, with the kernel
+leaf in the JAX package's (k, in, out) shape.
 
 Both orderings: "th" is NCHW, "tf" is NHWC. On the card a "tf" tensor
 stays NHWC and contiguous between layers; for a convolution or a pooling it
@@ -32,7 +39,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from analytics_zoo_tpu_torch.keras.engine.base import KerasLayer, Shape
+from analytics_zoo_tpu_torch.keras.engine.base import (
+    KerasLayer,
+    Shape,
+    mask_pair_main_shape,
+)
 from analytics_zoo_tpu_torch.keras.layers.core import get_activation
 
 # kernel dims may arrive as numpy ints (computed from array shapes/configs)
@@ -80,7 +91,10 @@ def _pad(x, pads, ordering: str, value: float = 0.0):
 
 
 def _as_nchw(x, ordering: str):
-    return x if ordering == "th" else x.permute(0, 3, 1, 2)
+    """Channels-first view of ``x`` (NCHW, or NCW for a 1-D tensor)."""
+    if ordering == "th":
+        return x
+    return x.permute(0, 2, 1) if x.dim() == 3 else x.permute(0, 3, 1, 2)
 
 
 def _conv_input(x, ordering: str):
@@ -95,19 +109,22 @@ def _conv_input(x, ordering: str):
 
 
 def _from_nchw(y, ordering: str):
-    return y if ordering == "th" else y.permute(0, 2, 3, 1)
+    if ordering == "th":
+        return y
+    return y.permute(0, 2, 1) if y.dim() == 3 else y.permute(0, 2, 3, 1)
 
 
 def _padding(x, border_mode, kernel, strides, dilation, ordering,
              value=0.0):
-    """``(x, padding)`` for a 2-D op: a symmetric padding goes to the op as
-    ``padding``; an asymmetric one is applied to ``x`` here."""
+    """``(x, padding)`` for a 1-D or 2-D op: a symmetric padding goes to
+    the op as ``padding``; an asymmetric one is applied to ``x`` here."""
+    zero = (0,) * len(kernel)
     if border_mode != "same":
-        return x, (0, 0)
+        return x, zero
     pads = _same_pads(_spatial(x, ordering), kernel, strides, dilation)
     if all(lo == hi for lo, hi in pads):
         return x, tuple(lo for lo, _ in pads)
-    return _pad(x, pads, ordering, value), (0, 0)
+    return _pad(x, pads, ordering, value), zero
 
 
 class _ConvND(KerasLayer):
@@ -157,6 +174,14 @@ class _ConvND(KerasLayer):
         x, padding = _padding(x, self.border_mode, self.kernel_size,
                               self.subsample, self.dilation,
                               self.dim_ordering)
+        if self.rank == 1:
+            # (k, in, out) -> (out, in, k)
+            y = F.conv1d(_as_nchw(x, self.dim_ordering),
+                         params["kernel"].permute(2, 1, 0),
+                         params["bias"] if self.bias else None,
+                         stride=self.subsample, padding=padding,
+                         dilation=self.dilation)
+            return self.activation(_from_nchw(y, self.dim_ordering))
         x, fmt = _conv_input(x, self.dim_ordering)
         # HWIO -> OIHW, in the activations' memory format
         w = params["kernel"].permute(3, 2, 0, 1).contiguous(
@@ -166,6 +191,16 @@ class _ConvND(KerasLayer):
                      stride=self.subsample, padding=padding,
                      dilation=self.dilation)
         return self.activation(_from_nchw(y, self.dim_ordering))
+
+
+class Convolution1D(_ConvND):
+    """Ref Convolution1D.scala — input (batch, steps, dim), "tf"-ordered
+    by default."""
+    rank = 1
+
+    def __init__(self, nb_filter, filter_length, subsample_length=1, **kw):
+        kw.setdefault("dim_ordering", "tf")
+        super().__init__(nb_filter, filter_length, subsample_length, **kw)
 
 
 class Convolution2D(_ConvND):
@@ -221,22 +256,45 @@ class _PoolND(KerasLayer):
     def call(self, params, x, **kw):
         k, s, order = self.pool_size, self.strides, self.dim_ordering
         ones = (1,) * self.rank
+        max_pool = F.max_pool1d if self.rank == 1 else F.max_pool2d
         if self.op == "max":
             x, padding = _padding(x, self.border_mode, k, s, ones, order,
                                   value=float("-inf"))
-            return _from_nchw(F.max_pool2d(_as_nchw(x, order), k, s,
-                                           padding), order)
+            return _from_nchw(max_pool(_as_nchw(x, order), k, s,
+                                       padding), order)
+        if self.rank == 1:
+            # avg_pool1d has no divisor_override: the 2-D op over a unit
+            # height
+            return _from_nchw(self._avg2d(
+                _as_nchw(x, order)[:, :, None], (1,) + k, (1,) + s,
+                (1, 1))[:, :, 0], order)
+        return _from_nchw(self._avg2d(_as_nchw(x, order), k, s, ones),
+                          order)
+
+    def _avg2d(self, x, k, s, ones):
+        """Average pooling of an NCHW tensor, SAME dividing each window
+        by its count of real elements."""
         if self.border_mode != "same":
-            return _from_nchw(F.avg_pool2d(_as_nchw(x, order), k, s), order)
-        # SAME: the window sum over the count of real elements in it
-        count = torch.ones((1, 1) + _spatial(x, order), dtype=x.dtype,
+            return F.avg_pool2d(x, k, s)
+        count = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
                            device=x.device)
         count, c_pad = _padding(count, "same", k, s, ones, "th")
         count = F.avg_pool2d(count, k, s, c_pad, divisor_override=1)
-        x, padding = _padding(x, "same", k, s, ones, order)
-        total = F.avg_pool2d(_as_nchw(x, order), k, s, padding,
-                             divisor_override=1)
-        return _from_nchw(total / count, order)
+        x, padding = _padding(x, "same", k, s, ones, "th")
+        return F.avg_pool2d(x, k, s, padding, divisor_override=1) / count
+
+
+class MaxPooling1D(_PoolND):
+    rank = 1
+    op = "max"
+
+    def __init__(self, pool_length=2, stride=None, **kw):
+        kw.setdefault("dim_ordering", "tf")
+        super().__init__(pool_length, stride, **kw)
+
+
+class AveragePooling1D(MaxPooling1D):
+    op = "avg"
 
 
 class MaxPooling2D(_PoolND):
@@ -267,6 +325,40 @@ class _GlobalPool(KerasLayer):
         else:
             dims = tuple(range(1, x.dim() - 1))
         return x.amax(dim=dims) if self.op == "max" else x.mean(dim=dims)
+
+
+class GlobalMaxPooling1D(_GlobalPool):
+    rank = 1
+
+    def __init__(self, **kw):
+        kw.setdefault("dim_ordering", "tf")
+        super().__init__(**kw)
+
+
+class GlobalAveragePooling1D(GlobalMaxPooling1D):
+    """The mean over the steps; with an ``[x, mask]`` input pair ((B, T)
+    mask, 1 = valid) the mean over the valid steps only (tf.keras
+    timestep-mask semantics)."""
+    op = "avg"
+
+    def build(self, input_shape):
+        super().build(mask_pair_main_shape(input_shape))
+
+    def compute_output_shape(self, input_shape):
+        return super().compute_output_shape(
+            mask_pair_main_shape(input_shape))
+
+    def call(self, params, x, **kw):
+        if isinstance(x, (list, tuple)):
+            if len(x) != 2:
+                raise ValueError(
+                    f"GlobalAveragePooling1D takes x or [x, mask]; "
+                    f"got {len(x)} inputs")
+            x, mask = x
+            m = mask.to(x.dtype)[:, :, None]
+            return ((x * m).sum(dim=1)
+                    / torch.clamp(m.sum(dim=1), min=1.0))
+        return super().call(params, x, **kw)
 
 
 class GlobalMaxPooling2D(_GlobalPool):

@@ -6,8 +6,7 @@ A zoo model wraps a KerasNet built by :meth:`build_model`; persistence is
 the architecture config (``model.json``) and the weights (a ``weights``
 checkpoint directory from ``save_weights``), as in the JAX package, so
 ``load_model`` also reads a directory that the JAX package's
-``save_model`` wrote. ``Ranker`` waits for the ranking metrics (ROADMAP
-A3).
+``save_model`` wrote.
 """
 
 from __future__ import annotations
@@ -99,15 +98,16 @@ class ZooModel(Predictable):
 
 class Ranker:
     """Ranking evaluation mixin (ref Ranker.evaluateMAP:80 /
-    evaluateNDCG:98): waits for the ranking metrics."""
+    evaluateNDCG:98): ``evaluate_*`` take an iterable of (scores, labels)
+    per query group."""
 
     def evaluate_map(self, grouped, threshold: float = 0.0) -> float:
-        raise NotImplementedError(
-            "Ranker.evaluate_map: the ranking metrics (MAP, NDCG) are not "
-            "ported yet")
+        from analytics_zoo_tpu_torch.keras.metrics import evaluate_map
+
+        return evaluate_map(grouped, threshold)
 
     def evaluate_ndcg(self, grouped, k: int = 10,
                       threshold: float = 0.0) -> float:
-        raise NotImplementedError(
-            "Ranker.evaluate_ndcg: the ranking metrics (MAP, NDCG) are not "
-            "ported yet")
+        from analytics_zoo_tpu_torch.keras.metrics import evaluate_ndcg
+
+        return evaluate_ndcg(grouped, k, threshold)

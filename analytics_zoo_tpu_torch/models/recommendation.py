@@ -5,8 +5,7 @@ concat, softmax head), ``WideAndDeep`` (WideAndDeep.scala:80 with
 ``ColumnFeatureInfo``), and the ``Recommender`` base with the
 recommend-for-user/item utilities. The models are built layer for layer
 as in the JAX package, so the weights map 1:1 (``interop``).
-``SessionRecommender`` needs ``GRU`` (the recurrent layers, ROADMAP A5)
-and raises until then.
+``SessionRecommender`` is not ported yet (ROADMAP A5) and raises.
 """
 
 from __future__ import annotations
@@ -283,9 +282,8 @@ class WideAndDeep(Recommender):
 
 class SessionRecommender(Recommender):
     """Session-based next-item recommender (GRU over the session's recent
-    items): waits for the recurrent layers."""
+    items): not ported yet."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "SessionRecommender needs the GRU layer (keras/layers/"
-            "recurrent.py), which is not ported yet")
+            "SessionRecommender is not ported yet (ROADMAP A5)")

@@ -31,10 +31,14 @@ batching is a host-side concern. The modules:
   content-addressed inference result cache with single-flight coalescing
   and copy-on-write hit views.
 
-Not ported yet (ROADMAP): sequence serving (``sequence.py``,
-``decode_state.py``, A5), the multi-process front door and its workers
+- :mod:`~analytics_zoo_tpu_torch.serving.sequence` /
+  :mod:`~analytics_zoo_tpu_torch.serving.decode_state` — sequence serving:
+  length-bucketed prefill and continuous decode batching over a slot
+  array (``register(sequence=...)``, ``generate``, HTTP ``:generate``).
+
+Not ported yet (ROADMAP A8): the multi-process front door and its workers
 (``frontdoor.py``, ``worker.py``) and the fleet fabric beyond its tree
-codec (A8).
+codec.
 """
 
 from analytics_zoo_tpu_torch.serving.batcher import (
@@ -82,6 +86,10 @@ from analytics_zoo_tpu_torch.serving.rollout import (
     VersionHealth,
 )
 from analytics_zoo_tpu_torch.serving.router import Router, TrafficPolicy
+from analytics_zoo_tpu_torch.serving.sequence import (
+    ContinuousBatcher,
+    SequenceConfig,
+)
 
 __all__ = [
     "AdmissionController",
@@ -89,6 +97,7 @@ __all__ = [
     "BreakerConfig",
     "CircuitBreaker",
     "CircuitOpenError",
+    "ContinuousBatcher",
     "CowView",
     "DeadlineExceededError",
     "DrainingError",
@@ -110,6 +119,7 @@ __all__ = [
     "RolloutConfig",
     "RolloutController",
     "Router",
+    "SequenceConfig",
     "ServingEngine",
     "ServingMetrics",
     "ShedError",

@@ -16,12 +16,17 @@ Keep orchestration in plain host code around fixed-shape device work: the
 engine owns threads, queues and deadlines; the device only ever sees
 fixed-shape batches.
 
+Generation: ``register(sequence=SequenceConfig(...))`` adds a
+:class:`~analytics_zoo_tpu_torch.serving.sequence.ContinuousBatcher` to the
+version and warms its whole program grid (on the card, one CUDA graph per
+prefill cell, admission width and the decode step);
+:meth:`ServingEngine.generate` and :meth:`ServingEngine.generate_async`
+serve it.
+
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: generation (:meth:`ServingEngine.generate`,
-:meth:`ServingEngine.generate_async` and ``register(sequence=...)``, which
-need ``serving/sequence.py`` and a seq2seq decoder, A5),
-:meth:`ServingEngine.watch_checkpoints` (``ft/hot_reload.py``, A8) and
-``register(sharding_plan=..., stage_plan=...)`` (A7).
+ROADMAP item: :meth:`ServingEngine.watch_checkpoints`
+(``ft/hot_reload.py``, A8) and ``register(sharding_plan=...,
+stage_plan=...)`` (A7).
 
 Resilience is on by default: a
 :class:`~analytics_zoo_tpu_torch.serving.resilience.ResilienceConfig` gives
@@ -135,6 +140,9 @@ class ModelEntry:
         self.model = model
         self.config = config
         self.batcher = batcher
+        # set when the model is registered with sequence=SequenceConfig:
+        # the continuous batcher that serves :generate
+        self.seq_batcher = None
         self.warmup_seconds = 0.0
         self.registered_at = time.time()
         # set by the engine when resilience is on
@@ -166,6 +174,19 @@ class ModelEntry:
                             "dtype": np.dtype(dtype).name}
                            for shape, dtype in sig.specs],
                 "multi": sig.multi,
+            }
+        seq = self.seq_batcher
+        if seq is not None:
+            scfg = seq.config
+            out["sequence"] = {
+                "slots": scfg.slots,
+                "max_prompt_len": scfg.max_prompt_len,
+                "max_new_tokens": scfg.max_new_tokens,
+                "start_token": scfg.start_token,
+                "eos_token": scfg.eos_token,
+                "prompt_buckets": list(scfg.length_ladder()),
+                "prefill_batch_buckets": list(scfg.batch_ladder()),
+                "queue_depth": seq.queue_depth,
             }
         cache = getattr(self.model, "cache_stats", None)
         if cache is not None:
@@ -309,17 +330,24 @@ class ServingEngine:
         NOT repoint ``_latest``; the new version starts a canary rollout
         at the ladder's first rung instead (finalization repoints).
 
-        ``sharding_plan``, ``stage_plan`` and ``sequence`` are not ported
-        yet: passing one raises ``NotImplementedError`` (ROADMAP A7 for the
-        plans, A5 for sequence serving) before anything is touched.
+        ``sequence``: a
+        :class:`~analytics_zoo_tpu_torch.serving.sequence.SequenceConfig`
+        to also serve autoregressive generation for this model through a
+        :class:`~analytics_zoo_tpu_torch.serving.sequence.ContinuousBatcher`
+        (the ``:generate`` HTTP endpoint / :meth:`generate`). The model
+        must expose the sequence primitives (``seq_prefill`` /
+        ``seq_step`` — see models/seq2seq.py); warmup then also builds
+        the whole (batch × length) prefill grid plus the decode-step and
+        admission programs, so generation never builds one at serve
+        time.
+
+        ``sharding_plan`` and ``stage_plan`` are not ported yet: passing
+        one raises ``NotImplementedError`` (ROADMAP A7) before anything is
+        touched.
         """
         if sharding_plan is not None or stage_plan is not None:
             raise NotImplementedError(
                 "sharding and stage plans are not ported yet (ROADMAP A7)")
-        if sequence is not None:
-            raise NotImplementedError(
-                "sequence serving is not ported yet: it needs "
-                "serving/sequence.py and a seq2seq decoder (ROADMAP A5)")
         cfg = config or BatcherConfig()
         rows = _example_rows(example_input)
         multi = isinstance(example_input, (list, tuple))
@@ -368,7 +396,26 @@ class ServingEngine:
                 dispatch_fn=getattr(model, "do_dispatch", None),
                 fetch_fn=getattr(model, "do_fetch", None),
                 chaos_tag=f"{name}@{version}")
+            seq_batcher = None
+            if sequence is not None:
+                from analytics_zoo_tpu_torch.serving.sequence import (
+                    ContinuousBatcher,
+                )
+
+                # built before the registry insert, so that a model
+                # without the decode contract (TypeError here) leaves the
+                # engine untouched; it shares the predict path's breaker
+                try:
+                    seq_batcher = ContinuousBatcher(
+                        model, sequence, metrics=model_metrics, name=name,
+                        breaker=breaker, chaos_tag=f"{name}@{version}")
+                except BaseException:
+                    batcher.stop(drain=False, timeout=5.0)
+                    if not versions:  # setdefault above made it
+                        self._models.pop(name, None)
+                    raise
             entry = ModelEntry(name, version, model, cfg, batcher)
+            entry.seq_batcher = seq_batcher
             entry.admission = admission
             entry.breaker = breaker
             entry.warmup_seconds = time.perf_counter() - entry_t0
@@ -401,8 +448,34 @@ class ServingEngine:
                     # can re-reach the same step) — the dead model's
                     # sketch must not judge the new one
                     reset(name, version)
+        if seq_batcher is not None and warmup:
+            try:
+                with timing(f"sequence warmup '{name}' "
+                            f"grid={sequence.grid()}", log=True), \
+                        get_tracer().span("serving.warmup", model=name,
+                                          grid=str(sequence.grid())):
+                    seq_batcher.warmup()
+            except BaseException:
+                # a failed sequence warmup (a capture that raised) must not
+                # leave a half-registered version serving predict traffic
+                seq_batcher.stop(drain=False, timeout=5.0)
+                batcher.stop(drain=False, timeout=5.0)
+                with self._lock:
+                    live = self._models.get(name)
+                    if live is not None:
+                        live.pop(version, None)
+                        if not live:
+                            self._models.pop(name, None)
+                            self._latest.pop(name, None)
+                        elif self._latest.get(name) == version:
+                            self._latest[name] = max(live,
+                                                     key=_version_key)
+                raise
+            entry.warmup_seconds = time.perf_counter() - entry_t0
         if self._watchdog is not None:
             self._watchdog.watch(batcher)
+            if seq_batcher is not None:
+                self._watchdog.watch(seq_batcher)
         if shadow:
             self.router.set_shadow(name, version, shadow_fraction)
         elif start_canary:
@@ -453,7 +526,11 @@ class ServingEngine:
         for entry in doomed:
             if self._watchdog is not None:
                 self._watchdog.unwatch(entry.batcher)
+                if entry.seq_batcher is not None:
+                    self._watchdog.unwatch(entry.seq_batcher)
             entry.batcher.stop(drain=drain)
+            if entry.seq_batcher is not None:
+                entry.seq_batcher.stop(drain=drain)
 
     def entry(self, name: str, version: Optional[str] = None) -> ModelEntry:
         """Resolve ``(name, version)``; ``version=None`` → newest. Raises
@@ -979,11 +1056,72 @@ class ServingEngine:
                        tenant: Optional[str] = None,
                        route_key: Optional[str] = None,
                        trace_id: Optional[str] = None) -> Future:
-        """Generation through a continuous batcher: not ported yet (it
-        needs ``serving/sequence.py`` and a seq2seq decoder, ROADMAP A5)."""
-        raise NotImplementedError(
-            "generate is not ported yet: it needs serving/sequence.py and a "
-            "seq2seq decoder (ROADMAP A5)")
+        """Submit one generation request through the model's
+        :class:`~analytics_zoo_tpu_torch.serving.sequence.ContinuousBatcher`;
+        the Future resolves to a 1-D int32 array of generated tokens (eos
+        inclusive when hit).
+
+        The control plane matches :meth:`predict_async` — drain state,
+        tenant quota, router/version resolution, per-version health and
+        tenant accounting all apply — with two deliberate exceptions: the
+        **result cache never sees generate traffic** (a response depends
+        on max_new_tokens/eos) and **shadow versions receive no generate
+        mirrors** (a mirrored generation would hold a decode slot for its
+        whole sequence). Raises ``ValueError`` (HTTP 400) when the resolved
+        version was not registered with ``sequence=``."""
+        if self._state != "serving":
+            self.metrics.for_model(name).shed("draining").inc()
+            raise DrainingError(
+                f"serving engine is {self._state} — send this request to "
+                "another replica",
+                retry_after_s=self.resilience.drain_retry_after_s)
+        try:
+            tenant_id = self.quota.check(tenant)
+        except QuotaExceededError as e:
+            self.metrics.quota_rejections(
+                self.quota.label_for(e.tenant)).inc()
+            raise
+        routed = version
+        if version is None:
+            picked = self.router.route(name, route_key)
+            if picked is not None:
+                routed = picked
+        try:
+            entry = self.entry(name, routed)
+        except ModelNotFoundError:
+            if routed is None or version is not None:
+                raise
+            entry = self.entry(name)
+        if entry.seq_batcher is None:
+            raise ValueError(
+                f"model '{name}' (version '{entry.version}') is not "
+                "registered for sequence serving — register with "
+                "sequence=SequenceConfig(...) to enable :generate")
+        tlabel = self.quota.label_for(tenant_id)
+        rec = self.flight.begin(
+            name,
+            trace_id=(trace_id if trace_id is not None
+                      else get_tracer().current_trace_id()),
+            kind="generate", tenant=tlabel)
+        rec.t_route = monotonic_s()
+        rec.version = entry.version
+        self._ensure_slo(name)
+        try:
+            fut = entry.seq_batcher.submit(
+                prompt, max_new_tokens=max_new_tokens, eos=eos,
+                timeout_ms=timeout_ms)
+        except BaseException as e:
+            outcome = ("rejected" if isinstance(e, CircuitOpenError)
+                       else "shed" if isinstance(e, (QueueFullError,
+                                                     ShedError))
+                       else "invalid" if isinstance(e, (ValueError,
+                                                        TypeError))
+                       else "error")
+            self.flight.finish(rec, outcome, error=type(e).__name__)
+            raise
+        self.metrics.tenant_requests(tlabel).inc()
+        self._observe_outcome(fut, name, entry, tlabel, rec=rec)
+        return fut
 
     def generate(self, name: str, prompt,
                  max_new_tokens: Optional[int] = None,
@@ -992,7 +1130,7 @@ class ServingEngine:
                  version: Optional[str] = None,
                  tenant: Optional[str] = None,
                  route_key: Optional[str] = None) -> np.ndarray:
-        """Blocking :meth:`generate_async` (not ported yet, ROADMAP A5)."""
+        """Blocking :meth:`generate_async`."""
         return self.generate_async(
             name, prompt, max_new_tokens=max_new_tokens, eos=eos,
             timeout_ms=timeout_ms, version=version, tenant=tenant,
@@ -1229,7 +1367,10 @@ class ServingEngine:
         with self._lock:
             entries = [e for versions in self._models.values()
                        for e in versions.values()]
-        return sum(e.batcher.pending_requests for e in entries)
+        return sum(e.batcher.pending_requests
+                   + (e.seq_batcher.pending_requests
+                      if e.seq_batcher is not None else 0)
+                   for e in entries)
 
     def drain(self, deadline_s: float = 30.0) -> Dict[str, Any]:
         """Take the engine out of rotation without dropping work.
@@ -1342,3 +1483,5 @@ class ServingEngine:
             w.stop()
         for entry in doomed:
             entry.batcher.stop(drain=drain)
+            if entry.seq_batcher is not None:
+                entry.seq_batcher.stop(drain=drain)

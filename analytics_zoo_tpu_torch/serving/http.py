@@ -19,10 +19,10 @@ The thin stdlib layer (no framework dependency — same stance as
   bytes back when ``Accept: application/x-npy`` (bit-exact, NaN/Inf
   preserved).
 - ``POST /v1/models/<name>:generate`` (also ``/versions/<v>:generate``)
-  — sequence serving. JSON body ``{"prompts": [[ids...], ...],
-  "max_new_tokens", "eos_token", "timeout_ms"}``. The engine does not
-  serve generation yet (ROADMAP A5), so the route answers 501 as
-  :meth:`ServingEngine.generate_async` raises.
+  — sequence serving through the version's continuous batcher. JSON body
+  ``{"prompts": [[ids...], ...], "max_new_tokens", "eos_token",
+  "timeout_ms"}``; replies ``{"sequences": [[tokens...], ...]}``. A model
+  registered without ``sequence=`` answers 400.
 - ``GET /metrics`` — Prometheus text exposition
   (:meth:`ServingEngine.metrics_text`): the serving families plus the
   process-global registry (inference-cache, compile, build-info and

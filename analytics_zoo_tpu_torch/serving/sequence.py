@@ -1,0 +1,691 @@
+"""Sequence serving (port of ``analytics_zoo_tpu.serving.sequence``):
+length-bucketed prefill + continuous decode batching.
+
+The dynamic batcher (serving/batcher.py) serves fixed trailing shapes;
+generation breaks both of its assumptions: prompts are ragged, and each
+request does an *unknown number* of model calls (one per generated
+token). Padding a whole batch to the longest member and stepping until
+every member finishes — the naive generate loop — convoys short requests
+behind long ones and wastes every padded step. Instead:
+
+- **Length-bucketed prefill.** Prompts are padded into a finite 2-D
+  (batch, length) grid of power-of-two buckets; every cell is one
+  program (``InferenceModel.compile_program``: a CUDA graph on the card,
+  the eager call on the CPU), so a prompt of any length ≤ the cap hits a
+  built shape. The mask makes padding inert (masked encoder steps carry
+  state through unchanged — pinned by tests/test_torch_text_models.py).
+  A length bucket's graph records its T encoder steps.
+- **Iteration-level continuous batching** (:class:`ContinuousBatcher`).
+  One decode-step program runs over a fixed-capacity **slot array**;
+  requests are admitted into free slots and evicted on finish *per
+  step*, not per batch. A long generation never convoys short ones, and
+  the decode step is a single program for the model's lifetime.
+- **Preallocated per-slot device state.** The decoder carries (h/c —
+  this zoo's analogue of a KV cache) live in one device pytree with the
+  slot axis leading, replaced each step; admission is a program that
+  scatters the prefill's carries into the slots. A padded (dead)
+  admission row aims at index ``slots``: the JAX package drops it
+  (``.at[i].set(..., mode="drop")``), while an out-of-range
+  ``index_copy`` on the card is a device-side assert that takes the CUDA
+  context down, so the program scatters into the slot carries extended
+  by one sink row and drops that row: a dead row never writes a live
+  slot and never indexes out of range. Host-side bookkeeping and the
+  bounded prefill staging pool live in serving/decode_state.py.
+
+Correctness contract, pinned by tests/test_torch_sequence_serving.py: for
+any admission/eviction interleaving, each request's generated tokens are
+equal to its single-request sequential generate (``Seq2seqNet.infer``).
+This rests on decode rows being independent (dead slots compute garbage
+harmlessly) and on parity assertions being made on int32 *tokens*, never
+on float carries (masked blends can flip a zero's sign). On the CPU the
+step's matmuls give each row the same bits at every slot-array width; on
+the card cuBLAS may pick another kernel for a one-row decode than for the
+slot array, so the on-card check allows a differing token only at a
+near-tie of the reference's logits (``chip_smoke.py`` phase 6).
+
+Resilience mirrors ``DynamicBatcher``: bounded queue (``QueueFullError``
+backpressure), per-request deadlines evict a slot **mid-decode**, the
+circuit breaker sees one outcome per finished request and a failure per
+step fault, and the flush watchdog supervises the decode worker through
+the same generation-token restart discipline — a restart fails only
+in-flight slots; queued requests survive onto the replacement thread.
+
+Wired through ``ServingEngine.register(sequence=...)``, the HTTP
+``:generate`` endpoint, ``zoo_seq_*`` metrics and ``serving.decode_step``
+spans.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from concurrent.futures import Future, InvalidStateError
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+import torch
+
+from analytics_zoo_tpu_torch.common.flight_recorder import get_flight_recorder
+from analytics_zoo_tpu_torch.common.observability import (
+    get_tracer,
+    monotonic_s,
+    new_trace_id,
+)
+from analytics_zoo_tpu_torch.common.tree import tree_map
+from analytics_zoo_tpu_torch.ft import chaos as _chaos
+from analytics_zoo_tpu_torch.serving.batcher import (
+    DeadlineExceededError,
+    QueueFullError,
+    _power_ladder,
+)
+from analytics_zoo_tpu_torch.serving.decode_state import (
+    DecodeSlots,
+    PrefillStaging,
+    SlotRecord,
+)
+from analytics_zoo_tpu_torch.serving.resilience import (
+    FlushThreadRestartedError,
+)
+
+__all__ = ["SequenceConfig", "ContinuousBatcher"]
+
+
+def _resolve(future: Future, result=None, error=None):
+    """Race-safe future resolution (deadline expiry / restart / eviction
+    can race completion — first writer wins, later writers no-op)."""
+    try:
+        if error is not None:
+            future.set_exception(error)
+        else:
+            future.set_result(result)
+    except InvalidStateError:
+        pass
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceConfig:
+    """Per-model sequence-serving knobs.
+
+    Attributes:
+      max_prompt_len: longest accepted prompt; longer submits raise
+        ``ValueError`` at the boundary (no silent truncation).
+      prompt_buckets: ascending pad-target prompt lengths. ``None`` →
+        powers of two up to ``max_prompt_len``. Together with the
+        prefill batch ladder this defines the 2-D program grid — every
+        (batch bucket × length bucket) cell is one program (a CUDA graph
+        on the card), so keep ``len(batch ladder) ×
+        len(prompt_buckets)`` small.
+      max_prefill_batch: most prompts admitted in one prefill call; its
+        power-of-two ladder is the grid's batch axis.
+      slots: decode slot-array capacity — the max concurrently decoding
+        requests AND the decode step's fixed batch shape. More slots =
+        more goodput under load but a wider (slower) step when mostly
+        empty.
+      max_new_tokens: generation cap per request (a per-request value
+        may lower, never raise, this — the cap bounds worst-case slot
+        hold time).
+      start_token / eos_token: decoder start symbol, and the terminator
+        that finishes a slot (inclusive — the eos token is returned).
+        ``eos_token=None`` decodes to ``max_new_tokens`` always.
+      max_queue_size: bound on waiting requests; beyond it ``submit``
+        raises :class:`~analytics_zoo_tpu_torch.serving.batcher
+        .QueueFullError` (HTTP 429).
+      timeout_ms: default per-request deadline. A deadline can fire
+        **mid-decode**: the slot is evicted, the future fails with
+        ``DeadlineExceededError``, and the freed slot admits the next
+        request at the very next step.
+      staging_cap: bounded prefill staging buffers kept per grid cell.
+    """
+
+    max_prompt_len: int = 64
+    prompt_buckets: Optional[Tuple[int, ...]] = None
+    max_prefill_batch: int = 4
+    slots: int = 8
+    max_new_tokens: int = 32
+    start_token: int = 1
+    eos_token: Optional[int] = None
+    max_queue_size: int = 256
+    timeout_ms: Optional[float] = None
+    staging_cap: int = 3
+
+    def __post_init__(self):
+        if self.max_prompt_len < 1:
+            raise ValueError("max_prompt_len must be >= 1")
+        if self.slots < 1:
+            raise ValueError("slots must be >= 1")
+        if self.max_prefill_batch < 1:
+            raise ValueError("max_prefill_batch must be >= 1")
+        if self.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if self.prompt_buckets is not None:
+            b = tuple(sorted(int(x) for x in self.prompt_buckets))
+            if not b or b[0] < 1 or b[-1] < self.max_prompt_len:
+                raise ValueError(
+                    "prompt_buckets must be non-empty and cover "
+                    f"max_prompt_len={self.max_prompt_len}, got {b}")
+            object.__setattr__(self, "prompt_buckets", b)
+
+    def length_ladder(self) -> Tuple[int, ...]:
+        """Ascending prompt pad-target lengths (``prompt_buckets``, or
+        powers of two up to ``max_prompt_len``)."""
+        if self.prompt_buckets is not None:
+            return self.prompt_buckets
+        return _power_ladder(self.max_prompt_len)
+
+    def batch_ladder(self) -> Tuple[int, ...]:
+        """Ascending prefill batch sizes — powers of two up to
+        ``min(max_prefill_batch, slots)``, the grid's batch axis."""
+        return _power_ladder(min(self.max_prefill_batch, self.slots))
+
+    def grid(self) -> List[Tuple[int, int]]:
+        """Every (batch, length) prefill cell that can be dispatched."""
+        return [(b, l) for b in self.batch_ladder()
+                for l in self.length_ladder()]
+
+
+class _SeqRequest:
+    __slots__ = ("prompt", "max_new_tokens", "eos", "future", "deadline",
+                 "t_enqueue", "trace")
+
+    def __init__(self, prompt, max_new_tokens, eos, deadline, trace):
+        self.prompt = prompt
+        self.max_new_tokens = max_new_tokens
+        self.eos = eos
+        self.future: Future = Future()
+        self.deadline = deadline
+        self.t_enqueue = time.monotonic()
+        self.trace = trace
+
+
+class ContinuousBatcher:
+    """Iteration-level scheduler over a fixed-capacity decode slot array.
+
+    ``model`` is an :class:`~analytics_zoo_tpu_torch.inference
+    .inference_model.InferenceModel` whose loaded network exposes the
+    sequence primitives (``seq_init_carries`` / ``seq_prefill`` /
+    ``seq_step`` — see models/seq2seq.py); all programs are built through
+    ``model.compile_program`` so they share the predict path's executable
+    cache, its counters and its warmup-overflow accounting.
+
+    Duck-types the ``DynamicBatcher`` lifecycle surface — ``submit``,
+    ``queue_depth``, ``pending_requests``, ``check_flush_thread``,
+    ``restart_worker``, ``stop`` — so the engine's watchdog, drain and
+    unregister paths treat both identically.
+    """
+
+    def __init__(self, model, config: SequenceConfig,
+                 metrics=None, name: str = "model", breaker=None,
+                 chaos_tag: Optional[str] = None):
+        self.model = model
+        self.config = config
+        self.metrics = metrics
+        self.name = name
+        self.breaker = breaker
+        self.chaos_tag = chaos_tag
+        net = getattr(model, "model", None)
+        for attr in ("seq_init_carries", "seq_prefill", "seq_step"):
+            if not hasattr(net, attr):
+                raise TypeError(
+                    f"model for '{name}' does not support sequence "
+                    f"serving: loaded network lacks {attr}() (see "
+                    "models/seq2seq.py for the decode contract)")
+        self._net = net
+        self._staging = PrefillStaging(config.staging_cap)
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._queue: "collections.deque[_SeqRequest]" = collections.deque()
+        self._stopped = False
+        self._drain_on_stop = True
+        self._gen = 0
+        # the slot table and the in-progress admission wave are shared
+        # (worker writes, restart_worker dooms under the lock) so a
+        # restart can fail exactly the in-flight requests — the
+        # worker-local carry pytree dies with its thread
+        self._slots = DecodeSlots(config.slots)
+        self._admitting: List[_SeqRequest] = []
+        self._warmed = False
+        self._heartbeat = time.monotonic()
+        self._worker = threading.Thread(
+            target=self._loop, args=(0,), daemon=True,
+            name=f"zoo-seq-{name}")
+        self._worker.start()
+
+    # -- programs ----------------------------------------------------------
+
+    def _device(self):
+        return getattr(self.model, "device", None)
+
+    def _examples(self):
+        S = self.config.slots
+        carries_s = self._net.seq_init_carries(S, self._device())
+        tok = torch.zeros((S,), dtype=torch.int32, device=self._device())
+        return carries_s, tok
+
+    def _program_step(self):
+        carries_s, tok = self._examples()
+        inner = lambda params, state, carries, t: \
+            self._net.seq_step(params, carries, t)
+        return self.model.compile_program(
+            "seq_step", inner, (carries_s, tok), warm=True)
+
+    def _program_prefill(self, batch: int, length: int):
+        src = np.zeros((batch, length), dtype=np.int32)
+        mask = np.zeros((batch, length), dtype=np.float32)
+        inner = lambda params, state, s, m: \
+            self._net.seq_prefill(params, s, m)
+        return self.model.compile_program(
+            f"seq_prefill_{batch}x{length}", inner, (src, mask), warm=True)
+
+    def _program_admit(self, batch: int):
+        S = self.config.slots
+        carries_s, _ = self._examples()
+        carries_b = self._net.seq_init_carries(batch, self._device())
+        idx = np.zeros((batch,), dtype=np.int32)
+
+        def inner(params, state, slot_carries, new_carries, i):
+            # dead admission rows carry i == S: they land in a sink row
+            # appended to the slots and dropped, so a partial prefill
+            # batch never clobbers a live slot nor indexes out of range
+            def admit(s, c):
+                sink = torch.cat([s, s.new_zeros((1,) + tuple(s.shape[1:]))])
+                return sink.index_copy(0, i.long(), c.to(s.dtype))[:S]
+            return tree_map(admit, slot_carries, new_carries)
+
+        return self.model.compile_program(
+            f"seq_admit_{batch}", inner, (carries_s, carries_b, idx),
+            warm=True)
+
+    def warmup(self):
+        """Build the whole program set — every (batch, length) prefill
+        cell, every admission width, and the one decode step — so no
+        serve-time dispatch ever builds one (on the card: captures every
+        graph). Called by ``ServingEngine.register``; idempotent (a
+        rebuild is a cache hit)."""
+        self._program_step()
+        for b in self.config.batch_ladder():
+            self._program_admit(b)
+            for l in self.config.length_ladder():
+                self._program_prefill(b, l)
+        with self._lock:
+            self._warmed = True
+
+    # -- submit side -------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: Optional[int] = None,
+               eos: Any = "__config__",
+               timeout_ms: Optional[float] = None) -> Future:
+        """Enqueue one generation request; the Future resolves to a 1-D
+        int32 array of generated tokens (eos inclusive when hit).
+
+        ``prompt`` is a 1-D integer array/sequence of token ids, length
+        1..max_prompt_len. ``max_new_tokens`` may lower the config cap
+        (never raise it). ``eos`` defaults to the config's eos_token;
+        pass ``None`` to decode the full budget. Backpressure and
+        deadlines match ``DynamicBatcher.submit``: a full queue raises
+        :class:`QueueFullError`, an expired deadline fails the future
+        with :class:`DeadlineExceededError` — including **mid-decode**,
+        where the slot is evicted and freed at the next step."""
+        if self.breaker is not None:
+            self.breaker.allow()
+        p = np.asarray(prompt)
+        if p.ndim != 1 or p.shape[0] < 1:
+            raise ValueError("generate expects a 1-D, non-empty prompt of "
+                             f"token ids; got shape {tuple(p.shape)}")
+        if not np.issubdtype(p.dtype, np.integer):
+            raise ValueError("prompt token ids must be integers, got "
+                             f"dtype {p.dtype}")
+        if p.shape[0] > self.config.max_prompt_len:
+            raise ValueError(
+                f"prompt of {p.shape[0]} tokens exceeds max_prompt_len="
+                f"{self.config.max_prompt_len} for '{self.name}'")
+        p = p.astype(np.int32, copy=True)
+        cap = self.config.max_new_tokens
+        mnt = cap if max_new_tokens is None else min(int(max_new_tokens),
+                                                     cap)
+        if mnt < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {mnt}")
+        e = self.config.eos_token if eos == "__config__" else eos
+        if timeout_ms is None:
+            timeout_ms = self.config.timeout_ms
+        deadline = (None if timeout_ms is None
+                    else time.monotonic() + timeout_ms / 1e3)
+        trace = None
+        tracer = get_tracer()
+        if tracer.enabled:
+            cur = tracer.current()
+            if cur is not None:
+                trace = (cur.trace_id, cur.span_id, monotonic_s())
+        req = _SeqRequest(p, mnt, e, deadline, trace)
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError(f"sequence batcher '{self.name}' is "
+                                   "stopped")
+            if len(self._queue) >= self.config.max_queue_size:
+                if self.metrics:
+                    self.metrics.seq_rejected.inc()
+                raise QueueFullError(
+                    f"decode queue for '{self.name}' is full "
+                    f"({self.config.max_queue_size} requests) — all "
+                    f"{self.config.slots} slots busy and the backlog is "
+                    "at capacity; retry later or raise slots")
+            self._queue.append(req)
+            if self.metrics:
+                self.metrics.seq_requests.inc()
+                self.metrics.seq_queue_depth.set(len(self._queue))
+            self._work.notify()
+        return req.future
+
+    # -- decode worker -----------------------------------------------------
+
+    def _bucket_len(self, n: int) -> int:
+        for l in self.config.length_ladder():
+            if n <= l:
+                return l
+        return self.config.length_ladder()[-1]
+
+    def _bucket_batch(self, n: int) -> int:
+        for b in self.config.batch_ladder():
+            if n <= b:
+                return b
+        return self.config.batch_ladder()[-1]
+
+    def _finish(self, rec: SlotRecord, reason: str):
+        now = time.monotonic()
+        _resolve(rec.request.future, result=rec.result())
+        if self.breaker is not None:
+            self.breaker.record(True)
+        if self.metrics:
+            self.metrics.seq_evicted(reason).inc()
+            self.metrics.seq_tokens.inc(len(rec.tokens))
+            self.metrics.seq_latency.observe(now - rec.request.t_enqueue)
+            if rec.t_first_token is not None:
+                self.metrics.seq_ttft.observe(
+                    rec.t_first_token - rec.request.t_enqueue)
+
+    def _fail_live(self, slots: DecodeSlots, err, reason: str):
+        for _i, rec in slots.evict_all():
+            _resolve(rec.request.future, error=err)
+            if self.metrics:
+                self.metrics.seq_evicted(reason).inc()
+                self.metrics.errors.inc()
+
+    def _loop(self, gen: int):
+        try:
+            self._loop_inner(gen)
+        except _chaos.FlushThreadDeath:
+            raise  # chaos escape: the watchdog must see a dead thread
+        except Exception:  # pragma: no cover - defensive
+            import logging
+            logging.getLogger("analytics_zoo_tpu_torch").exception(
+                "decode worker of '%s' crashed", self.name)
+            raise
+
+    def _loop_inner(self, gen: int):
+        cfg = self.config
+        S = cfg.slots
+        slots = DecodeSlots(S)
+        with self._lock:
+            if self._gen != gen:
+                return
+            self._slots = slots
+        # programs + params snapshot, fetched once per worker
+        # generation: a restart (or hot reload bumping the model
+        # generation) re-fetches, so a replacement thread always decodes
+        # with the current weights and fresh device state. A (batch,
+        # length) cell's prefill and admission programs are looked up at
+        # its first wave and held here, so later waves build no key and
+        # allocate no example carries.
+        step_fn = params = mstate = None
+        wave_fns: Dict[Tuple[int, int], Tuple[Any, Any]] = {}
+        slot_carries = None
+        tokens = np.zeros((S,), dtype=np.int32)
+        while True:
+            with self._lock:
+                if self._gen != gen:
+                    return  # superseded by restart_worker
+                stopping = self._stopped
+                if stopping and not self._drain_on_stop:
+                    while self._queue:
+                        r = self._queue.popleft()
+                        _resolve(r.future, error=RuntimeError(
+                            f"sequence batcher '{self.name}' stopped"))
+                if stopping and not self._queue and slots.live == 0:
+                    return
+                if not self._queue and slots.live == 0 and not stopping:
+                    self._heartbeat = time.monotonic()
+                    self._work.wait(timeout=0.1)
+                    continue
+                self._heartbeat = time.monotonic()
+                now = time.monotonic()
+                # shed queued requests whose deadline already passed
+                expired = [r for r in self._queue
+                           if r.deadline is not None and r.deadline < now]
+                for r in expired:
+                    self._queue.remove(r)
+                    _resolve(r.future, error=DeadlineExceededError(
+                        f"deadline expired before '{self.name}' could "
+                        "admit the request into a decode slot"))
+                    if self.metrics:
+                        self.metrics.timeouts.inc()
+                # gather one admission wave: same length bucket as the
+                # oldest queued request, up to the free-slot count
+                admit: List[_SeqRequest] = []
+                if self._queue and slots.free > 0:
+                    lb = self._bucket_len(self._queue[0].prompt.shape[0])
+                    cap_n = min(slots.free, cfg.max_prefill_batch)
+                    keep: List[_SeqRequest] = []
+                    while self._queue and len(admit) < cap_n:
+                        r = self._queue.popleft()
+                        if self._bucket_len(r.prompt.shape[0]) == lb:
+                            admit.append(r)
+                        else:
+                            keep.append(r)
+                    # non-matching requests keep their arrival order
+                    self._queue.extendleft(reversed(keep))
+                self._admitting = admit
+                if self.metrics:
+                    self.metrics.seq_queue_depth.set(len(self._queue))
+            t0 = monotonic_s()
+            _chaos.serving_chaos("flush_thread_dies", self.chaos_tag)
+            if step_fn is None:
+                step_fn, params, mstate = self._program_step()
+                slot_carries = self._net.seq_init_carries(S, self._device())
+            evicted = 0
+            try:
+                if admit:
+                    lb = self._bucket_len(admit[0].prompt.shape[0])
+                    bb = self._bucket_batch(len(admit))
+                    fns = wave_fns.get((bb, lb))
+                    if fns is None:
+                        fns = wave_fns[(bb, lb)] = (
+                            self._program_prefill(bb, lb)[0],
+                            self._program_admit(bb)[0])
+                    prefill_fn, admit_fn = fns
+                    lease = self._staging.checkout(bb, lb)
+                    src, mask = lease
+                    src[:] = 0
+                    mask[:] = 0.0
+                    idx = np.full((bb,), S, dtype=np.int32)  # S == drop
+                    free = slots.free_indices()
+                    for i, r in enumerate(admit):
+                        n = r.prompt.shape[0]
+                        src[i, :n] = r.prompt
+                        mask[i, :n] = 1.0
+                        idx[i] = free[i]
+                    _chaos.serving_chaos("predict_slow", self.chaos_tag)
+                    new_carries = prefill_fn(params, mstate, src, mask)
+                    slot_carries = admit_fn(params, mstate, slot_carries,
+                                            new_carries, idx)
+                    self._staging.release(lease)
+                    for i, r in enumerate(admit):
+                        slot = int(idx[i])
+                        slots.admit(slot, SlotRecord(
+                            r, r.max_new_tokens, r.eos, r.deadline))
+                        tokens[slot] = cfg.start_token
+                    if self.metrics:
+                        self.metrics.seq_prefills.inc()
+                    admit = []
+                if slots.live:
+                    _chaos.serving_chaos("predict_raises", self.chaos_tag)
+                    slot_carries, next_tok = step_fn(
+                        params, mstate, slot_carries, tokens)
+                    nxt = next_tok.cpu().numpy()
+                    now = time.monotonic()
+                    for i, rec in slots.live_items():
+                        if (rec.deadline is not None
+                                and rec.deadline < now):
+                            if slots.evict(i) is None:
+                                continue  # raced a restart's evict_all
+                            evicted += 1
+                            _resolve(rec.request.future,
+                                     error=DeadlineExceededError(
+                                         f"deadline expired mid-decode on "
+                                         f"'{self.name}' after "
+                                         f"{len(rec.tokens)} tokens — slot "
+                                         "evicted"))
+                            if self.metrics:
+                                self.metrics.seq_evicted("deadline").inc()
+                                self.metrics.timeouts.inc()
+                            continue
+                        tokens[i] = nxt[i]
+                        if rec.append(int(nxt[i])):
+                            if slots.evict(i) is None:
+                                continue  # raced a restart's evict_all
+                            evicted += 1
+                            reason = ("eos" if rec.eos is not None
+                                      and rec.tokens[-1] == rec.eos
+                                      else "max_new_tokens")
+                            self._finish(rec, reason)
+                    if self.metrics:
+                        self.metrics.seq_decode_steps.inc()
+                        self.metrics.seq_occupancy.observe(
+                            slots.live / float(S))
+            except _chaos.FlushThreadDeath:
+                raise
+            except Exception as e:  # noqa: BLE001 — fail slots, not loop
+                # a step/prefill fault poisons every live carry row (the
+                # whole pytree came from one failed dispatch), so all
+                # live slots fail together — exactly a batch flush
+                # failure's blast radius — and the device state resets
+                if admit:
+                    for r in admit:
+                        _resolve(r.future, error=e)
+                        if self.metrics:
+                            self.metrics.errors.inc()
+                self._fail_live(slots, e, "error")
+                if self.breaker is not None:
+                    self.breaker.record(False)
+                slot_carries = self._net.seq_init_carries(S, self._device())
+                tokens[:] = 0
+            with self._lock:
+                if self._gen == gen:
+                    self._admitting = []
+            if self.metrics:
+                self.metrics.seq_slots_live.set(slots.live)
+            tracer = get_tracer()
+            if tracer.enabled:
+                tid = None
+                for _i, rec in slots.live_items():
+                    if rec.request.trace is not None:
+                        tid = rec.request.trace[0]
+                        break
+                tracer.record_span(
+                    "serving.decode_step", tid or new_trace_id(),
+                    t0, monotonic_s(), model=self.name,
+                    live=str(slots.live), evicted=str(evicted))
+
+    # -- lifecycle ---------------------------------------------------------
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for a decode slot (not yet admitted)."""
+        with self._lock:
+            return len(self._queue)
+
+    @property
+    def pending_requests(self) -> int:
+        """Queued + live-in-a-slot — what a drain waits to reach zero."""
+        with self._lock:
+            return len(self._queue) + self._slots.live
+
+    def check_flush_thread(self, stall_s: float = 30.0) -> Optional[str]:
+        """Watchdog probe, same contract as ``DynamicBatcher``: restart
+        the decode worker when dead or wedged; returns the reason or
+        None."""
+        with self._lock:
+            if self._stopped:
+                return None
+            if not self._worker.is_alive():
+                reason = "died"
+            else:
+                busy = bool(self._queue) or self._slots.live > 0
+                stale = time.monotonic() - self._heartbeat > stall_s
+                if not (busy and stale):
+                    return None
+                reason = "wedged"
+        self.restart_worker(reason)
+        return reason
+
+    def restart_worker(self, reason: str = "manual") -> None:
+        """Replace the decode worker, failing only in-flight slots.
+
+        The old thread cannot be killed; the generation token is bumped
+        so it exits at its next check, and every slot it held fails with
+        :class:`FlushThreadRestartedError` (their carry rows die with
+        the old worker's device state — a wedged thread's eventual late
+        writes no-op against already-failed futures). Queued requests
+        are untouched: the replacement thread builds no program (programs
+        are cached), makes fresh device state and admits them. No-op on
+        a stopped batcher."""
+        with self._lock:
+            if self._stopped:
+                return
+            self._gen += 1
+            gen = self._gen
+            # dedup by future: an admission-wave request may already sit
+            # in a slot too (the wave stays marked until end of iteration)
+            doomed = {id(rec.request.future): rec.request.future
+                      for _i, rec in self._slots.evict_all()}
+            for r in self._admitting:
+                doomed.setdefault(id(r.future), r.future)
+            self._admitting = []
+            self._heartbeat = time.monotonic()
+            if doomed:
+                err = FlushThreadRestartedError(
+                    f"decode worker of '{self.name}' restarted ({reason}) "
+                    "with this request live in a slot")
+                for fut in doomed.values():
+                    _resolve(fut, error=err)
+            if self.metrics:
+                if doomed:
+                    self.metrics.errors.inc(len(doomed))
+                    self.metrics.seq_evicted("restart").inc(len(doomed))
+                self.metrics.watchdog_restarts.inc()
+            self._worker = threading.Thread(
+                target=self._loop, args=(gen,), daemon=True,
+                name=f"zoo-seq-{self.name}-g{gen}")
+            self._worker.start()
+            self._work.notify_all()
+        tracer = get_tracer()
+        if tracer.enabled:
+            t = monotonic_s()
+            tracer.record_span("serving.watchdog_restart",
+                               new_trace_id(), t, t,
+                               model=self.name, reason=reason)
+        # a decode-worker restart is an anomaly worth a ring snapshot:
+        # the doomed requests' records are still in the flight ring
+        get_flight_recorder().trigger("watchdog_restart")
+
+    def stop(self, drain: bool = True, timeout: Optional[float] = 30.0):
+        """Stop the decode worker. ``drain=True`` (default) finishes the
+        queue and every live slot first; ``drain=False`` fails queued
+        futures immediately (live slots still run to completion — a
+        decode cannot be preempted mid-token)."""
+        with self._lock:
+            self._stopped = True
+            self._drain_on_stop = drain
+            self._work.notify_all()
+        self._worker.join(timeout=timeout)

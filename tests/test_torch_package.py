@@ -18,7 +18,7 @@ from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "analytics_zoo_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _forbidden(module: str) -> bool:
@@ -60,6 +60,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import analytics_zoo_tpu_torch.keras.layers.embeddings\n"
             "import analytics_zoo_tpu_torch.models.common\n"
             "import analytics_zoo_tpu_torch.models.recommendation\n"
+            "import analytics_zoo_tpu_torch.models.seq2seq\n"
+            "import analytics_zoo_tpu_torch.models.textclassification\n"
+            "import analytics_zoo_tpu_torch.keras.layers.recurrent\n"
+            "import analytics_zoo_tpu_torch.serving.sequence\n"
             "import analytics_zoo_tpu_torch.predictor\n"
             "import analytics_zoo_tpu_torch.serving\n"
             "import analytics_zoo_tpu_torch.serving.fabric.coopcache\n"

@@ -17,7 +17,8 @@
   shapes the forward may pick other kernels, so only a stated tolerance
   holds there).
 - Host behaviour through the engine: an oversize request split, a full
-  queue, a deadline, and the surfaces the port has not ported yet.
+  queue, a deadline, the surfaces the port has not ported yet, and what
+  generation raises on a model it cannot serve.
 """
 
 import json
@@ -313,16 +314,30 @@ def test_engine_host_behaviour_split_queue_full_deadline():
                                   "watch_checkpoints", "sequence",
                                   "sharding_plan", "stage_plan"])
 def test_unported_surfaces_raise_naming_the_roadmap(call):
+    """``watch_checkpoints`` and the sharding and stage plans are not
+    ported and raise naming their ROADMAP items. Generation is ported
+    (``tests/test_torch_sequence_serving.py`` drives it); its cases here
+    hold what it raises on a model it cannot serve: ``generate`` and
+    ``generate_async`` of an unregistered name raise the registry miss,
+    and ``register(sequence=)`` of a model without the decode contract
+    raises ``TypeError``. Either way the engine stays empty."""
     engine = port_serving.ServingEngine()
     ex = np.zeros((1, 3), np.float32)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A[578]"):
-            if call in ("generate", "generate_async"):
+        if call in ("generate", "generate_async"):
+            with pytest.raises(port_serving.ModelNotFoundError):
                 getattr(engine, call)("m", [1, 2])
-            elif call == "watch_checkpoints":
-                engine.watch_checkpoints("m", "/nonexistent", None, ex)
-            else:
-                engine.register("m", object(), ex, **{call: object()})
+        elif call == "sequence":
+            plain = type("Plain", (), {"do_predict": lambda self, x: x})()
+            with pytest.raises(TypeError, match="seq_init_carries"):
+                engine.register("m", plain, ex,
+                                sequence=port_serving.SequenceConfig())
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP A[78]"):
+                if call == "watch_checkpoints":
+                    engine.watch_checkpoints("m", "/nonexistent", None, ex)
+                else:
+                    engine.register("m", object(), ex, **{call: object()})
         assert engine.model_names() == []
     finally:
         engine.shutdown()

@@ -4,8 +4,8 @@ and ``traceparent`` adoption and echo, the debug routes) held alike in the
 JAX package and the port (every shared case runs once per package, on a
 host model), the ``/metrics`` family names of the two engines after the
 same traffic, and what only the port's layer does: columnar JSON for
-multi-input models, 501 for the unported ``:generate``, and the
-cooperative-cache peek through its own tree codec.
+multi-input models, ``:generate`` on a model without sequence serving,
+and the cooperative-cache peek through its own tree codec.
 
 Every HTTP call has its own timeout; no case sleeps on a guess."""
 
@@ -312,6 +312,10 @@ def port_server():
 
 
 def test_port_generate_is_501_and_cache_peek_uses_its_codec(port_server):
+    """``:generate`` is ported: on a model registered without
+    ``sequence=`` it answers 400 naming sequence serving (no longer 501;
+    ``tests/test_torch_sequence_serving.py`` serves it), and the result
+    cache never saw it. The cache peek goes through the port's codec."""
     from analytics_zoo_tpu_torch.serving.fabric.coopcache import (
         TREE_CONTENT_TYPE,
         decode_tree,
@@ -322,8 +326,9 @@ def test_port_generate_is_501_and_cache_peek_uses_its_codec(port_server):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(f"{base}/v1/models/dbl:generate",
               json.dumps({"prompts": [[1, 2]]}).encode())
-    assert e.value.code == 501
-    assert "ROADMAP A5" in json.loads(e.value.read())["error"]
+    assert e.value.code == 400
+    assert "register with sequence=" in json.loads(e.value.read())["error"]
+    assert engine.result_cache.stats()["misses"] == 0
     _, h, _ = _post(f"{base}/v1/models/dbl:predict", _payload())
     assert h["X-Zoo-Cache"] == "miss"
     key = ResultCache.key("dbl", "1", [np.asarray([[1.0, 2.0, 3.0]])])
