@@ -47,6 +47,9 @@ class NNContext:
         # (the JAX package's f32 numerics are the reference).
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # one device per process: the data-parallel mesh (ROADMAP A7) is
+        # not ported, so batch geometry divides by 1 on a card or the CPU
+        self.num_devices = 1
         self.default_dtype = _torch_dtype(self.conf.default_dtype)
         self.param_dtype = _torch_dtype(self.conf.param_dtype)
         # A CPU generator: the same seed gives the same weights whichever

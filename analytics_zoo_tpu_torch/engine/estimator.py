@@ -180,6 +180,13 @@ class Estimator:
     ``ensure_params``/``params``, ``apply(params, state, x, training, rng)``,
     ``layers()`` and ``regularization(params)`` (``KerasNet`` does)."""
 
+    # True: each train step also records the host seconds spent producing
+    # its batch (``batch_seconds``) and, on the card, a CUDA event after
+    # the step's launch (``step_events``), without a host sync. Set on the
+    # class, it reaches the estimators that nnframes, tfpark and
+    # ``KerasNet`` create.
+    time_steps = False
+
     def __init__(self, model, optim_method: Optional[
                      GradientTransformation] = None,
                  model_dir: Optional[str] = None, zero1: bool = False,
@@ -212,6 +219,8 @@ class Estimator:
         # every step's loss, in order (read at epoch ends): the series the
         # train summary records as "Loss"
         self.train_losses: List[float] = []
+        self.batch_seconds: List[float] = []
+        self.step_events: List[Any] = []
 
     # -- configuration ---------------------------------------------------
 
@@ -568,6 +577,16 @@ class Estimator:
             yield self._to_device(x), self._to_device(y), torch.tensor(
                 mask, device=dev)
 
+    def _timed(self, batches):
+        """``batches``, recording the host seconds each took to produce."""
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return
+            self.batch_seconds.append(time.perf_counter() - t0)
+            yield batch
+
     # -- training loop ---------------------------------------------------
 
     def train(self, train_set, criterion: Callable,
@@ -615,9 +634,16 @@ class Estimator:
                 losses = []  # device scalars, read once at the epoch's end
                 # > 0 only right after a mid-epoch resume: the batches of
                 # this epoch (order fixed by seed=epoch) already taken
-                for xs, y, mask in self._batches(train_set, batch_size,
-                                                 rs.epoch, rs.epoch_step):
+                batches = self._batches(train_set, batch_size, rs.epoch,
+                                        rs.epoch_step)
+                if self.time_steps:
+                    batches = self._timed(batches)
+                for xs, y, mask in batches:
                     self.tstate, loss = step(self.tstate, xs, y, mask)
+                    if self.time_steps and self.ctx.device.type == "cuda":
+                        self.step_events.append(
+                            torch.cuda.Event(enable_timing=True))
+                        self.step_events[-1].record()
                     rs.iteration += 1
                     rs.epoch_step += 1
                     losses.append(loss)

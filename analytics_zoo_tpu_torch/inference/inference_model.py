@@ -44,8 +44,10 @@ compile surface) are the same executables over argument pytrees, keyed
 (prefill -> admit -> step -> step), and integer tensors keep their dtype
 (int32 tokens stay int32).
 
-Quantization and calibration, sharding and stage plans, the AOT cache and
-the TF/ONNX loaders are not ported yet (ROADMAP A4).
+Quantization and calibration (``do_quantize`` and ``do_calibrate`` raise,
+so the catalog's ``-quantize`` models serve in float), sharding and stage
+plans, the AOT cache and the TF/ONNX loaders are not ported yet (ROADMAP
+A4).
 """
 
 from __future__ import annotations
@@ -288,6 +290,20 @@ class InferenceModel:
         self._pool_graphs: "weakref.WeakSet[_GraphProgram]" = \
             weakref.WeakSet()
         self._stream = None
+
+    # -- int8 (not ported) ------------------------------------------------
+
+    def do_calibrate(self, batches) -> "InferenceModel":
+        """Post-training static int8: not ported yet."""
+        raise NotImplementedError(
+            "do_calibrate: int8 inference waits for ROADMAP A4 "
+            "(inference/calibration.py)")
+
+    def do_quantize(self) -> "InferenceModel":
+        """Weight-only int8: not ported yet."""
+        raise NotImplementedError(
+            "do_quantize: int8 inference waits for ROADMAP A4 "
+            "(inference/calibration.py)")
 
     # -- loaders -----------------------------------------------------------
 

@@ -13,12 +13,14 @@ from analytics_zoo_tpu_torch.keras.layers.convolutional import (
     AveragePooling2D,
     Convolution1D,
     Convolution2D,
+    DepthwiseConvolution2D,
     GlobalAveragePooling1D,
     GlobalAveragePooling2D,
     GlobalMaxPooling1D,
     GlobalMaxPooling2D,
     MaxPooling1D,
     MaxPooling2D,
+    SeparableConvolution2D,
     ZeroPadding2D,
 )
 from analytics_zoo_tpu_torch.keras.layers.core import (

@@ -1,6 +1,7 @@
 """Convolution and pooling layers (port of
 ``analytics_zoo_tpu.keras.layers.convolutional``: ``Convolution1D`` and
-``Convolution2D``, 1-D and 2-D max and average pooling, global pooling
+``Convolution2D``, ``SeparableConvolution2D`` and
+``DepthwiseConvolution2D``, 1-D and 2-D max and average pooling, global pooling
 (``GlobalAveragePooling1D`` with its masked mean over the valid steps of
 an ``[x, mask]`` pair) and ``ZeroPadding2D``).
 
@@ -29,6 +30,12 @@ stride)``, and the low side gets ``total // 2``. Where the two sides differ
 padded explicitly: PyTorch's symmetric ``padding=`` would give the same
 output shape with windows shifted by one. Max pooling pads with -inf;
 average pooling divides each window by its count of real elements.
+
+The depthwise convolution keeps the JAX package's weight layout too:
+``depthwise`` is (kh, kw, 1, C*m) for C input channels and depth
+multiplier m, ``pointwise`` (1, 1, C*m, F). XLA's ``feature_group_count=C``
+gives output channel ``o`` the group ``o // m``, and so does PyTorch's
+``groups=C`` convolution over the weight permuted to (C*m, 1, kh, kw).
 """
 
 from __future__ import annotations
@@ -223,6 +230,125 @@ class Convolution2D(_ConvND):
                 f"and later options by keyword (got nb_row={nb_row!r}, "
                 f"nb_col={nb_col!r})")
         super().__init__(nb_filter, kernel, **kw)
+
+
+def _depthwise_apply(x, kernel, bias, strides, border_mode, ordering,
+                     in_ch):
+    """Grouped convolution with one group per input channel: the shared
+    depthwise core of SeparableConvolution2D and DepthwiseConvolution2D.
+    ``kernel`` is (kh, kw, 1, in_ch * m); ``bias`` (in_ch * m,) or None."""
+    k = tuple(kernel.shape[:2])
+    x, padding = _padding(x, border_mode, k, strides, (1, 1), ordering)
+    x, fmt = _conv_input(x, ordering)
+    # (kh, kw, 1, C*m) -> (C*m, 1, kh, kw), in the activations' format
+    w = kernel.permute(3, 2, 0, 1).contiguous(memory_format=fmt)
+    y = F.conv2d(x, w, bias, stride=strides, padding=padding, groups=in_ch)
+    return _from_nchw(y, ordering)
+
+
+class _DepthwiseBase(KerasLayer):
+    """What the two depthwise layers share: options, the input channels
+    and the output's spatial shape."""
+
+    def __init__(self, kernel_size, subsample, depth_multiplier, activation,
+                 border_mode, dim_ordering, init, bias, input_shape, name):
+        super().__init__(input_shape, name)
+        self.kernel_size = _tuple(kernel_size, 2)
+        self.subsample = _tuple(subsample, 2)
+        self.depth_multiplier = int(depth_multiplier)
+        self.activation = get_activation(activation)
+        if border_mode not in ("valid", "same"):
+            raise ValueError(
+                f"border_mode must be valid|same, got {border_mode}")
+        self.border_mode = border_mode
+        self.dim_ordering = dim_ordering
+        self.init = init
+        self.bias = bias
+
+    def _in_channels(self, input_shape: Shape) -> int:
+        return input_shape[1] if self.dim_ordering == "th" else \
+            input_shape[-1]
+
+    def _output_shape(self, input_shape: Shape, channels: int) -> Shape:
+        spatial = (input_shape[2:] if self.dim_ordering == "th"
+                   else input_shape[1:-1])
+        out = tuple(_conv_out_dim(s, k, st, self.border_mode)
+                    for s, k, st in zip(spatial, self.kernel_size,
+                                        self.subsample))
+        if self.dim_ordering == "th":
+            return (input_shape[0], channels) + out
+        return (input_shape[0],) + out + (channels,)
+
+    def _depthwise(self, params, x, bias=None):
+        return _depthwise_apply(x, params["depthwise"], bias, self.subsample,
+                                self.border_mode, self.dim_ordering,
+                                self.in_ch)
+
+
+class SeparableConvolution2D(_DepthwiseBase):
+    """Depthwise then pointwise convolution (ref
+    SeparableConvolution2D.scala): leaves ``depthwise`` (kh, kw, 1, C*m),
+    ``pointwise`` (1, 1, C*m, nb_filter) and ``bias``."""
+
+    def __init__(self, nb_filter, nb_row, nb_col, subsample=(1, 1),
+                 depth_multiplier=1, activation=None, border_mode="valid",
+                 dim_ordering="th", init="glorot_uniform", bias=True,
+                 input_shape=None, name=None):
+        super().__init__((nb_row, nb_col), subsample, depth_multiplier,
+                         activation, border_mode, dim_ordering, init, bias,
+                         input_shape, name)
+        self.nb_filter = int(nb_filter)
+
+    def build(self, input_shape: Shape):
+        self.in_ch = self._in_channels(input_shape)
+        mid = self.in_ch * self.depth_multiplier
+        self.add_weight("depthwise", self.kernel_size + (1, mid), self.init)
+        self.add_weight("pointwise", (1, 1, mid, self.nb_filter), self.init)
+        if self.bias:
+            self.add_weight("bias", (self.nb_filter,), "zeros")
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        return self._output_shape(input_shape, self.nb_filter)
+
+    def call(self, params, x, **kw):
+        y, fmt = _conv_input(self._depthwise(params, x), self.dim_ordering)
+        # the pointwise (1, 1, C*m, F) -> (F, C*m, 1, 1)
+        w = params["pointwise"].permute(3, 2, 0, 1).contiguous(
+            memory_format=fmt)
+        y = F.conv2d(y, w, params["bias"] if self.bias else None)
+        return self.activation(_from_nchw(y, self.dim_ordering))
+
+
+class DepthwiseConvolution2D(_DepthwiseBase):
+    """Depthwise-only convolution (one filter stack per input channel):
+    MobileNet-v2's inverted residuals put batch norm and ReLU6 between the
+    depthwise and the projecting convolution. Leaves ``depthwise`` (kh, kw,
+    1, C*m) and ``bias`` (C*m,)."""
+
+    def __init__(self, kernel_size=3, subsample=(1, 1), depth_multiplier=1,
+                 activation=None, border_mode="valid", dim_ordering="th",
+                 init="glorot_uniform", bias=True, input_shape=None,
+                 name=None):
+        super().__init__(kernel_size, subsample, depth_multiplier,
+                         activation, border_mode, dim_ordering, init, bias,
+                         input_shape, name)
+
+    def build(self, input_shape: Shape):
+        self.in_ch = self._in_channels(input_shape)
+        self.out_ch = self.in_ch * self.depth_multiplier
+        self.add_weight("depthwise", self.kernel_size + (1, self.out_ch),
+                        self.init)
+        if self.bias:
+            self.add_weight("bias", (self.out_ch,), "zeros")
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        return self._output_shape(
+            input_shape, self._in_channels(input_shape)
+            * self.depth_multiplier)
+
+    def call(self, params, x, **kw):
+        return self.activation(self._depthwise(
+            params, x, params["bias"] if self.bias else None))
 
 
 # ---------------------------------------------------------------------------
