@@ -394,7 +394,7 @@ class InferenceModel:
             _kernels.compiled(time.perf_counter() - t0)
         return exe
 
-    def _get_executable(self, key, inner, example_args, label):
+    def _get_executable(self, key, inner, example_args, label, cast=True):
         # Snapshot (model, params, state, gen) in ONE lock acquisition so a
         # build never sees a torn combination; build outside the lock so a
         # new shape does not stall concurrent predicts of built ones.
@@ -409,6 +409,8 @@ class InferenceModel:
             else:
                 self.cache_stats["misses"] += 1
             snap = None if fn is not None else self._snapshot()
+        if snap is not None and not cast:
+            snap.dtype = None  # the arguments keep their float32
         inference_cache_counters()["hits" if fn is not None
                                    else "misses"].inc()
         tracer = get_tracer()
@@ -503,7 +505,7 @@ class InferenceModel:
             for a in leaves)
 
     def compile_program(self, tag: str, inner, example_args,
-                        warm: bool = False):
+                        warm: bool = False, cast: bool = True):
         """Build (or fetch) the executable of ``inner(params, model_state,
         *args)`` for ``example_args``' signature (shapes, dtypes and
         structure; values do not matter): the sequence tier's prefill,
@@ -516,13 +518,16 @@ class InferenceModel:
         On the card the program is a CUDA graph (:class:`_GraphProgram`);
         a capture that fails raises, nothing is cached, and there is no
         eager fallback. Float32 argument leaves are cast to the compute
-        dtype and floating outputs come back float32.
+        dtype (``cast=False``: they stay float32, as a detector's
+        post-process over its forward's float32 output needs; ``tag``
+        names one program, so one tag keeps one ``cast``) and floating
+        outputs come back float32.
 
         Returns ``(program, params, model_state)``; call
         ``program(params, model_state, *args)``."""
         key = ("__prog__", tag, self._args_key(example_args))
         fn = self._get_executable(key, inner, example_args,
-                                  f"{tag}:{key[2][1:]}")
+                                  f"{tag}:{key[2][1:]}", cast)
         if warm:
             self._note_warmed(key)
         return fn, fn.snap.params, fn.snap.state

@@ -9,6 +9,7 @@ from analytics_zoo_tpu_torch.keras.layers.attention import (
     TransformerLayer,
 )
 from analytics_zoo_tpu_torch.keras.layers.convolutional import (
+    AtrousConvolution2D,
     AveragePooling1D,
     AveragePooling2D,
     Convolution1D,
@@ -21,6 +22,7 @@ from analytics_zoo_tpu_torch.keras.layers.convolutional import (
     MaxPooling1D,
     MaxPooling2D,
     SeparableConvolution2D,
+    UpSampling2D,
     ZeroPadding2D,
 )
 from analytics_zoo_tpu_torch.keras.layers.core import (
@@ -29,6 +31,7 @@ from analytics_zoo_tpu_torch.keras.layers.core import (
     Dropout,
     Flatten,
     Merge,
+    Reshape,
     get_activation,
     merge,
 )

@@ -1,9 +1,10 @@
 """Convolution and pooling layers (port of
 ``analytics_zoo_tpu.keras.layers.convolutional``: ``Convolution1D`` and
-``Convolution2D``, ``SeparableConvolution2D`` and
-``DepthwiseConvolution2D``, 1-D and 2-D max and average pooling, global pooling
-(``GlobalAveragePooling1D`` with its masked mean over the valid steps of
-an ``[x, mask]`` pair) and ``ZeroPadding2D``).
+``Convolution2D``, ``AtrousConvolution2D`` (dilated),
+``SeparableConvolution2D`` and ``DepthwiseConvolution2D``, 1-D and 2-D max
+and average pooling, global pooling (``GlobalAveragePooling1D`` with its
+masked mean over the valid steps of an ``[x, mask]`` pair),
+``ZeroPadding2D`` and ``UpSampling2D``).
 
 1-D layers take (batch, steps, dim) ("tf", the default of the 1-D layers
 as in the JAX package) or (batch, dim, steps) ("th"); they run as
@@ -230,6 +231,17 @@ class Convolution2D(_ConvND):
                 f"and later options by keyword (got nb_row={nb_row!r}, "
                 f"nb_col={nb_col!r})")
         super().__init__(nb_filter, kernel, **kw)
+
+
+class AtrousConvolution2D(Convolution2D):
+    """Ref AtrousConvolution2D: a ``Convolution2D`` with dilation
+    ``atrous_rate``. SAME padding counts the dilated kernel, (k - 1) * d +
+    1 taps wide (``_same_pads``): SSD's fc6, 3x3 at dilation 6 on 19x19,
+    pads 6 on each side."""
+
+    def __init__(self, nb_filter, nb_row, nb_col, atrous_rate=(1, 1), **kw):
+        super().__init__(nb_filter, (nb_row, nb_col), dilation=atrous_rate,
+                         **kw)
 
 
 def _depthwise_apply(x, kernel, bias, strides, border_mode, ordering,
@@ -531,3 +543,27 @@ class ZeroPadding2D(KerasLayer):
 
     def call(self, params, x, **kw):
         return _pad(x, self.padding, self.dim_ordering)
+
+
+class UpSampling2D(KerasLayer):
+    """Nearest-neighbour upsampling: each row repeated ``size[0]`` times
+    and each column ``size[1]`` times (PVANet's HyperNet fusion)."""
+
+    def __init__(self, size=(2, 2), dim_ordering="th", input_shape=None,
+                 name=None):
+        super().__init__(input_shape, name)
+        self.size = _tuple(size, 2)
+        self.dim_ordering = dim_ordering
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        axes = (2, 3) if self.dim_ordering == "th" else (1, 2)
+        out = list(input_shape)
+        for ax, m in zip(axes, self.size):
+            out[ax] = None if out[ax] is None else out[ax] * m
+        return tuple(out)
+
+    def call(self, params, x, **kw):
+        axes = (2, 3) if self.dim_ordering == "th" else (1, 2)
+        for ax, m in zip(axes, self.size):
+            x = torch.repeat_interleave(x, m, dim=ax)
+        return x

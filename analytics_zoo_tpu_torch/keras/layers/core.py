@@ -1,11 +1,11 @@
 """Core layers (port of ``analytics_zoo_tpu.keras.layers.core``): the
-activation table, ``Activation``, ``Dense``, ``Dropout``, ``Flatten`` and
-``Merge``/``merge``."""
+activation table, ``Activation``, ``Dense``, ``Dropout``, ``Flatten``,
+``Reshape`` and ``Merge``/``merge``."""
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List
+from typing import Callable, List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -122,6 +122,29 @@ class Flatten(KerasLayer):
 
     def call(self, params, x, **kw):
         return x.reshape(x.shape[0], -1)
+
+
+class Reshape(KerasLayer):
+    """Ref keras/layers/Reshape.scala: ``target_shape`` excludes the batch;
+    one dim may be -1 (inferred). It reshapes the logical tensor in its
+    own layout (NHWC for "tf" ordering), row-major, so SSD's heads flatten
+    (B, f, f, k * 4) into (B, f * f * k, 4) in (row, column, box) order."""
+
+    def __init__(self, target_shape: Sequence[int], input_shape=None,
+                 name=None):
+        super().__init__(input_shape, name)
+        self.target_shape = tuple(int(d) for d in target_shape)
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        tgt = list(self.target_shape)
+        if -1 in tgt:
+            known = math.prod(d for d in tgt if d != -1)
+            tgt[tgt.index(-1)] = math.prod(input_shape[1:]) // known
+        return (input_shape[0],) + tuple(tgt)
+
+    def call(self, params, x, **kw):
+        return x.reshape((x.shape[0],) + self.compute_output_shape(
+            (None,) + tuple(x.shape[1:]))[1:])
 
 
 class Merge(KerasLayer):

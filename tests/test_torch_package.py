@@ -69,6 +69,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import analytics_zoo_tpu_torch.serving.fabric.coopcache\n"
             "import analytics_zoo_tpu_torch.common.profiling\n"
             "import analytics_zoo_tpu_torch.common.slo\n"
+            "import analytics_zoo_tpu_torch.models.image.objectdetection\n"
+            "import analytics_zoo_tpu_torch.models.image.objectdetection.frcnn\n"
+            "import analytics_zoo_tpu_torch.data.roi\n"
+            "import analytics_zoo_tpu_torch.ops.bbox\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'analytics_zoo_tpu.'))]\n"
             "assert not bad and 'analytics_zoo_tpu' not in sys.modules, bad\n")
