@@ -17,13 +17,20 @@ device cache) is a per-batch function the Estimator applies to ``x`` on the
 device: uint8 pixels cross to and stay on the card as uint8 and are
 normalised per batch there. Float64 arrays reach the device as float32,
 as in the JAX package. A resumed epoch skips its first batches in the
-Estimator. Streaming pipelines, multi-host windows and the row-sharded
+Estimator.
+
+``PairFeatureSet`` holds (positive, negative) rows interleaved for
+RankHinge and shuffles, pads and masks whole pairs; ``TransformedFeatureSet``
+applies a per-batch function to each host batch (``FeatureSet.transform``
+or ``>>``). ``batches`` and the pair set's ``train_batches`` take the JAX
+package's multi-host ``window``; streaming pipelines and the row-sharded
 cache are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -101,6 +108,30 @@ class FeatureSet:
             mask[:valid] = 1.0
             yield idx, mask
 
+    def batches(self, batch_size: int, shuffle: bool = True,
+                seed: int = 0, drop_remainder: bool = False,
+                window: Optional[Tuple[int, int]] = None,
+                start_step: int = 0) -> Iterator[Tuple[Any, Any]]:
+        """(x, y) batches with no mask: the tail wrap-padded (modulo, so a
+        tiny dataset still fills a batch) or dropped. ``window=(lo, hi)``
+        keeps only those rows of each batch (the JAX package's multi-host
+        contract); ``start_step`` skips the first batches without taking
+        them."""
+        n = self.num_samples
+        order = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        for start in range(start_step * batch_size, n, batch_size):
+            idx = order[start:start + batch_size]
+            if len(idx) < batch_size:
+                if drop_remainder or len(idx) == 0:
+                    return
+                pad = order[np.arange(batch_size - len(idx)) % n]
+                idx = np.concatenate([idx, pad])
+            if window is not None:
+                idx = idx[window[0]:window[1]]
+            yield self.take(idx)
+
     def train_batches(self, batch_size: int, shuffle: bool = True,
                       seed: int = 0
                       ) -> Iterator[Tuple[Any, Any, np.ndarray]]:
@@ -115,6 +146,13 @@ class FeatureSet:
         for idx, mask in self.eval_index_batches(batch_size):
             x, y = self.take(idx)
             yield x, y, mask
+
+    def transform(self, fn: Callable) -> "TransformedFeatureSet":
+        """Chain a per-batch ``fn(x, y) -> (x, y)`` (ref Preprocessing
+        ``->`` chaining)."""
+        return TransformedFeatureSet(self, fn)
+
+    __rshift__ = transform
 
 
 class ArrayFeatureSet(FeatureSet):
@@ -180,3 +218,111 @@ class DeviceCachedFeatureSet(ArrayFeatureSet):
             [a.index_select(0, idx) for a in self.device_xs],
             None if self.device_ys is None
             else [a.index_select(0, idx) for a in self.device_ys])
+
+
+class PairFeatureSet(ArrayFeatureSet):
+    """Pairwise-ranking dataset: rows are (pos, neg) interleaved, even index
+    positive and odd negative, as ``Relations.generate_relation_pairs``
+    makes them (ref feature/common/Relations.scala:92, read by RankHinge).
+
+    Shuffling and batching work on PAIR units, so the interleaving that
+    RankHinge depends on survives (the reference packs both members into
+    one Sample, TextSet.scala:398): one ``np.random.default_rng(seed)``
+    permutation of the pairs, the tail padded by whole pairs.
+    """
+
+    def __init__(self, x, y=None):
+        super().__init__(x, y)
+        if self.num_samples % 2 != 0:
+            raise ValueError("PairFeatureSet needs an even number of rows "
+                             "(pos, neg interleaved)")
+
+    @staticmethod
+    def _check_window(window):
+        """A process window must respect the (pos, neg) interleaving: both
+        bounds even, so no pair is split across processes."""
+        if window is not None and (window[0] % 2 or window[1] % 2):
+            raise ValueError(
+                f"PairFeatureSet process window {window} splits a (pos, neg) "
+                "pair; use an even per-process batch share")
+        return window
+
+    def _pair_order(self, batch_size: int, shuffle: bool, seed: int,
+                    window):
+        if batch_size % 2 != 0:
+            raise ValueError("batch_size must be even for pair batches")
+        self._check_window(window)
+        order = np.arange(self.num_samples // 2)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        return order, batch_size // 2
+
+    @staticmethod
+    def _rows(p):
+        idx = np.empty(2 * len(p), dtype=np.int64)
+        idx[0::2], idx[1::2] = 2 * p, 2 * p + 1
+        return idx
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                drop_remainder: bool = False, window=None):
+        order, per_batch = self._pair_order(batch_size, shuffle, seed,
+                                            window)
+        pairs = len(order)
+        for start in range(0, pairs, per_batch):
+            p = order[start:start + per_batch]
+            if len(p) < per_batch:
+                if drop_remainder or len(p) == 0:
+                    return
+                p = np.concatenate(
+                    [p, order[np.arange(per_batch - len(p)) % pairs]])
+            idx = self._rows(p)
+            if window is not None:
+                idx = idx[window[0]:window[1]]
+            yield self.take(idx)
+
+    def cache_device(self):
+        raise NotImplementedError(
+            "PairFeatureSet cannot be device-cached: the engine's index-batch "
+            "gather path shuffles single rows, which would destroy the "
+            "(pos, neg) interleaving RankHinge depends on")
+
+    def train_batches(self, batch_size: int, shuffle: bool = True,
+                      seed: int = 0, window=None):
+        """Pair-unit masking: a padded pair masks BOTH interleaved members,
+        the per-pair loss convention (``rank_hinge``'s per-sample form)."""
+        order, per_batch = self._pair_order(batch_size, shuffle, seed,
+                                            window)
+        pairs = len(order)
+        for start in range(0, pairs, per_batch):
+            p = order[start:start + per_batch]
+            valid = len(p)
+            if valid == 0:
+                return
+            mask = np.ones(batch_size, dtype=np.float32)
+            if valid < per_batch:
+                p = np.concatenate(
+                    [p, order[np.arange(per_batch - valid) % pairs]])
+                mask[2 * valid:] = 0.0
+            idx = self._rows(p)
+            if window is not None:
+                idx, mask = (idx[window[0]:window[1]],
+                             mask[window[0]:window[1]])
+            x, y = self.take(idx)
+            yield x, y, mask
+
+
+class TransformedFeatureSet(FeatureSet):
+    """Lazily applies a per-batch ``fn(x, y) -> (x, y)`` to the base set's
+    host batches (ref Preprocessing chain)."""
+
+    def __init__(self, base: FeatureSet, fn: Callable):
+        self.base = base
+        self.fn = fn
+        self.device_transform = base.device_transform
+
+    @property
+    def num_samples(self) -> int:
+        return self.base.num_samples
+
+    def take(self, indices: np.ndarray):
+        return self.fn(*self.base.take(indices))

@@ -496,7 +496,10 @@ class Estimator:
             pred, new_state = model.apply(cast(params), model_state,
                                           cast(xs), training=True,
                                           rng=generator)
-            pred = pred.float()
+            if isinstance(pred, torch.Tensor):
+                # a multi-output model's list stays as it is, as in the
+                # JAX package
+                pred = pred.float()
             if mask is not None and ps_criterion is not None:
                 # wrap-pad duplicates get zero loss weight
                 loss, count = _masked_mean(ps_criterion(y, pred), mask)

@@ -11,7 +11,11 @@ that the JAX package wrote (``Estimator`` checkpoints, ``save_weights``,
 recurrent layers' leaves (``W``, ``U``, ``U_h``, ``b``, ``b_rec``),
 ``Bidirectional``'s ``forward``/``backward`` pair, ``TimeDistributed``'s
 ``inner`` and ``Seq2seqNet``'s embeddings, cells, bridges and generator
-fill the same way, leaf by leaf.
+fill the same way, leaf by leaf; so do the tagging and ranking zoo: a
+CRF's ``transitions``, the char encoder's Bi-LSTM (one layer over every
+word), KNRM's shared embedding (one layer, so one leaf, filled once),
+SessionRecommender's session and history embeddings and GRUs, and the
+Dense heads.
 Nothing here imports jax: a leaf only has to convert with ``np.asarray``.
 """
 

@@ -35,6 +35,13 @@ from analytics_zoo_tpu_torch.keras.layers.core import (
     get_activation,
     merge,
 )
+from analytics_zoo_tpu_torch.keras.layers.crf import (
+    CRF,
+    crf_decode,
+    crf_log_likelihood,
+    crf_nll,
+    viterbi_decode,
+)
 from analytics_zoo_tpu_torch.keras.layers.embeddings import (
     Embedding,
     WordEmbedding,

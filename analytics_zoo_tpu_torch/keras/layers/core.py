@@ -56,6 +56,16 @@ def get_activation(act) -> Callable:
         ) from None
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the operands promoted to one dtype first, as
+    ``jnp.matmul`` promotes them: a float32 operand times a bf16 one runs
+    in float32 (torch's matmul takes one dtype)."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
 class Activation(KerasLayer):
     """An activation from the table (or a callable) as a layer."""
 
@@ -70,7 +80,8 @@ class Activation(KerasLayer):
 
 class Dense(KerasLayer):
     """Fully connected over the last dim: ``x @ kernel + bias`` with the
-    kernel in the JAX package's ``(in, out)`` layout."""
+    kernel in the JAX package's ``(in, out)`` layout; operands of two
+    dtypes are promoted first (:func:`matmul`)."""
 
     def __init__(self, output_dim: int, init="glorot_uniform",
                  activation=None, bias=True, input_dim=None,
@@ -93,7 +104,7 @@ class Dense(KerasLayer):
         return tuple(input_shape[:-1]) + (self.output_dim,)
 
     def call(self, params, x, **kw):
-        y = x @ params["kernel"]
+        y = matmul(x, params["kernel"])
         if self.bias:
             y = y + params["bias"]
         return self.activation(y)

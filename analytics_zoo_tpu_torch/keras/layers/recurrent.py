@@ -22,6 +22,11 @@ JAX package's arithmetic blend ``m * new + (1 - m) * old`` (not a select:
 the parity tests hold carries to the JAX package within a tolerance, and
 a select would differ from the blend in the sign of a zero).
 
+Dtypes follow the JAX package's promotion: the initial carry is float32
+whatever the compute dtype, so under bf16 compute the input projection is
+bf16 and the recurrence (the carry times the bf16 recurrent kernels, the
+gates, the outputs) runs in float32.
+
 Regularizers are not ported yet (ROADMAP A5): a ``W_regularizer``,
 ``U_regularizer`` or ``b_regularizer`` other than None raises instead of
 being dropped. ``Highway``, ``MaxoutDense`` and ``ConvLSTM2D`` wait too.
@@ -39,7 +44,7 @@ from analytics_zoo_tpu_torch.keras.engine.base import (
     Shape,
     mask_pair_main_shape,
 )
-from analytics_zoo_tpu_torch.keras.layers.core import get_activation
+from analytics_zoo_tpu_torch.keras.layers.core import get_activation, matmul
 
 
 def _no_regularizers(layer: str, **regs) -> None:
@@ -126,9 +131,9 @@ class _RNNBase(KerasLayer):
             if mask is not None:
                 mask = mask.flip(1)
         # the input projection of every step in one matmul
-        z_all = x @ params["W"] + params["b"]
+        z_all = matmul(x, params["W"]) + params["b"]
         if carry0 is None:
-            carry0 = self.initial_carry(x.shape[0], x.device, z_all.dtype)
+            carry0 = self.initial_carry(x.shape[0], x.device)
         carry, ys = carry0, []
         if mask is None:
             for t in range(z_all.shape[1]):
@@ -150,7 +155,7 @@ class _RNNBase(KerasLayer):
     def step_once(self, params, carry, x_t):
         """Single timestep on (B, D) input — the greedy-decode
         primitive."""
-        z = x_t @ params["W"] + params["b"]
+        z = matmul(x_t, params["W"]) + params["b"]
         return self.step(params, carry, z)
 
     def call(self, params, x, **kw):
@@ -172,7 +177,7 @@ class SimpleRNN(_RNNBase):
         return _zeros(batch, self.output_dim, device, dtype)
 
     def step(self, params, h, z):
-        h_new = self.activation(z + h @ params["U"])
+        h_new = self.activation(z + matmul(h, params["U"]))
         return h_new, h_new
 
 
@@ -198,7 +203,7 @@ class LSTM(_RNNBase):
     def step(self, params, carry, z):
         h, c = carry
         u = self.output_dim
-        z = z + h @ params["U"]
+        z = z + matmul(h, params["U"])
         i = self.inner_activation(z[:, :u])
         f = self.inner_activation(z[:, u:2 * u])
         g = self.activation(z[:, 2 * u:3 * u])
@@ -242,16 +247,17 @@ class GRU(_RNNBase):
     def step(self, params, h, zin):
         u = self.output_dim
         if self.reset_after:
-            rec = h @ params["U"] + params["b_rec"]
+            rec = matmul(h, params["U"]) + params["b_rec"]
             z_gate = self.inner_activation(zin[:, :u] + rec[:, :u])
             r_gate = self.inner_activation(zin[:, u:2 * u] + rec[:, u:2 * u])
             hh = self.activation(zin[:, 2 * u:] + r_gate * rec[:, 2 * u:])
             h_new = z_gate * h + (1.0 - z_gate) * hh
             return h_new, h_new
-        rz = zin[:, :2 * u] + h @ params["U"]
+        rz = zin[:, :2 * u] + matmul(h, params["U"])
         z_gate = self.inner_activation(rz[:, :u])
         r_gate = self.inner_activation(rz[:, u:])
-        hh = self.activation(zin[:, 2 * u:] + (r_gate * h) @ params["U_h"])
+        hh = self.activation(zin[:, 2 * u:]
+                             + matmul(r_gate * h, params["U_h"]))
         h_new = z_gate * h + (1.0 - z_gate) * hh
         return h_new, h_new
 

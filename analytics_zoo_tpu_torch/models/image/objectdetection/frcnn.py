@@ -16,11 +16,12 @@ host sync, which ``InferenceModel`` captures as one CUDA graph:
 - the head runs on all ``post_nms_top_n`` slots every time, padded RoIs
   included.
 
-Dtypes under bf16 compute: the proposals and the RoI sampling weights are
-float32 (the float32 anchors promote the decode, as in the JAX package);
-the sampled RoI features are cast back to the features' dtype, so the fc
-head runs in bf16 (JAX's type promotion runs it in float32 there; torch's
-matmul takes one dtype); the packed output is float32.
+Dtypes under bf16 compute follow the JAX package's type promotion: the
+proposals and the RoI sampling weights are float32 (the float32 anchors
+promote the decode), so the bilinear blend of the bf16 features is float32,
+and fc6, fc7, ``cls_score`` and ``bbox_pred`` multiply it by their bf16
+kernels upcast to float32 (``Dense`` promotes as ``jnp.matmul`` does); the
+packed output is float32.
 
 Box regression uses the Faster-RCNN parameterization = the SSD
 center-size codec with unit variances (``decode_boxes(variances=(1, 1, 1,
@@ -130,8 +131,8 @@ def _proposals(cfg: FrcnnConfig):
 
 def _roi_align(cfg: FrcnnConfig):
     """(features (B,Hf,Wf,C), rois (B,N,5)) -> (B, N, r, r, C) bilinear
-    samples at the bin centres (align_corners=False), in the features'
-    dtype."""
+    samples at the bin centres (align_corners=False), in the promoted
+    dtype of the features and the float32 weights."""
     r = cfg.roi_size
 
     def fn(feat, rois):
@@ -159,7 +160,7 @@ def _roi_align(cfg: FrcnnConfig):
         wx_ = wx[..., None, :, None]
         out = ((1 - wy_) * (1 - wx_) * f00 + (1 - wy_) * wx_ * f01
                + wy_ * (1 - wx_) * f10 + wy_ * wx_ * f11)
-        return out.to(feat.dtype)
+        return out
 
     return fn
 

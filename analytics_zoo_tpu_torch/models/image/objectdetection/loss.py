@@ -54,7 +54,7 @@ class MultiBoxLoss:
     def __init__(self, priors: np.ndarray, num_classes: int,
                  iou_threshold: float = 0.5, neg_pos_ratio: float = 3.0,
                  variances=(0.1, 0.1, 0.2, 0.2), loc_weight: float = 1.0):
-        self.priors_host = np.asarray(priors, np.float32)
+        self.priors = np.asarray(priors, np.float32)
         self._priors = {}
         self.num_classes = int(num_classes)
         self.iou_threshold = float(iou_threshold)
@@ -62,19 +62,19 @@ class MultiBoxLoss:
         self.variances = tuple(variances)
         self.loc_weight = float(loc_weight)
 
-    def priors(self, device) -> torch.Tensor:
-        """The priors as a float32 tensor on ``device`` (copied once per
-        device)."""
+    def priors_on(self, device) -> torch.Tensor:
+        """``priors`` (the float32 array, as in the JAX package) as a
+        tensor on ``device``, copied once per device."""
         key = str(device)
         if key not in self._priors:
-            self._priors[key] = torch.tensor(self.priors_host, device=device)
+            self._priors[key] = torch.tensor(self.priors, device=device)
         return self._priors[key]
 
     def __call__(self, y_true: torch.Tensor,
                  y_pred: torch.Tensor) -> torch.Tensor:
         y_pred = y_pred.float()
         y_true = y_true.float()
-        priors = self.priors(y_pred.device)
+        priors = self.priors_on(y_pred.device)
         loc = y_pred[..., :4]
         conf = y_pred[..., 4:4 + self.num_classes]
         labels, boxes = y_true[..., 0].long(), y_true[..., 1:]

@@ -2,10 +2,10 @@
 ``analytics_zoo_tpu.models.recommendation``): ref models/recommendation/
 ``NeuralCF`` (NeuralCF.scala:43, buildModel:54-95: MF tower ⊙ + MLP tower,
 concat, softmax head), ``WideAndDeep`` (WideAndDeep.scala:80 with
-``ColumnFeatureInfo``), and the ``Recommender`` base with the
+``ColumnFeatureInfo``), ``SessionRecommender`` (a GRU over the session,
+optionally with a history MLP), and the ``Recommender`` base with the
 recommend-for-user/item utilities. The models are built layer for layer
 as in the JAX package, so the weights map 1:1 (``interop``).
-``SessionRecommender`` is not ported yet (ROADMAP A5) and raises.
 """
 
 from __future__ import annotations
@@ -18,9 +18,11 @@ import numpy as np
 from analytics_zoo_tpu_torch.autograd.variable import Variable
 from analytics_zoo_tpu_torch.keras.engine.topology import Input, Model
 from analytics_zoo_tpu_torch.keras.layers import (
+    GRU,
     Activation,
     Dense,
     Embedding,
+    Flatten,
     Merge,
 )
 from analytics_zoo_tpu_torch.models.common import ZooModel
@@ -281,9 +283,75 @@ class WideAndDeep(Recommender):
 
 
 class SessionRecommender(Recommender):
-    """Session-based next-item recommender (GRU over the session's recent
-    items): not ported yet."""
+    """Session-based next-item recommender (the SessionRecommender of the
+    reference's recommendation family): a GRU stack over the session's
+    recent items, optionally fused with an MLP over a longer purchase
+    history, and a softmax over the item catalog.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SessionRecommender is not ported yet (ROADMAP A5)")
+    Inputs: session ids ``(batch, session_length)`` int (0 = padding), or
+    ``[session, history]`` with history ``(batch, his_length)`` when
+    ``include_history``; output ``(batch, item_count + 1)`` probabilities
+    (row 0 unused: item ids are 1-based, the family convention).
+    """
+
+    def __init__(self, item_count: int, item_embed: int = 100,
+                 rnn_hidden_layers: Sequence[int] = (40, 20),
+                 session_length: int = 10, include_history: bool = False,
+                 mlp_hidden_layers: Sequence[int] = (40, 20),
+                 his_length: int = 10):
+        super().__init__()
+        self.item_count = item_count
+        self.item_embed = item_embed
+        self.rnn_hidden_layers = tuple(rnn_hidden_layers)
+        self.session_length = session_length
+        self.include_history = include_history
+        self.mlp_hidden_layers = tuple(mlp_hidden_layers)
+        self.his_length = his_length
+        self.model = self.build_model()
+
+    def build_model(self) -> Model:
+        session = Input(shape=(self.session_length,), name="session")
+        x = Embedding(self.item_count + 1, self.item_embed,
+                      name="session_embed")(session)
+        for h in self.rnn_hidden_layers[:-1]:
+            x = GRU(h, return_sequences=True)(x)
+        rnn = GRU(self.rnn_hidden_layers[-1])(x)
+
+        inputs = [session]
+        if self.include_history:
+            history = Input(shape=(self.his_length,), name="history")
+            h_emb = Embedding(self.item_count + 1, self.item_embed,
+                              name="history_embed")(history)
+            h = Flatten()(h_emb)
+            for units in self.mlp_hidden_layers:
+                h = Dense(units, activation="relu")(h)
+            merged = Merge(mode="concat")([rnn, h])
+            inputs.append(history)
+        else:
+            merged = rnn
+        out = Dense(self.item_count + 1, activation="softmax",
+                    name="item_head")(merged)
+        return Model(inputs if len(inputs) > 1 else inputs[0], out,
+                     name="session_recommender")
+
+    def recommend_for_session(self, sessions, max_items: int = 5,
+                              batch_size: int = 1024):
+        """Top-k next items per session row: a list of [(item_id, prob)]
+        per row, by a host ``np.argsort`` of the probabilities (the JAX
+        package's tie order); item id 0 (the padding row) is never
+        recommended."""
+        probs = self.predict(sessions, batch_size=batch_size)
+        probs = np.asarray(probs).copy()
+        probs[:, 0] = -np.inf
+        k = min(max_items, probs.shape[1] - 1)   # catalog minus padding row
+        top = np.argsort(-probs, axis=-1)[:, :k]
+        return [[(int(i), float(probs[r, i])) for i in items]
+                for r, items in enumerate(top)]
+
+    def config(self):
+        return {"item_count": self.item_count, "item_embed": self.item_embed,
+                "rnn_hidden_layers": list(self.rnn_hidden_layers),
+                "session_length": self.session_length,
+                "include_history": self.include_history,
+                "mlp_hidden_layers": list(self.mlp_hidden_layers),
+                "his_length": self.his_length}

@@ -1,10 +1,13 @@
-"""BERT classifier (port of ``analytics_zoo_tpu.tfpark.bert``): the BERT
-encoder with a dense softmax head on the pooled [CLS] output. Inputs:
-input_ids, token_type_ids, input_mask (position ids are made here)."""
+"""BERT classifier (port of ``analytics_zoo_tpu.tfpark.bert``; ref
+pyzoo/zoo/tfpark/text/estimator/bert_classifier.py): the BERT encoder with
+a dense softmax head on the pooled [CLS] output (``BERTClassifierNet``),
+and ``BERTClassifier``, a ``TFEstimator`` over it. Inputs: input_ids,
+token_type_ids, input_mask (position ids are made here). Attention runs on
+the flash kernels on the card (``ops.attention``)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -54,3 +57,25 @@ class BERTClassifierNet(KerasNet):
 
     def get_input_shape(self):
         return [(None, self.seq_len)] * 3
+
+
+def BERTClassifier(num_classes: int, bert_config: Optional[Dict] = None,
+                   optimizer=None):
+    """Ref BERTClassifier: a ``TFEstimator`` whose ``model_fn`` builds a
+    ``BERTClassifierNet`` (``bert_config``: its constructor arguments)
+    trained with sparse categorical cross-entropy and ``optimizer``
+    (default ``"adam"``)."""
+    from analytics_zoo_tpu_torch.tfpark.estimator import (
+        EstimatorSpec,
+        TFEstimator,
+    )
+
+    cfg = dict(bert_config or {})
+
+    def model_fn(mode, params):
+        net = BERTClassifierNet(num_classes=num_classes, **cfg)
+        return EstimatorSpec(mode=mode, model=net,
+                             loss="sparse_categorical_crossentropy",
+                             optimizer=optimizer or "adam")
+
+    return TFEstimator(model_fn)

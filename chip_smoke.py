@@ -193,7 +193,7 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    trees; SSD-VGG16-300 through ``compile``/``fit`` (Adam 2e-4, batch 32)
    over 1024 seeded 300x300 images of planted colour-coded boxes through
    ``ImageRoiNormalize`` -> random ``ImageHFlip | ImageRoiHFlip`` ->
-   ``ImageMatToFloats`` -> ``to_detection_feature_set`` for about 120 s
+   ``ImageMatToFloats`` -> ``to_detection_feature_set`` for about 90 s
    (step p50/p90, images/s, MFU, the host's batch time; the loss must fall
    to 0.7 of its start and the VOC mAP at IoU 0.4 over 256 of the images
    gain 0.2); a profiled step's device time by convolutions (the dilated
@@ -203,13 +203,39 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    CUDA graph per batch, replays bitwise their eager runs, the card's
    detections equal to the CPU post-process of the same raw output up to
    counted near-ties, p50 of replays and eager runs, capture MiB; a
-   post-process capture that syncs must raise; no flash launch.
+   post-process capture that syncs must raise; no flash launch;
+9. the tagging and ranking zoo (``text_zoo_phase``; ``python3
+   scripts/torch_text_zoo_phase.py`` runs it alone): NER at the JAX
+   class's defaults (``ZOO_NER``: crf_mode 'pad', 9 CoNLL-2003 tags,
+   20,000 words, 100 characters) fit with its CRF NLL for about 30 s at
+   batch 128 over seeded sentences whose tags follow the words (step
+   p50/p90 between step-end events, sentences/s, host batch time, the
+   device busy share of a step; loss and held-out tag accuracy before
+   and after), its packed output, ``crf_nll`` with its gradients and its
+   Viterbi paths card against CPU (paths equal on one input, and up to
+   near-ties on each side's own forward), served at batches 1, 8 and 32
+   with the forward and the Viterbi decode each a CUDA graph whose replay
+   is its eager run (p50 of both); SequenceTagger (CRF head) and
+   IntentEntity at their default widths card against CPU; KNRM at the
+   qaranker recipe's shapes trained with RankHinge over
+   ``TextSet.from_relation_pairs``' ``PairFeatureSet`` (held-out MAP and
+   NDCG@3 before and after; MAP at least ``ZOO_KNRM_MAP``); the
+   AnomalyDetector of the anomaly example on a seeded 10,320-point series
+   (its top errors must recover ``ZOO_AD_RECOVER`` of the planted
+   spikes); SessionRecommender with history over 20,000 items
+   (``recommend_for_session`` p50 at batches 1 and 32); each card against
+   CPU in f32 within ``ZOO_F32_BOUND``; none launches a flash kernel;
+   then tfpark's ``BERTClassifier`` (BERT-base, bf16) through
+   ``TFEstimator.train`` and ``predict``, each flash kernel launched once
+   per layer and step (printed).
    The script prints its own seconds at the end.
 
 The build phase prints each kernel's ptxas registers and spills and, for
 the wgmma kernels, the SASS's top register and local-memory instructions
 (``cuobjdump``). The last lines are the kernels line (for each kernel,
 ``detection_launches`` is its launches over phase 8, 0;
+``text_zoo_launches`` its launches over phase 9, all of them
+BERTClassifier's, and counted in ``launches`` too;
 ``ms`` is its device time under torch.profiler and ``event_ms`` CUDA-event
 time over back-to-back calls; ``plain_ms`` is event time; the backward
 rows add the whole backward's times and bound and each bf16 route's tiles
@@ -3804,7 +3830,7 @@ ROI_BOX_BOUND, ROI_TIE, IOU_TIE = 1e-4, 1e-4, 1e-5
 # (scripts/torch_detection_phase.py --lr; PERF.md). The example
 # starts from an ImageNet VGG, which the repo cannot hold.
 DET_TRAIN_MODEL = "ssd-vgg16-300x300"
-DET_IMAGES, DET_BATCH, DET_SECONDS, DET_LR = 1024, 32, 120.0, 2e-4
+DET_IMAGES, DET_BATCH, DET_SECONDS, DET_LR = 1024, 32, 90.0, 2e-4
 DET_MAX_BOXES, DET_EVAL_IMAGES, DET_EVAL_IOU = 16, 256, 0.4
 DET_LOSS_FALL, DET_MAP_GAIN = 0.7, 0.2
 DET_COLOURS = ((220, 40, 40), (40, 220, 40), (50, 90, 230), (230, 220, 40))
@@ -4162,7 +4188,7 @@ def detection_profile(det, fs):
     def multibox():
         torch.autograd.grad(loss(ys, pred), pred)
 
-    priors = loss.priors(dev)
+    priors = loss.priors_on(dev)
     boxes, valid = ys[..., 1:], ys[..., 0] > 0
     scores = torch.randn(pred.shape[:2], device=dev).bfloat16().float()
     parts = {"l2norm": device_ms(l2norm)[0],
@@ -4362,6 +4388,633 @@ def detection_phase(fa, seed):
     return launches
 
 
+# -- phase 9: the tagging and ranking zoo -------------------------------------
+
+# 9a: NER at nlp-architect NERCRF's widths, the JAX class's defaults (30
+# words of at most 12 characters, word embedding 100, char embedding and
+# char Bi-LSTM 30, tagger Bi-LSTMs 100, dropout 0.5) with crf_mode 'pad',
+# the 9 BIO tags of CoNLL-2003, 20,000 words and 100 characters; sentences
+# of 5-30 words whose tags follow the words (ZOO_NER_ENTITY_WORDS of the
+# vocabulary are entities, 17% of the tokens as in CoNLL-2003, and their
+# first character marks the tag); fit with the CRF NLL and Adam(1e-2) at
+# batch 128 for ZOO_NER_SECONDS (at nlp-architect's 1e-3, the 96-192
+# steps that fit in 30 s on an H100 machine left held-out entity tokens at
+# 0.0-0.36 accuracy);
+# served at buckets 1, 8 and 32.
+ZOO_NER = dict(num_entities=9, word_vocab_size=20000, char_vocab_size=100,
+               sequence_length=30, word_length=12, word_emb_dim=100,
+               char_emb_dim=30, tagger_lstm_dim=100, dropout=0.5,
+               crf_mode="pad")
+ZOO_NER_ENTITY_WORDS = 3400
+ZOO_NER_ROWS, ZOO_NER_EVAL_ROWS, ZOO_NER_BATCH = 4096, 512, 128
+ZOO_NER_LR, ZOO_NER_SECONDS = 1e-2, 30.0
+ZOO_NER_SERVE = (1, 8, 32)
+ZOO_CHECK_ROWS = 32  # rows of each card-vs-CPU check
+# 9b: KNRM at the qaranker recipe's shapes: questions of 10 and answers of
+# 40 tokens, a frozen 300-wide embedding (the shape of GloVe 840B.300d,
+# drawn from the seed) over 20,000 words, 21 kernels (sigma 0.1, exact
+# 0.001); 2000 training and 250 held-out questions, each with 1 positive
+# answer (4 of its words among 36 others) and 3 negatives (0-2 of its
+# words), RankHinge over the PairFeatureSet of TextSet.from_relation_pairs
+# at batch 200, Adam(0.02) as the recipe; the held-out MAP after training
+# must reach ZOO_KNRM_MAP and the loss fall.
+ZOO_KNRM = dict(text1_length=10, text2_length=40, vocab_size=20001,
+                kernel_num=21, sigma=0.1, exact_sigma=0.001)
+ZOO_KNRM_EMBED, ZOO_KNRM_WORDS = 300, 20000
+ZOO_KNRM_TRAIN_Q, ZOO_KNRM_EVAL_Q, ZOO_KNRM_NEG = 2000, 250, 3
+ZOO_KNRM_BATCH, ZOO_KNRM_LR, ZOO_KNRM_EPOCHS = 200, 0.02, 4
+ZOO_KNRM_MAP = 0.9
+# 9c: AnomalyDetector as examples/anomalydetection/anomaly_detection.py
+# runs it (hidden (8, 32, 15), unroll 24, batch 64, Adam(0.01), mse) on a
+# seeded series of 10,320 half-hourly points (the NYC-taxi series' length;
+# daily and weekly seasons and noise) with ZOO_AD_PLANTED spikes of 3 in
+# its held-out last fifth; the top ZOO_AD_TOP errors must recover at
+# least ZOO_AD_RECOVER of them (within one step).
+ZOO_AD_POINTS, ZOO_AD_UNROLL, ZOO_AD_BATCH, ZOO_AD_LR = 10320, 24, 64, 0.01
+ZOO_AD_SECONDS, ZOO_AD_PLANTED, ZOO_AD_TOP, ZOO_AD_RECOVER = 8.0, 10, 20, 5
+# 9d: SessionRecommender at the JAX class's defaults (item embedding 100,
+# GRUs (40, 20) over 10 items, history MLP (40, 20) over 10 items) with
+# include_history and 20,000 items; 8192 seeded sessions whose next item
+# follows the last, 3 epochs of Adam(1e-3) and sparse cross-entropy at
+# batch 256; recommend_for_session timed at batches 1 and 32.
+ZOO_SR_ITEMS, ZOO_SR_ROWS, ZOO_SR_BATCH, ZOO_SR_EPOCHS = 20000, 8192, 256, 3
+ZOO_SR_LATENCY = (1, 32)
+# 9e: tfpark's BERTClassifier: BERT-base at full width (bf16, dropout off)
+# through TFEstimator.train with the default optimizer ("adam") for
+# ZOO_BERT_STEPS steps at (16, 128), then predict over 2 batches.
+ZOO_BERT_STEPS, ZOO_BERT_BATCH, ZOO_BERT_SEQ = 6, 16, 128
+# Card against CPU in f32 on the same weights and inputs: the card's
+# largest error against the CPU's f64 run of the same graph, relative to
+# max(1, the largest |f64 value|), at most ZOO_F32_BOUND. float32 rounding
+# (2^-24) through up to 30 recurrent steps of 3 stacked Bi-LSTMs and
+# 400-wide sums stays near 1e-6 (cuBLAS without TF32 and the CPU's
+# kernels round alike); a wrong gate, mask, layout or promotion moves
+# the outputs by 1e-2 or more. The CPU's own f32 error is printed beside.
+ZOO_F32_BOUND = 1e-4
+# crf_nll and its gradients on one packed output, each relative to max(1,
+# its largest |f64 value|). In f64 the card's values are held within
+# F64_BOUND of the CPU's (the same formulas in another summation order).
+# In f32 they are rounding noise of the formula itself: the forward
+# algorithm's log-partition terms grow with a row's summed emissions, and
+# each of its 29 logsumexp steps rounds at 2^-24 of them, so the
+# transitions' gradient (a sum over 32 x 30 steps) sat 4e-5 to 2.0e-4
+# from f64 on the card and the CPU alike, growing as training grew the
+# emissions (measured on an NVIDIA H100 80GB HBM3 at 700 W). The f32 values
+# are printed and held only to ZOO_NLL_BOUND, which a wrong mask,
+# transition index or gradient (off by 1e-1 or more) still fails.
+ZOO_NLL_BOUND = 1e-2
+# Two Viterbi paths of one row differ at a near-tie when both score within
+# this relative gap under the CPU's emissions and transitions.
+ZOO_PATH_TIE = 1e-5
+
+
+def zoo_rate(label, est, batch, wall, unit="samples"):
+    """Step p50/p90 between consecutive step-end events on the card (the
+    first IMAGE_WARM_STEPS left out), the rate at the p50 and over the
+    whole call, and the host's batch time. Returns the p50 in ms."""
+    torch.cuda.synchronize()
+    ev = est.step_events
+    gaps = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])][IMAGE_WARM_STEPS:]
+    p10, p50, p90 = np.percentile(gaps, (10, 50, 90))
+    batch_ms = 1e3 * float(np.median(est.batch_seconds[:len(ev)]))
+    print(f"{label}: {len(ev)} steps at batch {batch}; step (between "
+          f"step-end events) p50 {p50:.3f} ms p90 {p90:.3f} ms p10 "
+          f"{p10:.3f} ms; {batch / (p50 / 1e3):.1f} {unit}/s at p50, "
+          f"{len(ev) * batch / wall:.1f} over the whole call ({wall:.1f} s);"
+          f" host batch p50 {batch_ms:.3f} ms ({batch_ms / p50:.3f} of the "
+          f"step)", flush=True)
+    return p50
+
+
+def timed_fit(model, x, y, batch, seconds=None, epochs=None):
+    """A zoo model's ``fit``, one epoch at a time under step timing, until
+    ``seconds`` passed or ``epochs`` ran. Returns (its estimator, wall
+    seconds, epochs)."""
+    with step_timing():
+        t0 = time.perf_counter()
+        n = 0
+        while (time.perf_counter() - t0 < seconds if seconds is not None
+               else n < epochs):
+            model.fit(x, y, batch_size=batch, nb_epoch=1)
+            n += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return model.model._estimator, wall, n
+
+
+def busy_share(label, est, criterion, batch, p50):
+    """Device time of one train step (torch.profiler, 5 steps) over the
+    step p50 between step-end events: the card's busy share."""
+    xs, y, mask = batch
+    step = est._make_train_step(criterion)
+
+    def run():
+        est.tstate, _ = step(est.tstate, xs, y, mask)
+
+    ms, _ = device_ms(run, calls=5)
+    est._write_back()
+    print(f"{label}: train step device time {ms:.3f} ms (torch.profiler, "
+          f"5 steps); busy share {ms / p50:.3f} of the step p50", flush=True)
+    return ms
+
+
+def first_batch(est, data, batch):
+    return next(est._batches(data, batch, 0))
+
+
+def losses_report(label, losses):
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    print(f"{label}: {len(losses)} steps; mean of the first 4 losses "
+          f"{first:.4f}, of the last 4 {last:.4f}; every loss finite "
+          f"{bool(np.isfinite(losses).all())}", flush=True)
+    if not np.isfinite(losses).all():
+        fail(f"{label}: a train loss is not finite")
+    return first, last
+
+
+def _to(tree, device, dtype=None):
+    from analytics_zoo_tpu_torch.common.tree import tree_map
+
+    def move(t):
+        t = torch.as_tensor(t).to(device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+
+    return tree_map(move, tree)
+
+
+def zoo_card_cpu(label, net, x):
+    """The f32 forward of ``net`` (its params on the card) on the card, on
+    the CPU and in f64 on the CPU, same weights, host inputs ``x``: the
+    card's and the CPU's largest error against f64, relative to max(1,
+    max |f64|); fails above ZOO_F32_BOUND. Returns (card, CPU) outputs."""
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves
+
+    state = net.model_state or {}
+    dev = tree_leaves(net.params)[0].device
+    with torch.no_grad():
+        card = net.apply(net.params, state, _to(x, dev))[0]
+        cpu = net.apply(_to(net.params, "cpu"), _to(state, "cpu"),
+                        _to(x, "cpu"))[0]
+        exact = net.apply(_to(net.params, "cpu", torch.float64),
+                          _to(state, "cpu", torch.float64),
+                          _to(x, "cpu", torch.float64))[0]
+    errs = {}
+    for name, out in (("card", card), ("cpu", cpu)):
+        worst = 0.0
+        for a, e in zip(tree_leaves(out), tree_leaves(exact), strict=True):
+            e = e.double()
+            worst = max(worst, float((a.double().cpu() - e).abs().max()
+                                     / max(1.0, float(e.abs().max()))))
+        errs[name] = worst
+    print(f"{label}: f32 card vs CPU over {ZOO_CHECK_ROWS} rows: largest "
+          f"error against the CPU's f64 run, relative, card "
+          f"{errs['card']:.3e}, CPU {errs['cpu']:.3e} (bound "
+          f"{ZOO_F32_BOUND:g})", flush=True)
+    if not errs["card"] <= ZOO_F32_BOUND:
+        fail(f"{label}: the card's f32 forward is off the f64 run")
+    return card, cpu
+
+
+def ner_data(rng, n):
+    """(words, chars, lengths) and tags of ``n`` sentences: words 1..V-1
+    (0 pads), the first ZOO_NER_ENTITY_WORDS ids entities with tag 1 +
+    id % 8 (B/I of PER, ORG, LOC, MISC), the rest O; each word's
+    characters are fixed per word, the first one marking its tag."""
+    s, w = ZOO_NER["sequence_length"], ZOO_NER["word_length"]
+    v, c = ZOO_NER["word_vocab_size"], ZOO_NER["char_vocab_size"]
+    table = np.random.default_rng(7)  # the language: fixed across calls
+    tag_of = np.where(np.arange(v) < ZOO_NER_ENTITY_WORDS,
+                      1 + np.arange(v) % 8, 0).astype(np.int32)
+    tag_of[0] = 0
+    chars_of = table.integers(11, c, (v, w)).astype(np.int32)
+    chars_of[:, 0] = np.where(tag_of > 0, tag_of,
+                              table.integers(11, c, v))
+    chars_of[np.arange(w)[None] >= table.integers(3, w + 1, v)[:, None]] = 0
+    chars_of[0] = 0
+    lens = rng.integers(5, s + 1, n)
+    real = np.arange(s)[None] < lens[:, None]
+    words = (rng.integers(1, v, (n, s)) * real).astype(np.int32)
+    return ([words, chars_of[words], lens[:, None].astype(np.int32)],
+            tag_of[words], real)
+
+
+def check_paths(label, card_paths, cpu_paths, emissions, transitions, real):
+    """Viterbi paths of the card against the CPU's: rows equal, or the
+    two paths of a row a near-tie under the CPU's scores (ZOO_PATH_TIE).
+    Returns the near-tie rows."""
+    ties = 0
+    for i in np.nonzero((card_paths != cpu_paths).any(1))[0]:
+        n = int(real[i].sum())
+
+        def score(p):
+            return float(emissions[i, np.arange(n), p[:n]].sum()
+                         + transitions[p[:n - 1], p[1:n]].sum())
+
+        a, b = score(card_paths[i]), score(cpu_paths[i])
+        if abs(a - b) > ZOO_PATH_TIE * max(1.0, abs(b)):
+            fail(f"{label}: the card's Viterbi path of row {i} scores {a} "
+                 f"where the CPU's scores {b}")
+        ties += 1
+    return ties
+
+
+def ner_slice(rng):
+    """Phase 9a: NER trained through fit with its CRF NLL, decoded on the
+    card, served at buckets 1, 8, 32 with the Viterbi decode as a CUDA
+    graph; card against CPU (forward, NLL and gradients, paths)."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        _GraphProgram,
+    )
+    from analytics_zoo_tpu_torch.keras.layers.crf import (
+        _unpack,
+        crf_decode,
+        crf_nll,
+    )
+    from analytics_zoo_tpu_torch.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.tfpark import NER
+
+    tags_n = ZOO_NER["num_entities"]
+    ner = NER(**ZOO_NER)
+    x, y, _ = ner_data(rng, ZOO_NER_ROWS)
+    ex, ey, ereal = ner_data(rng, ZOO_NER_EVAL_ROWS)
+
+    def accuracy():
+        pred = ner.predict_tags(ex, batch_size=ZOO_NER_BATCH)
+        ent = ereal & (ey > 0)
+        return (float((pred == ey)[ereal].mean()),
+                float((pred == ey)[ent].mean()))
+
+    ner.compile(optimizer=Adam(lr=ZOO_NER_LR), loss=ner.default_loss())
+    acc0 = accuracy()
+    est, wall, epochs = timed_fit(ner, x, y, ZOO_NER_BATCH, ZOO_NER_SECONDS)
+    p50 = zoo_rate("zoo: NER fit", est, ZOO_NER_BATCH, wall, "sentences")
+    first, last = losses_report(f"zoo: NER fit, {epochs} epochs of "
+                                f"{ZOO_NER_ROWS}", est.train_losses)
+    busy_share("zoo: NER", est, ner.default_loss(),
+               first_batch(est, ner.model._to_feature_set(x, y),
+                           ZOO_NER_BATCH), p50)
+    acc1 = accuracy()
+    print(f"zoo: NER held-out tag accuracy over {int(ereal.sum())} real "
+          f"tokens {acc0[0]:.4f} before, {acc1[0]:.4f} after; on entity "
+          f"tokens {acc0[1]:.4f}, {acc1[1]:.4f}", flush=True)
+    if not (last < first and acc1[0] > acc0[0]):
+        fail("NER did not learn: its loss or accuracy did not improve")
+
+    # card against CPU: forward, CRF NLL and its gradients, Viterbi paths
+    net = ner.model
+    rows = [a[:ZOO_CHECK_ROWS] for a in ex]
+    card, cpu = zoo_card_cpu("zoo: NER packed output", net, rows)
+    gold = torch.as_tensor(ey[:ZOO_CHECK_ROWS])
+    grads = {}
+    for dev, dt in ((card.device, torch.float32), ("cpu", torch.float32),
+                    (card.device, torch.float64), ("cpu", torch.float64)):
+        em, tr, mask = _unpack(cpu.to(dev, dt), tags_n)
+        em, tr = em.clone().requires_grad_(), tr.clone().requires_grad_()
+        b = em.shape[0]
+        packed = torch.cat([em, tr[None].expand(b, -1, -1)], 1)
+        packed = torch.cat([packed, torch.cat(
+            [mask, torch.zeros((b, tags_n), dtype=dt, device=dev)],
+            1)[..., None]], -1)
+        loss = crf_nll(tags_n)(gold.to(dev), packed)
+        grads[(str(dev), dt)] = [loss.detach()] + list(
+            torch.autograd.grad(loss, (em, tr)))
+    exact = grads[("cpu", torch.float64)]
+
+    def errors(key):
+        return [float((a.double().cpu() - e).abs().max()
+                      / max(1.0, float(e.abs().max())))
+                for a, e in zip(grads[key], exact)]
+
+    card_key = str(card.device)
+    f32_card, f32_cpu = errors((card_key, torch.float32)), errors(
+        ("cpu", torch.float32))
+    f64_card = errors((card_key, torch.float64))
+    print(f"zoo: NER crf_nll, its gradient to the emissions and to the "
+          f"transitions (the CPU's f32 packed output on both): relative "
+          f"error against the CPU's f64 values: card f64 "
+          f"{', '.join(f'{e:.3e}' for e in f64_card)} (bound "
+          f"{F64_BOUND:g}); f32 card "
+          f"{', '.join(f'{e:.3e}' for e in f32_card)}, f32 CPU "
+          f"{', '.join(f'{e:.3e}' for e in f32_cpu)} (bound "
+          f"{ZOO_NLL_BOUND:g})", flush=True)
+    if not (max(f64_card) <= F64_BOUND and max(f32_card) <= ZOO_NLL_BOUND):
+        fail("NER: crf_nll or its gradient on the card is off")
+    same = crf_decode(cpu.to(card.device), tags_n).cpu().numpy()
+    want = crf_decode(cpu, tags_n).numpy()
+    if not np.array_equal(same, want):
+        fail("NER: Viterbi of one packed output differs on card and CPU")
+    em, tr, _ = _unpack(cpu.double(), tags_n)
+    ties = check_paths("NER", crf_decode(card, tags_n).cpu().numpy(), want,
+                       em.numpy(), tr.numpy(), ereal[:ZOO_CHECK_ROWS])
+    print(f"zoo: NER Viterbi paths: one packed output decoded on card and "
+          f"CPU equal; each side's own forward decoded: "
+          f"{ZOO_CHECK_ROWS - ties} rows equal, {ties} near-ties", flush=True)
+
+    # served: the forward and the decode as CUDA graphs per bucket
+    im = InferenceModel().do_load_keras(net)
+    for b in ZOO_NER_SERVE:
+        xb = [a[:b] for a in ex]
+        raw = im.do_dispatch(xb)
+        prog, params, state = im.compile_program(
+            "crf_decode", lambda p, s, packed: crf_decode(packed, tags_n),
+            (raw,), cast=False)
+        key = ("__prog__", "crf_decode", im._args_key((raw,)))
+        graphs = all(isinstance(im._compiled.get(k), _GraphProgram)
+                     for k in (im._shape_key(xb), key))
+        paths = prog(params, state, raw)
+        fwd_same = same_bits(raw, im._eager(xb))
+        dec_same = same_bits(paths, prog.eager(raw))
+        host = ner.predict_tags(xb, batch_size=b)
+        times = {"forward replay": p50_ms(lambda: im.do_dispatch(xb)),
+                 "forward eager": p50_ms(lambda: im._eager(xb)),
+                 "decode replay": p50_ms(lambda: prog(params, state, raw)),
+                 "decode eager": p50_ms(lambda: prog.eager(raw))}
+        print(f"zoo: NER served at batch {b}: forward and Viterbi CUDA "
+              f"graphs {graphs}; replay = eager bitwise: forward "
+              f"{fwd_same}, decode {dec_same}; served tags = predict_tags "
+              f"{np.array_equal(paths.cpu().numpy(), host)}; p50 ms "
+              f"{', '.join(f'{k} {v:.3f}' for k, v in times.items())}",
+              flush=True)
+        if not (graphs and fwd_same and dec_same
+                and np.array_equal(paths.cpu().numpy(), host)):
+            fail(f"NER batch {b}: the forward or the Viterbi decode is not "
+                 "a CUDA graph whose replay is its eager run")
+    im.release()
+
+
+def tagger_slices(rng):
+    """Phase 9a: SequenceTagger (CRF head) and IntentEntity at their
+    default widths, random weights: the f32 forward card against CPU."""
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.tfpark import IntentEntity, SequenceTagger
+
+    n, s, w = (ZOO_CHECK_ROWS, ZOO_NER["sequence_length"],
+               ZOO_NER["word_length"])
+    v, c = ZOO_NER["word_vocab_size"], ZOO_NER["char_vocab_size"]
+    words = rng.integers(1, v, (n, s)).astype(np.int32)
+    chars = rng.integers(1, c, (n, s, w)).astype(np.int32)
+    for label, model in (
+            ("SequenceTagger (CRF head, 47 POS / 23 chunk tags)",
+             SequenceTagger(47, 23, v, c, classifier="crf")),
+            ("IntentEntity (21 intents, 9 entity tags)",
+             IntentEntity(21, 9, v, c))):
+        model.model.ensure_params()
+        model.model.params = _to(model.model.params, get_nncontext().device)
+        zoo_card_cpu(f"zoo: {label}", model.model, [words, chars])
+
+
+def qa_corpus(rng, n_q, first_q=0):
+    """Questions of 10 words, each with one positive answer (4 of its words
+    among 36 others) and ZOO_KNRM_NEG negatives (0-2 of its words among
+    random ones), as TextSets through the text pipeline, and their
+    relations."""
+    from analytics_zoo_tpu_torch.data.text_set import (
+        Relation,
+        TextFeature,
+        TextSet,
+    )
+
+    v = ZOO_KNRM_WORDS
+
+    def text(ids):
+        return " ".join(f"w{i}" for i in ids)
+
+    qs, ds, rels = [], [], []
+    for q in range(first_q, first_q + n_q):
+        qw = rng.integers(1, v + 1, 10)
+        qs.append(TextFeature(text=text(qw), uri=f"q{q}"))
+        for j, shared in enumerate([4] + list(rng.integers(
+                0, 3, ZOO_KNRM_NEG))):
+            doc = rng.integers(1, v + 1, 40)
+            doc[rng.choice(40, shared, replace=False)] = rng.choice(
+                qw, shared)
+            ds.append(TextFeature(text=text(doc), uri=f"q{q}a{j}"))
+            rels.append(Relation(f"q{q}", f"q{q}a{j}", int(j == 0)))
+    index = {f"w{i}": i for i in range(1, v + 1)}
+    q_set, d_set = TextSet(qs), TextSet(ds)
+    for ts, length in ((q_set, ZOO_KNRM["text1_length"]),
+                       (d_set, ZOO_KNRM["text2_length"])):
+        ts.tokenize().normalize().word2idx(existing_map=index)
+        ts.shape_sequence(length)
+    return q_set, d_set, rels
+
+
+def ranking(knrm, lists):
+    """(scores, labels) per question, from one predict over all of them."""
+    q = np.concatenate([a for a, _, _ in lists])
+    d = np.concatenate([b for _, b, _ in lists])
+    scores = knrm.predict([q, d], batch_size=ZOO_KNRM_BATCH).ravel()
+    out, at = [], 0
+    for _, _, labels in lists:
+        out.append((scores[at:at + len(labels)], labels))
+        at += len(labels)
+    return out
+
+
+def knrm_slice(rng):
+    """Phase 9b: KNRM trained with RankHinge over TextSet relation pairs,
+    MAP and NDCG@3 on held-out questions before and after, scores card
+    against CPU."""
+    from analytics_zoo_tpu_torch.data.feature_set import PairFeatureSet
+    from analytics_zoo_tpu_torch.data.text_set import TextSet
+    from analytics_zoo_tpu_torch.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import KNRM
+
+    t0 = time.perf_counter()
+    tq, td, trels = qa_corpus(rng, ZOO_KNRM_TRAIN_Q)
+    eq, ed, erels = qa_corpus(rng, ZOO_KNRM_EVAL_Q, ZOO_KNRM_TRAIN_Q)
+    pairs = TextSet.from_relation_pairs(trels, tq, td, seed=0)
+    lists = TextSet.from_relation_lists(erels, eq, ed)
+    print(f"zoo: KNRM corpus through the text pipeline in "
+          f"{time.perf_counter() - t0:.1f} s: {pairs.num_samples // 2} "
+          f"training pairs (PairFeatureSet {isinstance(pairs, PairFeatureSet)}"
+          f"), {len(lists)} held-out questions of {1 + ZOO_KNRM_NEG} answers",
+          flush=True)
+    emb = rng.standard_normal((ZOO_KNRM["vocab_size"], ZOO_KNRM_EMBED)
+                              ).astype(np.float32)
+    knrm = KNRM(embedding=emb, **ZOO_KNRM)
+    knrm.compile(optimizer=Adam(lr=ZOO_KNRM_LR), loss="rank_hinge")
+    before = ranking(knrm, lists)
+    m0, n0 = knrm.evaluate_map(before), knrm.evaluate_ndcg(before, k=3)
+    est, wall, _ = timed_fit(knrm, pairs, None, ZOO_KNRM_BATCH,
+                             epochs=ZOO_KNRM_EPOCHS)
+    p50 = zoo_rate("zoo: KNRM fit (RankHinge)", est, ZOO_KNRM_BATCH, wall,
+                   "rows")
+    first, last = losses_report(f"zoo: KNRM fit, {ZOO_KNRM_EPOCHS} epochs",
+                                est.train_losses)
+    from analytics_zoo_tpu_torch.keras import objectives
+
+    busy_share("zoo: KNRM", est, objectives.rank_hinge,
+               first_batch(est, pairs, ZOO_KNRM_BATCH), p50)
+    after = ranking(knrm, lists)
+    m1, n1 = knrm.evaluate_map(after), knrm.evaluate_ndcg(after, k=3)
+    print(f"zoo: KNRM held-out MAP {m0:.4f} before, {m1:.4f} after (at "
+          f"least {ZOO_KNRM_MAP}); NDCG@3 {n0:.4f}, {n1:.4f}", flush=True)
+    if not (m1 >= ZOO_KNRM_MAP and last < first):
+        fail("KNRM did not learn to rank")
+    rows = [np.concatenate([a for a, _, _ in lists])[:ZOO_CHECK_ROWS],
+            np.concatenate([b for _, b, _ in lists])[:ZOO_CHECK_ROWS]]
+    zoo_card_cpu("zoo: KNRM scores", knrm.model, rows)
+
+
+def anomaly_series(rng):
+    """A half-hourly series of ZOO_AD_POINTS points (daily and weekly
+    seasons, noise) with ZOO_AD_PLANTED spikes in its last fifth,
+    normalized; and the spike positions."""
+    t = np.arange(ZOO_AD_POINTS)
+    s = (np.sin(2 * np.pi * t / 48) + 0.5 * np.sin(2 * np.pi * t / 336)
+         + rng.normal(0, 0.05, len(t)))
+    start = int(0.8 * ZOO_AD_POINTS) + ZOO_AD_UNROLL
+    planted = np.sort(rng.choice(np.arange(start, ZOO_AD_POINTS - 2, 8),
+                                 ZOO_AD_PLANTED, replace=False))
+    s[planted] += rng.choice([-1.0, 1.0], ZOO_AD_PLANTED) * 3.0
+    return ((s - s.mean()) / s.std()).astype(np.float32), planted
+
+
+def anomaly_slice(rng):
+    """Phase 9c: AnomalyDetector trained on the series' first 80% windows,
+    its top errors over every window against the planted spikes; card
+    against CPU."""
+    from analytics_zoo_tpu_torch.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import AnomalyDetector
+
+    series, planted = anomaly_series(rng)
+    x, y = AnomalyDetector.unroll(series, ZOO_AD_UNROLL)
+    split = int(0.8 * len(x))
+    ad = AnomalyDetector(feature_shape=(ZOO_AD_UNROLL, 1))
+    ad.compile(optimizer=Adam(lr=ZOO_AD_LR), loss="mse")
+    est, wall, epochs = timed_fit(ad, x[:split], y[:split], ZOO_AD_BATCH,
+                                  ZOO_AD_SECONDS)
+    zoo_rate("zoo: AnomalyDetector fit", est, ZOO_AD_BATCH, wall, "windows")
+    losses_report(f"zoo: AnomalyDetector fit, {epochs} epochs of {split} "
+                  "windows", est.train_losses)
+    pred = ad.predict(x, batch_size=ZOO_AD_BATCH).ravel()
+    found = [int(i) + ZOO_AD_UNROLL
+             for i in ad.detect_anomalies(y, pred, ZOO_AD_TOP)]
+    hits = sum(any(abs(f - p) <= 1 for f in found) for p in planted)
+    print(f"zoo: AnomalyDetector top {ZOO_AD_TOP} errors over {len(x)} "
+          f"windows recover {hits} of {ZOO_AD_PLANTED} planted spikes "
+          f"(at least {ZOO_AD_RECOVER})", flush=True)
+    if hits < ZOO_AD_RECOVER:
+        fail("AnomalyDetector did not find the planted anomalies")
+    zoo_card_cpu("zoo: AnomalyDetector", ad.model, x[:ZOO_CHECK_ROWS])
+
+
+def session_data(rng, n):
+    """Sessions of 10 items (some left-padded) walking a fixed successor
+    map, the next item as the label, and a history of 10 random items."""
+    nxt = np.random.default_rng(11).permutation(ZOO_SR_ITEMS) + 1
+    start = rng.integers(1, ZOO_SR_ITEMS + 1, n)
+    walk = [start]
+    for _ in range(10):
+        walk.append(nxt[walk[-1] - 1])
+    walk = np.stack(walk, 1)
+    sess = walk[:, :10].astype(np.int32)
+    pad = rng.integers(0, 4, n)
+    sess[np.arange(10)[None] < pad[:, None]] = 0
+    hist = rng.integers(1, ZOO_SR_ITEMS + 1, (n, 10)).astype(np.int32)
+    return [sess, hist], walk[:, 10].astype(np.int32)
+
+
+def session_slice(rng):
+    """Phase 9d: SessionRecommender with history trained a few epochs,
+    recommend_for_session timed, card against CPU."""
+    from analytics_zoo_tpu_torch.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.models import SessionRecommender
+
+    sr = SessionRecommender(ZOO_SR_ITEMS, include_history=True)
+    x, y = session_data(rng, ZOO_SR_ROWS)
+    sr.compile(optimizer=Adam(lr=1e-3),
+               loss="sparse_categorical_crossentropy")
+    est, wall, _ = timed_fit(sr, x, y, ZOO_SR_BATCH, epochs=ZOO_SR_EPOCHS)
+    zoo_rate("zoo: SessionRecommender fit", est, ZOO_SR_BATCH, wall,
+             "sessions")
+    losses_report(f"zoo: SessionRecommender fit, {ZOO_SR_EPOCHS} epochs",
+                  est.train_losses)
+    times = {}
+    for b in ZOO_SR_LATENCY:
+        rows = [a[:b] for a in x]
+        rec = sr.recommend_for_session(rows, max_items=5, batch_size=b)
+        if len(rec) != b or any(len(r) != 5 or any(i == 0 for i, _ in r)
+                                for r in rec):
+            fail("SessionRecommender: a recommendation list is malformed")
+        times[b] = p50_ms(lambda: sr.recommend_for_session(
+            rows, max_items=5, batch_size=b))
+    print(f"zoo: SessionRecommender recommend_for_session p50 "
+          f"{', '.join(f'batch {b} {t:.3f} ms' for b, t in times.items())}",
+          flush=True)
+    zoo_card_cpu("zoo: SessionRecommender", sr.model,
+                 [a[:ZOO_CHECK_ROWS] for a in x])
+
+
+def bert_classifier_slice(fa, rng):
+    """Phase 9e: tfpark's BERTClassifier (BERT-base, bf16, dropout off)
+    through TFEstimator.train and predict on the flash kernels. Returns
+    the forward, dq and dk/dv launches."""
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier, TFDataset
+
+    cfg = dict(BERT_BASE, seq_len=ZOO_BERT_SEQ, hidden_drop=0.0,
+               attn_drop=0.0)
+    n = ZOO_BERT_BATCH * ZOO_BERT_STEPS
+    x = make_request(rng, n, ZOO_BERT_SEQ, BERT_BASE["vocab"])
+    y = rng.integers(0, 2, n).astype(np.int32)
+    tfe = BERTClassifier(2, cfg)
+    zero_launches(fa)
+    t0 = time.perf_counter()
+    tfe.train(lambda: TFDataset.from_ndarrays((x, y),
+                                              batch_size=ZOO_BERT_BATCH),
+              steps=ZOO_BERT_STEPS)
+    losses = tfe._engine().train_losses
+    train_launches = read_launches(fa)
+    probs = tfe.predict(lambda: TFDataset.from_ndarrays(
+        [a[:2 * ZOO_BERT_BATCH] for a in x], batch_size=ZOO_BERT_BATCH))
+    launches = read_launches(fa)
+    n_block = BERT_BASE["n_block"]
+    want = [n_block * (ZOO_BERT_STEPS + 2), n_block * ZOO_BERT_STEPS,
+            n_block * ZOO_BERT_STEPS]
+    print(f"zoo: BERTClassifier (BERT-base, bf16, Adam) {len(losses)} "
+          f"TFEstimator steps at ({ZOO_BERT_BATCH}, {ZOO_BERT_SEQ}) and "
+          f"predict of {len(probs)} rows in {time.perf_counter() - t0:.1f} "
+          f"s; losses {[round(v, 4) for v in losses]}; flash launches "
+          f"(forward, dq, dk/dv) after train {train_launches}, after "
+          f"predict {launches} (want {want})", flush=True)
+    if (len(losses) != ZOO_BERT_STEPS or not np.isfinite(losses).all()
+            or probs.shape != (2 * ZOO_BERT_BATCH, 2)
+            or not np.allclose(probs.sum(-1), 1.0, atol=1e-3)):
+        fail("BERTClassifier: a loss is not finite or predict is malformed")
+    if launches != want:
+        fail("BERTClassifier did not run each flash kernel once per layer "
+             "and step")
+    return launches
+
+
+def text_zoo_phase(fa, seed):
+    """Phase 9: NER, SequenceTagger, IntentEntity, KNRM, AnomalyDetector,
+    SessionRecommender (no flash launch), then tfpark's BERTClassifier on
+    the flash kernels. Returns its launches."""
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    zero_launches(fa)  # 9a-9d's runs start here
+    ner_slice(rng)
+    tagger_slices(rng)
+    torch.cuda.empty_cache()
+    knrm_slice(rng)
+    anomaly_slice(rng)
+    session_slice(rng)
+    torch.cuda.empty_cache()
+    launches = read_launches(fa)  # ... and end here
+    print(f"zoo: flash kernel launches over 9a-9d (forward, dq, dk/dv) "
+          f"{launches}: these models have no attention", flush=True)
+    if any(launches):
+        fail("a tagging or ranking model launched a flash kernel")
+    bert = bert_classifier_slice(fa, rng)
+    torch.cuda.empty_cache()
+    print(f"zoo: phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return bert
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4522,6 +5175,9 @@ def main(argv=None) -> int:
     # -- 8. object detection: SSD trained, SSD and Faster-RCNN served -------
     detection_launches = detection_phase(fa, args.seed + 8)
 
+    # -- 9. the tagging and ranking zoo, tfpark's BERTClassifier ------------
+    zoo_launches = text_zoo_phase(fa, args.seed + 9)
+
     bwd_src = "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu"
     bwd_pair = ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
     serve = fwd[0]
@@ -4567,7 +5223,7 @@ def main(argv=None) -> int:
         # serving-tier paths' runs (on the serving paths: each bucket's
         # eager warm-up and its capture)
         "launches": (launches + train_launches[0] + resume_launches[0]
-                     + serve_launches),
+                     + serve_launches + zoo_launches[0]),
         # the kernel's runs on the card in CUDA graph replays, which no
         # wrapper sees, in phase 3's traffic and phase 5's traced run:
         # the flash nodes of each bucket's graph (read through the driver)
@@ -4585,11 +5241,15 @@ def main(argv=None) -> int:
             "shape", "ms", "event_ms", "library_ms", "bound_ms", "bound_by")}
             for r in fwd],
     }, bwd_row("dq", 0, "analytics_zoo_tpu/ops/flash_attention.py:323",
-               train_launches[1] + resume_launches[1], dq_err),
+               train_launches[1] + resume_launches[1] + zoo_launches[1],
+               dq_err),
         bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
-                train_launches[2] + resume_launches[2], dkv_err)]
-    for row, n in zip(kernels, detection_launches):
+                train_launches[2] + resume_launches[2] + zoo_launches[2],
+                dkv_err)]
+    for row, n, z in zip(kernels, detection_launches, zoo_launches):
         row["detection_launches"] = n  # phase 8's: no attention there
+        # phase 9's: 0 over 9a-9d, so all of them BERTClassifier's (9e)
+        row["text_zoo_launches"] = z
     print(f"chip_smoke: the whole script took "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

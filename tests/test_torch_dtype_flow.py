@@ -1,0 +1,224 @@
+"""The dtype of every layer's output under bf16 compute, the port against
+the JAX package, graph by graph.
+
+Whole-network bf16 outputs cannot show a layer that computes in another
+dtype than the JAX package does: bf16 rounding noise hides it (the
+Faster-RCNN head ran in bf16 where JAX's type promotion runs it in
+float32, and its outputs were only 3.9e-4 off). So both packages run each
+graph the way a bf16 model is served (float32 parameters and float
+inputs cast to bf16, integer inputs and the layer state as they are),
+and each layer's output dtypes are recorded in graph order and compared.
+
+The JAX side runs under ``jax.eval_shape``, the port's on the meta device:
+no arithmetic runs, so every graph is checked at its published input size
+(the image catalog at 224x224 and its own sizes, SSD at 300 and 512,
+Faster-RCNN at 608). Integer dtypes compare as "int" (the port indexes
+with int64 where JAX uses int32).
+
+The recurrent layers' float32 carry (JAX's ``initial_carry`` is float32
+whatever the compute dtype) is also held by value: bf16 forwards of
+recurrent models against the JAX package's bf16 forwards within
+``BF16_RNN_TOL`` (both run the same bf16 projections and the same float32
+recurrence; a bf16 recurrence is 7.9e-5 to 9.6e-4 off).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import analytics_zoo_tpu_torch as port
+from analytics_zoo_tpu.keras.engine import base as jbase
+from analytics_zoo_tpu.models import anomalydetection as jad
+from analytics_zoo_tpu.models import recommendation as jrec
+from analytics_zoo_tpu.models import textclassification as jtc
+from analytics_zoo_tpu.models import textmatching as jtm
+from analytics_zoo_tpu.models.image import imageclassification as jic
+from analytics_zoo_tpu.models.image.objectdetection import detector as jdet
+from analytics_zoo_tpu.tfpark import text as jtext
+from analytics_zoo_tpu_torch.keras.engine.base import (
+    WeightSpec,
+    reset_name_counts,
+)
+from analytics_zoo_tpu_torch.models import anomalydetection as tad
+from analytics_zoo_tpu_torch.models import recommendation as trec
+from analytics_zoo_tpu_torch.interop import load_jax_params
+from analytics_zoo_tpu_torch.models import textclassification as ttc
+from analytics_zoo_tpu_torch.models import textmatching as ttm
+from analytics_zoo_tpu_torch.models.image import imageclassification as tic
+from analytics_zoo_tpu_torch.models.image.objectdetection import (
+    detector as tdet,
+)
+from analytics_zoo_tpu_torch.tfpark import text as ttext
+
+BATCH = 2
+INT, FLOAT = "int", "float"
+BF16_RNN_TOL = 1e-6
+
+
+@pytest.fixture(autouse=True)
+def _port_context():
+    port.init_nncontext(device="cpu")
+    yield
+    port.stop_nncontext()
+    reset_name_counts()
+
+
+def _name(dtype) -> str:
+    s = str(dtype).replace("torch.", "")
+    if s.startswith(("int", "uint")):
+        return "int"
+    return s
+
+
+def _dtypes(out):
+    if isinstance(out, (list, tuple)):
+        return tuple(d for o in out for d in _dtypes(o))
+    return (_name(out.dtype),)
+
+
+def _record(layers, log):
+    """Wrap each layer's ``call`` to log (type, output dtypes)."""
+    for layer in layers:
+        def call(*a, _orig=layer.call, _layer=layer, **k):
+            out = _orig(*a, **k)
+            res = out[0] if _layer.has_state else out
+            log.append((type(_layer).__name__, _dtypes(res)))
+            return out
+
+        layer.call = call
+
+
+def _jax_flow(net, inputs):
+    log = []
+    _record(net.layers(), log)
+    params, state = jax.eval_shape(net.init, jax.random.PRNGKey(0))
+    params = jax.tree_util.tree_map(
+        lambda a: jax.ShapeDtypeStruct(a.shape, jnp.bfloat16)
+        if a.dtype == jnp.float32 else a, params)
+    xs = [jax.ShapeDtypeStruct((BATCH,) + s, jnp.bfloat16 if k == FLOAT
+                               else jnp.int32) for s, k in inputs]
+    jax.eval_shape(lambda p, st, x: net.apply(p, st, x, training=False)[0],
+                   params, state, xs if len(xs) > 1 else xs[0])
+    return log
+
+
+def _meta(spec):
+    if isinstance(spec, dict):
+        return {k: _meta(v) for k, v in spec.items()}
+    assert isinstance(spec, WeightSpec)
+    dt = torch.bfloat16 if spec.dtype == torch.float32 else spec.dtype
+    return torch.empty(spec.shape, dtype=dt, device="meta")
+
+
+def _port_flow(net, inputs):
+    log = []
+    _record(net.layers(), log)
+    params = _meta(net.param_specs())
+    state = {l.name: {k: v.to("meta") for k, v in l.init_state().items()}
+             for l in net.layers() if l.has_state}
+    xs = [torch.empty((BATCH,) + s, device="meta",
+                      dtype=torch.bfloat16 if k == FLOAT else torch.int64)
+          for s, k in inputs]
+    with torch.no_grad():
+        net.apply(params, state, xs if len(xs) > 1 else xs[0],
+                  training=False)
+    return log
+
+
+def _image(size):
+    return [((size, size, 3), FLOAT)]
+
+
+CATALOG = {"lenet": [((28, 28, 1), FLOAT)], "alexnet": _image(227),
+           "inception-v3": _image(299)}
+
+
+def _classifier(name):
+    inputs = CATALOG.get(name, _image(224))
+    return (lambda m: (m.build_model(name, 1000 if name != "lenet" else 10)),
+            inputs, (jic, tic))
+
+
+def _detector(name):
+    size = tdet._CATALOG[name][1].img_size
+    return (lambda m: m.ObjectDetector(name, num_classes=21).model,
+            _image(size), (jdet, tdet))
+
+
+S, W = 30, 12  # the NER defaults
+TEXT_IN = [((S,), INT), ((S, W), INT)]
+GRAPHS = {
+    **{f"image:{n}": _classifier(n) for n in sorted(tic._CATALOG)},
+    **{f"detector:{n}": _detector(n) for n in sorted(tdet._CATALOG)},
+    "ner-reg": (lambda m: m.NER(9, 200, 50).model, TEXT_IN,
+                (jtext, ttext)),
+    "ner-pad": (lambda m: m.NER(9, 200, 50, crf_mode="pad").model,
+                TEXT_IN + [((1,), FLOAT)], (jtext, ttext)),
+    "tagger-softmax": (lambda m: m.SequenceTagger(12, 9, 200, 50).model,
+                       TEXT_IN, (jtext, ttext)),
+    "tagger-crf": (lambda m: m.SequenceTagger(
+        12, 9, 200, 50, classifier="crf").model, TEXT_IN, (jtext, ttext)),
+    "tagger-words": (lambda m: m.SequenceTagger(
+        12, 9, 200, classifier="crf").model, TEXT_IN[:1], (jtext, ttext)),
+    "intent-entity": (lambda m: m.IntentEntity(5, 9, 200, 50).model,
+                      TEXT_IN, (jtext, ttext)),
+    "knrm": (lambda m: m.KNRM(10, 40, embedding=300).model,
+             [((10,), INT), ((40,), INT)], (jtm, ttm)),
+    "anomaly-detector": (lambda m: m.AnomalyDetector((24, 3)).model,
+                         [((24, 3), FLOAT)], (jad, tad)),
+    "session-recommender": (lambda m: m.SessionRecommender(500).model,
+                            [((10,), INT)], (jrec, trec)),
+    "session-recommender-history": (
+        lambda m: m.SessionRecommender(500, include_history=True).model,
+        [((10,), INT), ((10,), INT)], (jrec, trec)),
+}
+
+
+@pytest.mark.parametrize("graph", list(GRAPHS))
+def test_layer_output_dtypes_match_jax_under_bf16(graph):
+    build, inputs, (jmod, tmod) = GRAPHS[graph]
+    jbase.reset_name_counts()
+    reset_name_counts()
+    jnet, tnet = build(jmod), build(tmod)
+    want = _jax_flow(jnet, inputs)
+    got = _port_flow(tnet, inputs)
+    assert len(got) == len(want) > 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, (i, g, w)
+
+
+RNN_MODELS = {
+    "ner": (lambda m: m.NER(5, 40, 20, sequence_length=8, word_length=5,
+                            word_emb_dim=8, char_emb_dim=4,
+                            tagger_lstm_dim=8, dropout=0.0),
+            (jtext, ttext)),
+    "lstm": (lambda m: m.TextClassifier(3, embedding=8, sequence_length=8,
+                                        encoder="lstm", encoder_output_dim=8,
+                                        vocab_size=40), (jtc, ttc)),
+    "gru": (lambda m: m.TextClassifier(3, embedding=8, sequence_length=8,
+                                       encoder="gru", encoder_output_dim=8,
+                                       vocab_size=40), (jtc, ttc)),
+}
+
+
+@pytest.mark.parametrize("name", list(RNN_MODELS))
+def test_recurrent_bf16_forward_matches_jax(name):
+    make, (jmod, tmod) = RNN_MODELS[name]
+    jbase.reset_name_counts()
+    reset_name_counts()
+    jz, tz = make(jmod), make(tmod)
+    jz.model.compute_dtype = tz.model.compute_dtype = "bfloat16"
+    est = jz.model._get_estimator()
+    est._ensure_state()
+    load_jax_params(tz.model, jax.tree_util.tree_map(np.asarray,
+                                                     est.tstate.params))
+    rng = np.random.default_rng(3)
+    words = rng.integers(1, 40, (8, 8)).astype(np.int32)
+    x = ([words, rng.integers(1, 20, (8, 8, 5)).astype(np.int32)]
+         if name == "ner" else words)
+    want = np.asarray(jz.model.predict(x, batch_size=8))
+    got = tz.model.predict(x, batch_size=8)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=BF16_RNN_TOL)

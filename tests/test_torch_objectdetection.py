@@ -543,7 +543,7 @@ def test_detector_multibox_loss_binding():
     y_true[0, 0] = [1, 0.1, 0.1, 0.4, 0.4]
     val = float(loss(_t(y_true), torch.zeros(1, p, 7)))
     assert np.isfinite(val) and val > 0
-    np.testing.assert_array_equal(loss.priors_host,
+    np.testing.assert_array_equal(loss.priors,
                                   tssd.SSD_MOBILENET_300.priors())
 
 
@@ -832,6 +832,64 @@ def test_frcnn_end_to_end_matches_jax(name, small, det_kw, classes, seed,
     for d in got:
         assert len(d["boxes"]) == len(d["scores"]) == len(d["classes"])
         assert d["classes"].min() >= 1
+
+
+# Under bf16 compute the two packages' class scores and box deltas agree
+# within this bound (the largest class score is about 0.3): the backbone and
+# RPN round alike, and the RoI head runs in float32 on both sides (the
+# float32 bilinear weights promote the bf16 features, and each Dense its
+# bf16 kernel). A head run in bf16 is 3.9e-4 off.
+FRCNN_BF16_TOL = 1e-5
+
+
+@pytest.mark.parametrize("name,small,classes,seed", [
+    ("frcnn-vgg16", dict(img_size=160, pre_nms_top_n=100, post_nms_top_n=16,
+                         fc_dim=32), 4, 0),
+    ("frcnn-pvanet", dict(img_size=160, pre_nms_top_n=64, post_nms_top_n=8,
+                          fc_dim=32), 3, 1),
+])
+def test_frcnn_bf16_head_matches_jax(name, small, classes, seed,
+                                     monkeypatch):
+    """The served dtype: both Faster-RCNN entries at bf16 compute (shrunk
+    as in test_frcnn_end_to_end_matches_jax), the port's InferenceModel
+    against the JAX package's predict on the same weights: class scores
+    and box deltas within FRCNN_BF16_TOL, the packed output float32."""
+    builders = {"frcnn-vgg16": "frcnn_vgg16", "frcnn-pvanet": "frcnn_pvanet"}
+    for mod, det_mod in ((jfr, jdet), (tfr, tdet)):
+        cfg = mod.FrcnnConfig(**small)
+        build = getattr(mod, builders[name])
+        monkeypatch.setitem(det_mod._CATALOG, name, (
+            lambda num_classes=21, img_size=160, b=build, c=cfg: b(
+                num_classes=num_classes, config=c),
+            det_mod.ObjectDetectionConfig(name, 160)))
+    jd, td = _detector_pair(name, classes, dict(model_name=name,
+                                                img_size=160),
+                            seed + 20, scale=0.1)
+    jd.model.compute_dtype = td.model.compute_dtype = "bfloat16"
+    imgs = np.random.default_rng(seed).random((2, 160, 160, 3)) * 255
+    x = jd.det_config.preprocess(imgs)
+    jraw = np.asarray(jd.model.predict(x, batch_size=2))
+    traw = td.inference_model().do_predict(x)
+    assert traw.dtype == np.float32
+    c = classes
+    assert np.abs(traw[..., :c] - jraw[..., :c]).max() <= FRCNN_BF16_TOL
+    assert (np.abs(traw[..., c:5 * c] - jraw[..., c:5 * c]).max()
+            <= FRCNN_BF16_TOL)
+
+
+def test_multibox_loss_priors_is_the_float32_array():
+    """C4: ``MultiBoxLoss.priors`` is the float32 array, as in the JAX
+    package; the per-device tensor is ``priors_on``."""
+    priors = tssd.SSD_TINY_64.priors()
+    want = jloss.MultiBoxLoss(jssd.SSD_TINY_64.priors(), 4).priors
+    loss = tloss.MultiBoxLoss(priors.astype(np.float64), 4)
+    assert isinstance(loss.priors, np.ndarray)
+    assert loss.priors.dtype == np.float32
+    np.testing.assert_array_equal(loss.priors, np.asarray(want))
+    on = loss.priors_on(torch.device("cpu"))
+    assert on.dtype == torch.float32
+    assert loss.priors_on("cpu") is on
+    np.testing.assert_array_equal(on.numpy(), loss.priors)
 
 
 def test_object_detector_save_load_and_left_out(tmp_path):

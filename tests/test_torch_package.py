@@ -73,6 +73,14 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import analytics_zoo_tpu_torch.models.image.objectdetection.frcnn\n"
             "import analytics_zoo_tpu_torch.data.roi\n"
             "import analytics_zoo_tpu_torch.ops.bbox\n"
+            "import analytics_zoo_tpu_torch.keras.layers.crf\n"
+            "import analytics_zoo_tpu_torch.tfpark\n"
+            "import analytics_zoo_tpu_torch.tfpark.text\n"
+            "import analytics_zoo_tpu_torch.models\n"
+            "import analytics_zoo_tpu_torch.models.textmatching\n"
+            "import analytics_zoo_tpu_torch.models.anomalydetection\n"
+            "import analytics_zoo_tpu_torch.data\n"
+            "import analytics_zoo_tpu_torch.data.text_set\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'analytics_zoo_tpu.'))]\n"
             "assert not bad and 'analytics_zoo_tpu' not in sys.modules, bad\n")

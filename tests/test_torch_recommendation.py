@@ -241,9 +241,10 @@ def test_jax_saved_neural_cf_loads_into_the_port(tmp_path):
 
 @pytest.mark.parametrize("call", [
     lambda: Embedding(10, 4, W_regularizer="l2"),
-    lambda: trec.SessionRecommender(100),
-    # Ranker's MAP/NDCG are ported (tests/test_torch_training_surface.py);
+    # SessionRecommender and Ranker's MAP/NDCG are ported
+    # (tests/test_torch_ranking_zoo.py, tests/test_torch_training_surface.py);
     # the recurrent layers' regularizers are not
+    lambda: GRU(4, U_regularizer="l2"),
     lambda: GRU(4, W_regularizer="l2"),
     lambda: trec.NeuralCF(USERS, ITEMS, CLASSES).predict_image(None)])
 def test_unported_parts_raise(call):
