@@ -10,6 +10,9 @@ stateful layers. PyTorch runs eagerly, so the walk runs on every forward.
 The JAX package folds the step key per node (``jax.random.fold_in``); here
 every node that draws (``Dropout``) draws from the one generator passed as
 ``rng``, the context's step generator, in graph order.
+
+``Parameter`` is a trainable graph source: a ``ParameterLayer`` node with
+no inbound Variable whose output is its ``value`` weight (no batch dim).
 """
 
 from __future__ import annotations
@@ -128,6 +131,36 @@ class Variable:
 
     def __repr__(self):
         return f"<Variable {self.name} shape={self.shape}>"
+
+
+class ParameterLayer(KerasLayer):
+    """Graph source holding one standalone tensor, the leaf ``value``."""
+
+    def __init__(self, shape, init="glorot_uniform", trainable=True,
+                 name=None):
+        super().__init__(name=name or unique_name("parameter"))
+        self._shape = tuple(shape)
+        self._init = init
+        self.trainable = trainable
+
+    def build(self, input_shape):
+        self.add_weight("value", self._shape, self._init,
+                        trainable=self.trainable)
+
+    def compute_output_shape(self, input_shape):
+        return self._shape
+
+    def call(self, params, x, **kwargs):
+        return params["value"]
+
+
+def Parameter(shape, init="glorot_uniform", trainable=True,
+              name=None) -> Variable:
+    """A standalone (trainable) tensor as a graph Variable; its shape has
+    no batch dim."""
+    layer = ParameterLayer(shape, init=init, trainable=trainable, name=name)
+    layer.ensure_built(tuple(shape))
+    return Variable(Node(layer, []), layer.output_shape, name=layer.name)
 
 
 def apply_layer(layer: KerasLayer,

@@ -15,7 +15,11 @@ fill the same way, leaf by leaf; so do the tagging and ranking zoo: a
 CRF's ``transitions``, the char encoder's Bi-LSTM (one layer over every
 word), KNRM's shared embedding (one layer, so one leaf, filled once),
 SessionRecommender's session and history embeddings and GRUs, and the
-Dense heads.
+Dense heads; and the layer library's, in the JAX layouts: ``ConvLSTM2D``/
+``ConvLSTM3D``'s HWIO ``W``/``U``, ``Deconvolution2D``'s (kh, kw, out,
+in) kernel, ``Convolution3D``'s DHWIO one, ``LocallyConnected1D``/``2D``'s
+per-position kernels, ``PReLU``, ``SReLU``, ``CMul``, ``CAdd``, ``Mul``,
+``Scale``, ``Highway``, ``MaxoutDense`` and ``Parameter``'s ``value``.
 Nothing here imports jax: a leaf only has to convert with ``np.asarray``.
 """
 

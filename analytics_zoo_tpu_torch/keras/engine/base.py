@@ -42,12 +42,53 @@ def _fans(shape: Sequence[int]) -> Tuple[int, int]:
     return shape[-2] * receptive, shape[-1] * receptive
 
 
+def _uniform(generator, shape, dtype, limit):
+    return torch.empty(shape, dtype=dtype).uniform_(-limit, limit,
+                                                    generator=generator)
+
+
+def _normal(generator, shape, dtype):
+    return torch.empty(shape, dtype=dtype).normal_(generator=generator)
+
+
+def _truncated_normal(generator, shape, dtype):
+    """A standard normal cut at -2 and 2, as
+    ``jax.random.truncated_normal(key, -2.0, 2.0, ...)``."""
+    t = torch.empty(shape, dtype=dtype)
+    return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                       generator=generator)
+
+
 def glorot_uniform(generator, shape, dtype=torch.float32):
     """Glorot/Xavier uniform: U(-L, L), L = sqrt(6/(fan_in+fan_out))."""
     fan_in, fan_out = _fans(shape)
-    limit = math.sqrt(6.0 / (fan_in + fan_out))
-    return torch.empty(shape, dtype=dtype).uniform_(-limit, limit,
-                                                    generator=generator)
+    return _uniform(generator, shape, dtype,
+                    math.sqrt(6.0 / (fan_in + fan_out)))
+
+
+def glorot_normal(generator, shape, dtype=torch.float32):
+    """Glorot normal: N(0, 2/(fan_in+fan_out))."""
+    fan_in, fan_out = _fans(shape)
+    return math.sqrt(2.0 / (fan_in + fan_out)) * _normal(generator, shape,
+                                                         dtype)
+
+
+def he_normal(generator, shape, dtype=torch.float32):
+    """He normal: N(0, 2/fan_in)."""
+    fan_in, _ = _fans(shape)
+    return math.sqrt(2.0 / fan_in) * _normal(generator, shape, dtype)
+
+
+def he_uniform(generator, shape, dtype=torch.float32):
+    """He uniform: U(-L, L), L = sqrt(6/fan_in)."""
+    fan_in, _ = _fans(shape)
+    return _uniform(generator, shape, dtype, math.sqrt(6.0 / fan_in))
+
+
+def lecun_uniform(generator, shape, dtype=torch.float32):
+    """LeCun uniform: U(-L, L), L = sqrt(3/fan_in)."""
+    fan_in, _ = _fans(shape)
+    return _uniform(generator, shape, dtype, math.sqrt(3.0 / fan_in))
 
 
 def normal_init(stddev=0.05, mean=0.0):
@@ -62,8 +103,7 @@ def normal_init(stddev=0.05, mean=0.0):
 def uniform_init(scale=0.05):
     """Factory: U(-scale, scale) initializer (keras-1 "uniform")."""
     def init(generator, shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype).uniform_(-scale, scale,
-                                                        generator=generator)
+        return _uniform(generator, shape, dtype, scale)
 
     return init
 
@@ -94,13 +134,82 @@ def orthogonal_init(generator, shape, dtype=torch.float32):
     return q.reshape(shape).to(dtype)
 
 
+def lecun_normal(generator, shape, dtype=torch.float32):
+    """LeCun normal: ``variance_scaling_init(1.0, "fan_in",
+    "truncated_normal")``, so Var = 1/fan_in after the truncation."""
+    return variance_scaling_init(1.0, "fan_in", "truncated_normal")(
+        generator, shape, dtype)
+
+
+def truncated_normal_init(stddev=0.05, mean=0.0):
+    """Factory: N(mean, stddev) cut at 2 sigma."""
+    def init(generator, shape, dtype=torch.float32):
+        return mean + stddev * _truncated_normal(generator, shape, dtype)
+
+    return init
+
+
+def constant_init(value=0.0):
+    """Factory: constant-fill initializer."""
+    def init(generator, shape, dtype=torch.float32):
+        return torch.full(shape, value, dtype=dtype)
+
+    return init
+
+
+def identity_init(gain=1.0):
+    """Factory: gain-scaled identity matrix (2-D shapes only)."""
+    def init(generator, shape, dtype=torch.float32):
+        if len(shape) != 2:
+            raise ValueError("identity initializer requires a 2D shape")
+        return gain * torch.eye(shape[0], shape[1], dtype=dtype)
+
+    return init
+
+
+def variance_scaling_init(scale=1.0, mode="fan_in", distribution="normal"):
+    """Keras-2 VarianceScaling: s = scale / max(1, n) for n the fan_in,
+    fan_out or their mean; "normal" and "truncated_normal" draw a normal
+    cut at 2 sigma with the stddev sqrt(s) / 0.8796... that keeps the
+    variance s, "untruncated_normal" N(0, s), "uniform" U(-L, L) with
+    L = sqrt(3 s)."""
+    def init(generator, shape, dtype=torch.float32):
+        fan_in, fan_out = _fans(shape)
+        n = {"fan_in": fan_in, "fan_out": fan_out,
+             "fan_avg": (fan_in + fan_out) / 2.0}[mode]
+        s = scale / max(1.0, n)
+        if distribution in ("normal", "truncated_normal"):
+            stddev = math.sqrt(s) / 0.87962566103423978
+            return stddev * _truncated_normal(generator, shape, dtype)
+        if distribution == "untruncated_normal":
+            return math.sqrt(s) * _normal(generator, shape, dtype)
+        if distribution != "uniform":
+            raise ValueError(f"unknown distribution '{distribution}'")
+        return _uniform(generator, shape, dtype, math.sqrt(3.0 * s))
+
+    return init
+
+
 _INITS: Dict[str, Callable] = {
     "glorot_uniform": glorot_uniform,
-    "orthogonal": orthogonal_init,
+    "xavier": glorot_uniform,
+    "glorot_normal": glorot_normal,
+    "he_normal": he_normal,
+    "he_uniform": he_uniform,
+    "lecun_uniform": lecun_uniform,
     "uniform": uniform_init(),
     "normal": normal_init(),
+    "gaussian": normal_init(),
+    "zero": zeros_init,
     "zeros": zeros_init,
+    "one": ones_init,
     "ones": ones_init,
+    "orthogonal": orthogonal_init,
+    "lecun_normal": lecun_normal,
+    "truncated_normal": truncated_normal_init(),
+    "constant": constant_init(),
+    "identity": identity_init(),
+    "variance_scaling": variance_scaling_init(),
 }
 
 
@@ -113,6 +222,51 @@ def get_initializer(init) -> Callable:
     except KeyError:
         raise ValueError(
             f"Unknown initializer '{init}'. Known: {sorted(_INITS)}") from None
+
+
+# ---------------------------------------------------------------------------
+# Regularizers
+# ---------------------------------------------------------------------------
+
+
+def abs_(x):
+    """``|x|`` with the derivative 1 at 0, as ``jnp.abs`` has it (torch's
+    ``abs`` has 0 there): an L1 penalty on zero-initialised biases moves
+    them from the first step in both packages."""
+    return torch.where(x >= 0, x, -x)
+
+
+class Regularizer:
+    """Weight penalty added to the training loss: ``l1 * sum|w| +
+    l2 * sum(w^2)``. The train step adds it over the float32 master
+    weights (the tensors the optimizer updates), as the JAX package's
+    loss does, not over their compute-dtype cast."""
+
+    def __init__(self, l1: float = 0.0, l2: float = 0.0):
+        self.l1, self.l2 = float(l1), float(l2)
+
+    def __call__(self, w):
+        out = 0.0
+        if self.l1:
+            out = out + self.l1 * torch.sum(abs_(w))
+        if self.l2:
+            out = out + self.l2 * torch.sum(torch.square(w))
+        return out
+
+
+def L1L2(l1=0.0, l2=0.0):
+    """Combined L1+L2 penalty (keras-1 ``l1l2``)."""
+    return Regularizer(l1, l2)
+
+
+def L1(l1=0.01):
+    """L1 (lasso) weight penalty."""
+    return Regularizer(l1=l1)
+
+
+def L2(l2=0.01):
+    """L2 (ridge / weight-decay) penalty."""
+    return Regularizer(l2=l2)
 
 
 # ---------------------------------------------------------------------------
@@ -132,14 +286,16 @@ def mask_pair_main_shape(input_shape):
 
 class WeightSpec:
     """One parameter declaration of a layer: name, shape, initializer,
-    trainability and dtype."""
-    __slots__ = ("name", "shape", "init", "trainable", "dtype")
+    optional regularizer, trainability and dtype."""
+    __slots__ = ("name", "shape", "init", "regularizer", "trainable",
+                 "dtype")
 
-    def __init__(self, name, shape, init, trainable=True,
+    def __init__(self, name, shape, init, regularizer=None, trainable=True,
                  dtype=torch.float32):
         self.name = name
         self.shape = tuple(int(s) for s in shape)
         self.init = get_initializer(init)
+        self.regularizer = regularizer
         self.trainable = trainable
         self.dtype = dtype
 
@@ -203,19 +359,22 @@ class KerasLayer(nn.Module):
         self.output_shape: Optional[Shape] = None
         self.weight_specs: List[WeightSpec] = []
         self.state_specs: List[WeightSpec] = []
+        self.trainable = True
 
-    def add_weight(self, name, shape, init="glorot_uniform", trainable=True,
+    def add_weight(self, name, shape, init="glorot_uniform",
+                   regularizer=None, trainable=True,
                    dtype=torch.float32) -> None:
-        """Declare one parameter; called from ``build``."""
+        """Declare one parameter (shape, init, regularizer,
+        trainability); called from ``build``."""
         self.weight_specs.append(
-            WeightSpec(name, shape, init, trainable, dtype))
+            WeightSpec(name, shape, init, regularizer, trainable, dtype))
 
     def add_state(self, name, shape, init="zeros",
                   dtype=torch.float32) -> None:
         """Declare one non-trainable state buffer (e.g. BN running stats);
         called from ``build``."""
         self.state_specs.append(
-            WeightSpec(name, shape, init, False, dtype))
+            WeightSpec(name, shape, init, None, False, dtype))
 
     def ensure_built(self, input_shape: Shape) -> Shape:
         """Build once for ``input_shape`` (no-op when already built)."""
@@ -246,6 +405,16 @@ class KerasLayer(nn.Module):
         """Initial values of the layer's non-trainable state buffers."""
         return materialize({s.name: s for s in self.state_specs},
                            torch.Generator().manual_seed(0))
+
+    def regularization_loss(self, params: Dict):
+        """Sum of the layer's declared weight penalties for ``params``
+        (0.0 when it declares none). Layers with nested parameter dicts
+        override this."""
+        loss = 0.0
+        for spec in self.weight_specs:
+            if spec.regularizer is not None and spec.name in params:
+                loss = loss + spec.regularizer(params[spec.name])
+        return loss
 
     def call(self, params, x, **kwargs):  # override
         """The layer computation: ``(params, x, ...) -> output``."""

@@ -132,9 +132,13 @@ class KerasNet(nn.Module):
         raise NotImplementedError
 
     def regularization(self, params):
-        """Total weight-penalty term added to the training loss: 0, since
-        no layer of the port has a regularizer yet."""
-        return 0.0
+        """Total weight-penalty term added to the training loss: each
+        layer's ``regularization_loss`` of its parameters (0.0 when no
+        layer declares a regularizer)."""
+        reg = 0.0
+        for layer in self.layers():
+            reg = reg + layer.regularization_loss(params.get(layer.name, {}))
+        return reg
 
     def get_output_shape(self) -> Shape:
         """Batch-free output shape."""

@@ -1,10 +1,25 @@
 """Convolution and pooling layers (port of
-``analytics_zoo_tpu.keras.layers.convolutional``: ``Convolution1D`` and
-``Convolution2D``, ``AtrousConvolution2D`` (dilated),
-``SeparableConvolution2D`` and ``DepthwiseConvolution2D``, 1-D and 2-D max
-and average pooling, global pooling (``GlobalAveragePooling1D`` with its
-masked mean over the valid steps of an ``[x, mask]`` pair),
-``ZeroPadding2D`` and ``UpSampling2D``).
+``analytics_zoo_tpu.keras.layers.convolutional``: ``Convolution1D``,
+``Convolution2D`` and ``Convolution3D`` (aliases ``Conv1D``/``Conv2D``/
+``Conv3D``), ``AtrousConvolution2D`` (dilated), ``Deconvolution2D``,
+``SeparableConvolution2D`` and ``DepthwiseConvolution2D``, 1-D, 2-D and
+3-D max and average pooling, global pooling (``GlobalAveragePooling1D``
+with its masked mean over the valid steps of an ``[x, mask]`` pair),
+``ZeroPadding1D``/``2D``/``3D``, ``Cropping1D``/``2D``,
+``UpSampling1D``/``2D``/``3D`` and ``LocallyConnected1D``).
+
+Operands of two float dtypes are promoted to one before a convolution,
+as ``jnp.matmul`` promotes (``core.promoted``; ``lax.conv_general_dilated``
+itself raises on them): under bf16 compute a float32 activation (a
+recurrent layer's float32 carry, ``ConvLSTM2D``'s output) meets a bf16
+kernel in float32.
+
+``Deconvolution2D`` stores its kernel as the JAX package does, (kh, kw,
+out, in), and is ``lax.conv_transpose(..., transpose_kernel=True)``
+there: the gradient of the VALID convolution whose HWIO kernel that is.
+``F.conv_transpose2d`` is the gradient of ``F.conv2d`` with weight
+(in, out, kh, kw), so the kernel goes to it permuted (3, 2, 0, 1), with
+no flip of its own; the output is (h - 1) * stride + k.
 
 1-D layers take (batch, steps, dim) ("tf", the default of the 1-D layers
 as in the JAX package) or (batch, dim, steps) ("th"); they run as
@@ -52,7 +67,7 @@ from analytics_zoo_tpu_torch.keras.engine.base import (
     Shape,
     mask_pair_main_shape,
 )
-from analytics_zoo_tpu_torch.keras.layers.core import get_activation
+from analytics_zoo_tpu_torch.keras.layers.core import get_activation, promoted
 
 # kernel dims may arrive as numpy ints (computed from array shapes/configs)
 _Int = (int, np.integer)
@@ -102,24 +117,33 @@ def _as_nchw(x, ordering: str):
     """Channels-first view of ``x`` (NCHW, or NCW for a 1-D tensor)."""
     if ordering == "th":
         return x
-    return x.permute(0, 2, 1) if x.dim() == 3 else x.permute(0, 3, 1, 2)
+    return x.movedim(-1, 1)
 
 
 def _conv_input(x, ordering: str):
-    """``x`` as the NCHW input of a convolution, and the memory format its
-    weight takes: channels-last on the card for "tf", contiguous NCHW
-    otherwise (see the module docstring for the CPU)."""
+    """``x`` as the NCHW (NCDHW) input of a convolution, and the memory
+    format its weight takes: channels-last on the card for a "tf" 2-D
+    input, contiguous channels-first otherwise (see the module docstring
+    for the CPU)."""
     if ordering == "th":
         return x, torch.contiguous_format
-    if x.is_cuda:
+    if x.is_cuda and x.dim() == 4:
         return x.permute(0, 3, 1, 2), torch.channels_last
-    return x.permute(0, 3, 1, 2).contiguous(), torch.contiguous_format
+    return x.movedim(-1, 1).contiguous(), torch.contiguous_format
 
 
 def _from_nchw(y, ordering: str):
     if ordering == "th":
         return y
-    return y.permute(0, 2, 1) if y.dim() == 3 else y.permute(0, 2, 3, 1)
+    return y.movedim(1, -1)
+
+
+def _conv_weight(kernel, fmt):
+    """A (spatial..., in, out) kernel as the (out, in, spatial...) weight
+    of ``F.conv1d``/``2d``/``3d`` in memory format ``fmt``."""
+    r = kernel.dim() - 2
+    w = kernel.permute(r + 1, r, *range(r))
+    return w.contiguous(memory_format=fmt) if r == 2 else w
 
 
 def _padding(x, border_mode, kernel, strides, dilation, ordering,
@@ -141,7 +165,8 @@ class _ConvND(KerasLayer):
     def __init__(self, nb_filter: int, kernel_size, subsample=1,
                  activation=None, border_mode="valid", dim_ordering="th",
                  init="glorot_uniform", dilation=1, bias=True,
-                 input_shape=None, name=None):
+                 W_regularizer=None, b_regularizer=None, input_shape=None,
+                 name=None):
         super().__init__(input_shape, name)
         self.nb_filter = int(nb_filter)
         self.kernel_size = _tuple(kernel_size, self.rank)
@@ -155,6 +180,8 @@ class _ConvND(KerasLayer):
         self.dim_ordering = dim_ordering
         self.init = init
         self.bias = bias
+        self.W_regularizer = W_regularizer
+        self.b_regularizer = b_regularizer
 
     def _in_channels(self, input_shape: Shape) -> int:
         return input_shape[1] if self.dim_ordering == "th" else \
@@ -163,9 +190,10 @@ class _ConvND(KerasLayer):
     def build(self, input_shape: Shape):
         in_ch = self._in_channels(input_shape)
         self.add_weight("kernel", self.kernel_size + (in_ch, self.nb_filter),
-                        self.init)
+                        self.init, regularizer=self.W_regularizer)
         if self.bias:
-            self.add_weight("bias", (self.nb_filter,), "zeros")
+            self.add_weight("bias", (self.nb_filter,), "zeros",
+                            regularizer=self.b_regularizer)
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
         spatial = (input_shape[2:] if self.dim_ordering == "th"
@@ -179,25 +207,23 @@ class _ConvND(KerasLayer):
         return (input_shape[0],) + out_spatial + (self.nb_filter,)
 
     def call(self, params, x, **kw):
+        x, kernel = promoted(x, params["kernel"])
+        bias = params["bias"].to(x.dtype) if self.bias else None
         x, padding = _padding(x, self.border_mode, self.kernel_size,
                               self.subsample, self.dilation,
                               self.dim_ordering)
         if self.rank == 1:
             # (k, in, out) -> (out, in, k)
             y = F.conv1d(_as_nchw(x, self.dim_ordering),
-                         params["kernel"].permute(2, 1, 0),
-                         params["bias"] if self.bias else None,
+                         _conv_weight(kernel, None), bias,
                          stride=self.subsample, padding=padding,
                          dilation=self.dilation)
             return self.activation(_from_nchw(y, self.dim_ordering))
         x, fmt = _conv_input(x, self.dim_ordering)
-        # HWIO -> OIHW, in the activations' memory format
-        w = params["kernel"].permute(3, 2, 0, 1).contiguous(
-            memory_format=fmt)
-        y = F.conv2d(x, w,
-                     params["bias"] if self.bias else None,
-                     stride=self.subsample, padding=padding,
-                     dilation=self.dilation)
+        # HWIO -> OIHW (DHWIO -> OIDHW), in the activations' memory format
+        conv = F.conv2d if self.rank == 2 else F.conv3d
+        y = conv(x, _conv_weight(kernel, fmt), bias, stride=self.subsample,
+                 padding=padding, dilation=self.dilation)
         return self.activation(_from_nchw(y, self.dim_ordering))
 
 
@@ -233,6 +259,32 @@ class Convolution2D(_ConvND):
         super().__init__(nb_filter, kernel, **kw)
 
 
+class Convolution3D(_ConvND):
+    """3-D convolution over NCDHW ("th") or NDHWC ("tf") input, kernel
+    leaf (kd, kh, kw, in, out). Accepts ``Convolution3D(nb_filter,
+    kernel_dim1, kernel_dim2, kernel_dim3, ...)`` and the tuple form."""
+    rank = 3
+
+    def __init__(self, nb_filter, kernel_dim1, kernel_dim2=None,
+                 kernel_dim3=None, **kw):
+        dims = (kernel_dim2, kernel_dim3)
+        if all(d is None for d in dims):
+            kernel = kernel_dim1
+        elif all(isinstance(d, _Int) for d in (kernel_dim1, *dims)):
+            kernel = (int(kernel_dim1), int(kernel_dim2), int(kernel_dim3))
+        else:
+            raise TypeError(
+                "Convolution3D takes either (nb_filter, d1, d2, d3) with int "
+                "dims or (nb_filter, kernel_size); pass subsample and later "
+                "options by keyword")
+        super().__init__(nb_filter, kernel, **kw)
+
+
+Conv1D = Convolution1D
+Conv2D = Convolution2D
+Conv3D = Convolution3D
+
+
 class AtrousConvolution2D(Convolution2D):
     """Ref AtrousConvolution2D: a ``Convolution2D`` with dilation
     ``atrous_rate``. SAME padding counts the dilated kernel, (k - 1) * d +
@@ -242,6 +294,49 @@ class AtrousConvolution2D(Convolution2D):
     def __init__(self, nb_filter, nb_row, nb_col, atrous_rate=(1, 1), **kw):
         super().__init__(nb_filter, (nb_row, nb_col), dilation=atrous_rate,
                          **kw)
+
+
+class Deconvolution2D(KerasLayer):
+    """Transposed convolution (VALID), kernel leaf (kh, kw, out, in): the
+    gradient of the convolution whose HWIO kernel that is (see the module
+    docstring); output (h - 1) * stride + k."""
+
+    def __init__(self, nb_filter, nb_row, nb_col, subsample=(1, 1),
+                 activation=None, dim_ordering="th", init="glorot_uniform",
+                 bias=True, input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.nb_filter = int(nb_filter)
+        self.kernel_size = (int(nb_row), int(nb_col))
+        self.subsample = _tuple(subsample, 2)
+        self.activation = get_activation(activation)
+        self.dim_ordering = dim_ordering
+        self.init = init
+        self.bias = bias
+
+    def build(self, input_shape: Shape):
+        in_ch = (input_shape[1] if self.dim_ordering == "th"
+                 else input_shape[-1])
+        self.add_weight("kernel", self.kernel_size + (self.nb_filter, in_ch),
+                        self.init)
+        if self.bias:
+            self.add_weight("bias", (self.nb_filter,), "zeros")
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        axes = (2, 3) if self.dim_ordering == "th" else (1, 2)
+        out = list(input_shape)
+        for ax, s, k in zip(axes, self.subsample, self.kernel_size):
+            out[ax] = None if out[ax] is None else (out[ax] - 1) * s + k
+        out[1 if self.dim_ordering == "th" else 3] = self.nb_filter
+        return tuple(out)
+
+    def call(self, params, x, **kw):
+        x, kernel = promoted(x, params["kernel"])
+        x, _ = _conv_input(x, self.dim_ordering)
+        # (kh, kw, out, in) -> (in, out, kh, kw)
+        y = F.conv_transpose2d(x, kernel.permute(3, 2, 0, 1).contiguous(),
+                               params["bias"].to(x.dtype) if self.bias
+                               else None, stride=self.subsample)
+        return self.activation(_from_nchw(y, self.dim_ordering))
 
 
 def _depthwise_apply(x, kernel, bias, strides, border_mode, ordering,
@@ -394,8 +489,9 @@ class _PoolND(KerasLayer):
     def call(self, params, x, **kw):
         k, s, order = self.pool_size, self.strides, self.dim_ordering
         ones = (1,) * self.rank
-        max_pool = F.max_pool1d if self.rank == 1 else F.max_pool2d
         if self.op == "max":
+            max_pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[
+                self.rank - 1]
             x, padding = _padding(x, self.border_mode, k, s, ones, order,
                                   value=float("-inf"))
             return _from_nchw(max_pool(_as_nchw(x, order), k, s,
@@ -403,23 +499,24 @@ class _PoolND(KerasLayer):
         if self.rank == 1:
             # avg_pool1d has no divisor_override: the 2-D op over a unit
             # height
-            return _from_nchw(self._avg2d(
+            return _from_nchw(self._avg(
                 _as_nchw(x, order)[:, :, None], (1,) + k, (1,) + s,
                 (1, 1))[:, :, 0], order)
-        return _from_nchw(self._avg2d(_as_nchw(x, order), k, s, ones),
+        return _from_nchw(self._avg(_as_nchw(x, order), k, s, ones),
                           order)
 
-    def _avg2d(self, x, k, s, ones):
-        """Average pooling of an NCHW tensor, SAME dividing each window
-        by its count of real elements."""
+    def _avg(self, x, k, s, ones):
+        """Average pooling of an NCHW (NCDHW) tensor, SAME dividing each
+        window by its count of real elements."""
+        avg_pool = F.avg_pool2d if len(k) == 2 else F.avg_pool3d
         if self.border_mode != "same":
-            return F.avg_pool2d(x, k, s)
+            return avg_pool(x, k, s)
         count = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
                            device=x.device)
         count, c_pad = _padding(count, "same", k, s, ones, "th")
-        count = F.avg_pool2d(count, k, s, c_pad, divisor_override=1)
+        count = avg_pool(count, k, s, c_pad, divisor_override=1)
         x, padding = _padding(x, "same", k, s, ones, "th")
-        return F.avg_pool2d(x, k, s, padding, divisor_override=1) / count
+        return avg_pool(x, k, s, padding, divisor_override=1) / count
 
 
 class MaxPooling1D(_PoolND):
@@ -442,6 +539,16 @@ class MaxPooling2D(_PoolND):
 
 class AveragePooling2D(_PoolND):
     rank = 2
+    op = "avg"
+
+
+class MaxPooling3D(_PoolND):
+    rank = 3
+    op = "max"
+
+
+class AveragePooling3D(_PoolND):
+    rank = 3
     op = "avg"
 
 
@@ -507,9 +614,40 @@ class GlobalAveragePooling2D(_GlobalPool):
     op = "avg"
 
 
+class GlobalMaxPooling3D(_GlobalPool):
+    rank = 3
+
+
+class GlobalAveragePooling3D(_GlobalPool):
+    rank = 3
+    op = "avg"
+
+
 # ---------------------------------------------------------------------------
-# Padding
+# Padding, cropping, upsampling
 # ---------------------------------------------------------------------------
+
+
+def _plus(size, n):
+    return None if size is None else size + n
+
+
+class ZeroPadding1D(KerasLayer):
+    """Zero padding of the steps of (B, T, C): ``padding`` an int or
+    (left, right)."""
+
+    def __init__(self, padding=1, input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.padding = (_tuple(padding, 2)
+                        if isinstance(padding, (tuple, list))
+                        else (padding, padding))
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        return (input_shape[0], _plus(input_shape[1], sum(self.padding)),
+                input_shape[2])
+
+    def call(self, params, x, **kw):
+        return F.pad(x, (0, 0) + tuple(self.padding))
 
 
 class ZeroPadding2D(KerasLayer):
@@ -567,3 +705,142 @@ class UpSampling2D(KerasLayer):
         for ax, m in zip(axes, self.size):
             x = torch.repeat_interleave(x, m, dim=ax)
         return x
+
+
+class ZeroPadding3D(KerasLayer):
+    """Zero padding of the three spatial dims, ``padding[i]`` on both
+    sides of dim i."""
+
+    def __init__(self, padding=(1, 1, 1), dim_ordering="th",
+                 input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.padding = tuple((p, p) for p in padding)
+        self.dim_ordering = dim_ordering
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        axes = (2, 3, 4) if self.dim_ordering == "th" else (1, 2, 3)
+        out = list(input_shape)
+        for ax, (p, _) in zip(axes, self.padding):
+            out[ax] = _plus(out[ax], 2 * p)
+        return tuple(out)
+
+    def call(self, params, x, **kw):
+        return _pad(x, self.padding, self.dim_ordering)
+
+
+class Cropping1D(KerasLayer):
+    """Crop (left, right) steps of (B, T, C)."""
+
+    def __init__(self, cropping=(1, 1), input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.cropping = tuple(cropping)
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        return (input_shape[0], _plus(input_shape[1], -sum(self.cropping)),
+                input_shape[2])
+
+    def call(self, params, x, **kw):
+        a, b = self.cropping
+        return x[:, a:x.shape[1] - b, :]
+
+
+class Cropping2D(KerasLayer):
+    """Crop ((top, bottom), (left, right)) of the two spatial dims."""
+
+    def __init__(self, cropping=((0, 0), (0, 0)), dim_ordering="th",
+                 input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.cropping = tuple(tuple(c) for c in cropping)
+        self.dim_ordering = dim_ordering
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        axes = (2, 3) if self.dim_ordering == "th" else (1, 2)
+        out = list(input_shape)
+        for ax, (lo, hi) in zip(axes, self.cropping):
+            out[ax] = _plus(out[ax], -lo - hi)
+        return tuple(out)
+
+    def call(self, params, x, **kw):
+        (t, b), (l, r) = self.cropping
+        if self.dim_ordering == "th":
+            return x[:, :, t:x.shape[2] - b, l:x.shape[3] - r]
+        return x[:, t:x.shape[1] - b, l:x.shape[2] - r, :]
+
+
+class UpSampling1D(KerasLayer):
+    """Repeat each step of (B, T, C) ``length`` times."""
+
+    def __init__(self, length=2, input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.length = int(length)
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        steps = None if input_shape[1] is None else \
+            input_shape[1] * self.length
+        return (input_shape[0], steps, input_shape[2])
+
+    def call(self, params, x, **kw):
+        return torch.repeat_interleave(x, self.length, dim=1)
+
+
+class UpSampling3D(KerasLayer):
+    """Nearest-neighbour upsampling of the three spatial dims."""
+
+    def __init__(self, size=(2, 2, 2), dim_ordering="th", input_shape=None,
+                 name=None):
+        super().__init__(input_shape, name)
+        self.size = _tuple(size, 3)
+        self.dim_ordering = dim_ordering
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        axes = (2, 3, 4) if self.dim_ordering == "th" else (1, 2, 3)
+        out = list(input_shape)
+        for ax, m in zip(axes, self.size):
+            out[ax] = None if out[ax] is None else out[ax] * m
+        return tuple(out)
+
+    def call(self, params, x, **kw):
+        axes = (2, 3, 4) if self.dim_ordering == "th" else (1, 2, 3)
+        for ax, m in zip(axes, self.size):
+            x = torch.repeat_interleave(x, m, dim=ax)
+        return x
+
+
+class LocallyConnected1D(KerasLayer):
+    """A 1-D convolution with a kernel per output step (unshared): leaves
+    ``kernel`` (out_steps, filter_length * dim, nb_filter) over the
+    flattened (filter_length, dim) window and ``bias`` (out_steps,
+    nb_filter); VALID, stride ``subsample_length``."""
+
+    def __init__(self, nb_filter, filter_length, activation=None,
+                 subsample_length=1, bias=True, input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.nb_filter = int(nb_filter)
+        self.filter_length = int(filter_length)
+        self.subsample = int(subsample_length)
+        self.activation = get_activation(activation)
+        self.bias = bias
+
+    def build(self, input_shape: Shape):
+        steps, dim = input_shape[1], input_shape[2]
+        self.out_steps = (steps - self.filter_length) // self.subsample + 1
+        self.add_weight("kernel", (self.out_steps,
+                                   self.filter_length * dim, self.nb_filter),
+                        "glorot_uniform")
+        if self.bias:
+            self.add_weight("bias", (self.out_steps, self.nb_filter),
+                            "zeros")
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        return (input_shape[0], self.out_steps, self.nb_filter)
+
+    def call(self, params, x, **kw):
+        x, kernel = promoted(x, params["kernel"])
+        # (B, S, dim, k) windows -> (S, B, k * dim), row-major (k, dim)
+        patches = x.unfold(1, self.filter_length, self.subsample)
+        patches = patches.permute(1, 0, 3, 2).reshape(
+            self.out_steps, x.shape[0], -1)
+        y = torch.bmm(patches, kernel).transpose(0, 1)
+        if self.bias:
+            y = y + params["bias"]
+        return self.activation(y)

@@ -4,9 +4,8 @@ Ref: keras/layers/Embedding.scala (a trainable lookup table) and
 WordEmbedding.scala:49 (a frozen pretrained GloVe lookup). The lookup is
 ``F.embedding`` on int64 ids; integer or float input is truncated to ids
 as the JAX package's ``astype(int32)`` does. A compute-dtype (bf16) table
-accumulates its gradient in that dtype, as ``jnp.take``'s does.
-Regularizers wait for the regularizer port (ROADMAP A5): a
-``W_regularizer`` raises rather than being ignored.
+accumulates its gradient in that dtype, as ``jnp.take``'s does. A
+``W_regularizer`` penalises the table.
 """
 
 from __future__ import annotations
@@ -29,9 +28,6 @@ class Embedding(KerasLayer):
                  input_length=None, name=None,
                  weights: Optional[np.ndarray] = None,
                  pad_value: Optional[int] = None):
-        if W_regularizer is not None:
-            raise NotImplementedError(
-                "Embedding W_regularizer: regularizers are not ported yet")
         if input_length is not None and input_shape is None:
             input_shape = (input_length,)
         super().__init__(input_shape, name)
@@ -39,6 +35,7 @@ class Embedding(KerasLayer):
         self.output_dim = int(output_dim)
         self.init = init
         self.trainable = trainable
+        self.W_regularizer = W_regularizer
         self.pretrained = weights
         self.pad_value = pad_value
 
@@ -47,10 +44,13 @@ class Embedding(KerasLayer):
             w = torch.tensor(np.asarray(self.pretrained, dtype=np.float32))
             self.add_weight("embeddings", tuple(w.shape),
                             lambda generator, shape, dtype=torch.float32:
-                            w.to(dtype, copy=True), trainable=self.trainable)
+                            w.to(dtype, copy=True),
+                            regularizer=self.W_regularizer,
+                            trainable=self.trainable)
         else:
             self.add_weight("embeddings", (self.input_dim, self.output_dim),
-                            self.init, trainable=self.trainable)
+                            self.init, regularizer=self.W_regularizer,
+                            trainable=self.trainable)
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
         return tuple(input_shape) + (self.output_dim,)

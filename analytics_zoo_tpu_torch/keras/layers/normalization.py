@@ -1,6 +1,6 @@
 """Normalization layers (port of
-``analytics_zoo_tpu.keras.layers.normalization``: ``BatchNormalization``
-and ``LayerNorm``).
+``analytics_zoo_tpu.keras.layers.normalization``: ``BatchNormalization``,
+``LayerNorm`` and ``WithinChannelLRN2D``).
 
 ``BatchNormalization`` keeps Keras-1's conventions, which are not
 ``nn.BatchNorm2d``'s: epsilon 1e-3, ``momentum`` the retain factor of the
@@ -14,6 +14,7 @@ moving statistics.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.keras.engine.base import KerasLayer, Shape
 from analytics_zoo_tpu_torch.ops.batch_norm import batch_norm_train
@@ -89,3 +90,24 @@ class LayerNorm(KerasLayer):
         var = x.var(dim=-1, unbiased=False, keepdim=True)
         y = (x - mean) * torch.reciprocal(torch.sqrt(var + self.epsilon))
         return y * params["gamma"] + params["beta"]
+
+
+class WithinChannelLRN2D(KerasLayer):
+    """Local response normalisation within each channel of NCHW input:
+    ``x / (1 + alpha * S / size^2) ** beta`` with ``S`` the sum of x^2
+    over a size x size window, SAME (``(size - 1) // 2`` rows and columns
+    before, the rest after), as the JAX layer's ``reduce_window``."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0,
+                 beta: float = 0.75, input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.size, self.alpha, self.beta = size, alpha, beta
+
+    def call(self, params, x, **kw):
+        lo = (self.size - 1) // 2
+        hi = self.size - 1 - lo
+        sq = F.pad(torch.square(x), (lo, hi, lo, hi))
+        summed = F.avg_pool2d(sq, self.size, stride=1, divisor_override=1)
+        norm = (1.0 + self.alpha * summed / (self.size * self.size)
+                ) ** self.beta
+        return x / norm

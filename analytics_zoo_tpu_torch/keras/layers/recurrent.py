@@ -1,6 +1,7 @@
 """Recurrent layers (port of ``analytics_zoo_tpu.keras.layers.recurrent``):
-``SimpleRNN``, ``LSTM``, ``GRU`` and the ``Bidirectional`` and
-``TimeDistributed`` wrappers.
+``SimpleRNN``, ``LSTM``, ``GRU``, ``ConvLSTM2D``, the ``Bidirectional``
+and ``TimeDistributed`` wrappers, and the module's two dense layers,
+``Highway`` and ``MaxoutDense``.
 
 Keras-1 semantics, as in the JAX package: input (batch, time, dim);
 ``return_sequences``; activation tanh and inner activation hard_sigmoid
@@ -27,9 +28,16 @@ whatever the compute dtype, so under bf16 compute the input projection is
 bf16 and the recurrence (the carry times the bf16 recurrent kernels, the
 gates, the outputs) runs in float32.
 
-Regularizers are not ported yet (ROADMAP A5): a ``W_regularizer``,
-``U_regularizer`` or ``b_regularizer`` other than None raises instead of
-being dropped. ``Highway``, ``MaxoutDense`` and ``ConvLSTM2D`` wait too.
+``ConvLSTM2D`` takes (batch, time, channels, H, W) and runs its gates as
+two SAME convolutions a step, the input's hoisted out of the time loop
+(one convolution over batch x time) and the carry's once per step in a
+Python loop with no host read, so a CUDA graph can capture it. Its
+carry is float32 as the JAX package's ``jnp.zeros`` carry is, so under
+bf16 compute the recurrence runs in float32 and the layer returns
+float32: the carry meets the bf16 recurrent kernel through the
+convolutions' promotion (``keras.layers.convolutional``). JAX's own layer
+raises there (``lax.conv_general_dilated`` takes one dtype): the port
+follows what ``jnp`` promotion gives.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from __future__ import annotations
 import copy
 
 import torch
+import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.common.tree import tree_map
 from analytics_zoo_tpu_torch.keras.engine.base import (
@@ -44,15 +53,15 @@ from analytics_zoo_tpu_torch.keras.engine.base import (
     Shape,
     mask_pair_main_shape,
 )
-from analytics_zoo_tpu_torch.keras.layers.core import get_activation, matmul
-
-
-def _no_regularizers(layer: str, **regs) -> None:
-    given = sorted(k for k, v in regs.items() if v is not None)
-    if given:
-        raise NotImplementedError(
-            f"{layer} {', '.join(given)}: regularizers are not ported yet "
-            "(ROADMAP A5)")
+from analytics_zoo_tpu_torch.keras.layers.convolutional import (
+    _conv_weight,
+    _padding,
+)
+from analytics_zoo_tpu_torch.keras.layers.core import (
+    get_activation,
+    matmul,
+    promoted,
+)
 
 
 class _RNNBase(KerasLayer):
@@ -62,9 +71,6 @@ class _RNNBase(KerasLayer):
                  inner_activation="hard_sigmoid", return_sequences=False,
                  go_backwards=False, W_regularizer=None, U_regularizer=None,
                  b_regularizer=None, input_shape=None, name=None):
-        _no_regularizers(type(self).__name__, W_regularizer=W_regularizer,
-                         U_regularizer=U_regularizer,
-                         b_regularizer=b_regularizer)
         super().__init__(input_shape, name)
         self.output_dim = int(output_dim)
         self.activation = get_activation(activation)
@@ -76,6 +82,16 @@ class _RNNBase(KerasLayer):
                                       else None)
         self.return_sequences = return_sequences
         self.go_backwards = go_backwards
+        self.W_regularizer = W_regularizer
+        self.U_regularizer = U_regularizer
+        self.b_regularizer = b_regularizer
+
+    def _weight(self, name, shape, init):
+        """``add_weight`` with the regularizer of the leaf's kind (W, U or
+        b)."""
+        reg = {"W": self.W_regularizer, "U": self.U_regularizer,
+               "b": self.b_regularizer}[name[0]]
+        self.add_weight(name, shape, init, regularizer=reg)
 
     @staticmethod
     def _main_shape(input_shape: Shape) -> Shape:
@@ -94,9 +110,9 @@ class _RNNBase(KerasLayer):
     def build(self, input_shape: Shape):
         dim = self._main_shape(input_shape)[-1]
         u = self.output_dim
-        self.add_weight("W", (dim, self.n_gates * u), "glorot_uniform")
-        self.add_weight("U", (u, self.n_gates * u), "orthogonal")
-        self.add_weight("b", (self.n_gates * u,), self._bias_init())
+        self._weight("W", (dim, self.n_gates * u), "glorot_uniform")
+        self._weight("U", (u, self.n_gates * u), "orthogonal")
+        self._weight("b", (self.n_gates * u,), self._bias_init())
 
     def _bias_init(self):
         return "zeros"
@@ -229,17 +245,17 @@ class GRU(_RNNBase):
     def build(self, input_shape: Shape):
         dim = self._main_shape(input_shape)[-1]
         u = self.output_dim
-        self.add_weight("W", (dim, 3 * u), "glorot_uniform")
+        self._weight("W", (dim, 3 * u), "glorot_uniform")
         if self.reset_after:
             # the full recurrent kernel and a separate recurrent bias; run()
             # hoists x @ W + b, so b stays the input bias
-            self.add_weight("U", (u, 3 * u), "orthogonal")
-            self.add_weight("b", (3 * u,), "zeros")
-            self.add_weight("b_rec", (3 * u,), "zeros")
+            self._weight("U", (u, 3 * u), "orthogonal")
+            self._weight("b", (3 * u,), "zeros")
+            self._weight("b_rec", (3 * u,), "zeros")
         else:
-            self.add_weight("U", (u, 2 * u), "orthogonal")
-            self.add_weight("U_h", (u, u), "orthogonal")
-            self.add_weight("b", (3 * u,), "zeros")
+            self._weight("U", (u, 2 * u), "orthogonal")
+            self._weight("U_h", (u, u), "orthogonal")
+            self._weight("b", (3 * u,), "zeros")
 
     def initial_carry(self, batch, device=None, dtype=torch.float32):
         return _zeros(batch, self.output_dim, device, dtype)
@@ -260,6 +276,142 @@ class GRU(_RNNBase):
                              + matmul(r_gate * h, params["U_h"]))
         h_new = z_gate * h + (1.0 - z_gate) * hh
         return h_new, h_new
+
+
+class Highway(KerasLayer):
+    """Gated identity-transform layer: ``t * act(x W + b) + (1 - t) * x``
+    with the gate ``t = sigmoid(x W_carry + b_carry)``, ``b_carry``
+    initialised to -2."""
+
+    def __init__(self, activation=None, bias=True, input_shape=None,
+                 name=None):
+        super().__init__(input_shape, name)
+        self.activation = get_activation(activation)
+        self.bias = bias
+
+    def build(self, input_shape: Shape):
+        d = input_shape[-1]
+        self.add_weight("W", (d, d), "glorot_uniform")
+        self.add_weight("W_carry", (d, d), "glorot_uniform")
+        if self.bias:
+            self.add_weight("b", (d,), "zeros")
+            self.add_weight("b_carry", (d,),
+                            lambda generator, shape, dtype=torch.float32:
+                            torch.full(shape, -2.0, dtype=dtype))
+
+    def call(self, params, x, **kw):
+        t = matmul(x, params["W_carry"])
+        h = matmul(x, params["W"])
+        if self.bias:
+            t = t + params["b_carry"]
+            h = h + params["b"]
+        t = torch.sigmoid(t)
+        return t * self.activation(h) + (1.0 - t) * x
+
+
+class MaxoutDense(KerasLayer):
+    """The max over ``nb_feature`` dense maps: leaves ``W`` (nb_feature,
+    in, out) and ``b`` (nb_feature, out)."""
+
+    def __init__(self, output_dim: int, nb_feature: int = 4, bias=True,
+                 input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.output_dim = int(output_dim)
+        self.nb_feature = int(nb_feature)
+        self.bias = bias
+
+    def build(self, input_shape: Shape):
+        d = input_shape[-1]
+        self.add_weight("W", (self.nb_feature, d, self.output_dim),
+                        "glorot_uniform")
+        if self.bias:
+            self.add_weight("b", (self.nb_feature, self.output_dim),
+                            "zeros")
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        return (input_shape[0], self.output_dim)
+
+    def call(self, params, x, **kw):
+        y = matmul(x[:, None, None, :], params["W"][None])[:, :, 0]
+        if self.bias:
+            y = y + params["b"]
+        return torch.amax(y, dim=1)
+
+
+class ConvLSTM2D(KerasLayer):
+    """Convolutional LSTM over (batch, time, channels, H, W) ("th"), SAME
+    padding and stride 1 as BigDL's: leaves ``W`` (k, k, C, 4F) and ``U``
+    (k, k, F, 4F) in HWIO, ``b`` (4F,); gates i, f, c, o; the default
+    inner activation is Keras's ``hard_sigmoid``, not ``F.hardsigmoid``.
+    See the module docstring for the hoisted input convolution and the
+    float32 carry."""
+    rank = 2
+
+    def __init__(self, nb_filter: int, nb_kernel: int, activation="tanh",
+                 inner_activation="hard_sigmoid", border_mode="same",
+                 subsample=1, return_sequences=False, go_backwards=False,
+                 input_shape=None, name=None):
+        super().__init__(input_shape, name)
+        self.nb_filter = int(nb_filter)
+        self.nb_kernel = int(nb_kernel)
+        self.activation = get_activation(activation)
+        self.inner_activation = get_activation(inner_activation)
+        self.return_sequences = return_sequences
+        self.go_backwards = go_backwards
+        if border_mode != "same" or subsample != 1:
+            raise NotImplementedError(
+                f"{type(self).__name__} supports same/stride-1 (as BigDL)")
+
+    def build(self, input_shape: Shape):
+        c, k, f = input_shape[2], self.nb_kernel, self.nb_filter
+        self.add_weight("W", (k,) * self.rank + (c, 4 * f), "glorot_uniform")
+        self.add_weight("U", (k,) * self.rank + (f, 4 * f), "orthogonal")
+        self.add_weight("b", (4 * f,), "zeros")
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        b, t, _, *spatial = input_shape
+        if self.return_sequences:
+            return (b, t, self.nb_filter, *spatial)
+        return (b, self.nb_filter, *spatial)
+
+    def _conv(self, x, kernel):
+        """SAME, stride-1 convolution of NC(D)HW ``x`` by a (spatial...,
+        in, out) kernel, operands promoted to one dtype."""
+        x, kernel = promoted(x, kernel)
+        k = tuple(kernel.shape[:self.rank])
+        ones = (1,) * self.rank
+        x, padding = _padding(x, "same", k, ones, ones, "th")
+        conv = F.conv2d if self.rank == 2 else F.conv3d
+        return conv(x, _conv_weight(kernel, torch.contiguous_format),
+                    padding=padding)
+
+    def call(self, params, x, **kw):
+        if self.go_backwards:
+            x = x.flip(1)
+        b, t, f = x.shape[0], x.shape[1], self.nb_filter
+        spatial = tuple(x.shape[3:])
+        # every step's input convolution at once, plus the bias
+        zx = self._conv(x.reshape((b * t,) + tuple(x.shape[2:])),
+                        params["W"])
+        zx = zx.reshape((b, t) + tuple(zx.shape[1:]))
+        bias = params["b"].reshape((1, -1) + (1,) * self.rank)
+        h = torch.zeros((b, f) + spatial, device=x.device)
+        c = torch.zeros_like(h)
+        ys = []
+        for step in range(t):
+            z = zx[:, step] + self._conv(h, params["U"]) + bias
+            # the inner activation of all four gates in one call (the c
+            # gate's share unused): the same values as three calls, with a
+            # third of the launches
+            gates = self.inner_activation(z)
+            i, fg, o = gates[:, :f], gates[:, f:2 * f], gates[:, 3 * f:]
+            g = self.activation(z[:, 2 * f:3 * f])
+            c = fg * c + i * g
+            h = o * self.activation(c)
+            ys.append(h)
+        if self.return_sequences:
+            return torch.stack(ys, dim=1)
+        return ys[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +441,12 @@ class Bidirectional(KerasLayer):
     def param_specs(self):
         return {"forward": self.forward_layer.param_specs(),
                 "backward": self.backward_layer.param_specs()}
+
+    def regularization_loss(self, params):
+        return (self.forward_layer.regularization_loss(
+            params.get("forward", {}))
+            + self.backward_layer.regularization_loss(
+                params.get("backward", {})))
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
         out = self.forward_layer.compute_output_shape(input_shape)
@@ -325,6 +483,9 @@ class TimeDistributed(KerasLayer):
 
     def param_specs(self):
         return {"inner": self.layer.param_specs()}
+
+    def regularization_loss(self, params):
+        return self.layer.regularization_loss(params.get("inner", {}))
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
         inner_out = self.layer.compute_output_shape(

@@ -227,7 +227,39 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    CPU in f32 within ``ZOO_F32_BOUND``; none launches a flash kernel;
    then tfpark's ``BERTClassifier`` (BERT-base, bf16) through
    ``TFEstimator.train`` and ``predict``, each flash kernel launched once
-   per layer and step (printed).
+   per layer and step (printed);
+10. the layer library (``layer_library_phase``; ``python3
+   scripts/torch_layer_library_phase.py`` runs it alone): 10a the
+   keras-team/keras ``examples/conv_lstm.py`` next-frame model at its
+   published widths (four ConvLSTM2D of 40 3x3 filters, each followed by
+   batch norm over the filters between two ``Permute``s, a sigmoid Conv3D;
+   1200 seeded movies of 15 frames of 40x40 from the example's
+   ``generate_movies``; bf16 compute, f32 carry, Adadelta, batch 10): one
+   eval forward and one train step card against CPU in f32 and f64 at batch
+   2 (``check_card_against_cpu``'s bounds), ``fit`` for ``CONVLSTM_EPOCHS``
+   (step p50/p90 between step-end events, movies and frames/s, MFU from
+   ``conv_lstm_flops``, the device busy share), the held-out BCE before and
+   after, which must fall below the BCE of predicting the lit share
+   everywhere (what a model that ignores the frames reaches), pixel
+   accuracy at 0.5, then served through ``InferenceModel`` at batches 1 and
+   10, each a CUDA graph whose replay is its eager run bitwise (p50 of
+   both); 10b ``examples/autograd/custom.py`` as written in both loss forms
+   (equal losses at every step; the kernel within ``CUSTOM_WEIGHT_BOUND``
+   of (2, 2), the bias of -0.6) and the VAE app (``CustomLoss``, eps fresh
+   per batch; its loss must fall and its held-out reconstruction beat the
+   mean image), one train step of each card against CPU in f32 within
+   ``LIB_F32_BOUND`` and in f64 within ``F64_BOUND``; 10c every layer of
+   the library beyond the earlier phases' (``_sweep_cases``): forward,
+   input and weight gradients on the card in f32 against the CPU's f64
+   within ``LIB_F32_BOUND``, its bf16
+   output dtype equal to the CPU route's; the random layers in training
+   from a card generator (``random_layers_in_training``: statistics within
+   ``RANDOM_STAT_BOUND``, about 5 standard errors at their draws, whole
+   channels dropped, slopes in bounds, finite gradients; no global draw);
+   an L1L2-regularized graph
+   (Dense, Convolution2D, Embedding, LSTM): its penalty and one step card
+   against CPU; a keras2 functional CNN trained 3 epochs (its loss must
+   fall). No flash launch.
    The script prints its own seconds at the end.
 
 The build phase prints each kernel's ptxas registers and spills and, for
@@ -236,6 +268,7 @@ the wgmma kernels, the SASS's top register and local-memory instructions
 ``detection_launches`` is its launches over phase 8, 0;
 ``text_zoo_launches`` its launches over phase 9, all of them
 BERTClassifier's, and counted in ``launches`` too;
+``layer_library_launches`` its launches over phase 10, 0;
 ``ms`` is its device time under torch.profiler and ``event_ms`` CUDA-event
 time over back-to-back calls; ``plain_ms`` is event time; the backward
 rows add the whole backward's times and bound and each bf16 route's tiles
@@ -253,6 +286,7 @@ import contextlib
 import ctypes
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -4502,19 +4536,20 @@ def timed_fit(model, x, y, batch, seconds=None, epochs=None):
     return model.model._estimator, wall, n
 
 
-def busy_share(label, est, criterion, batch, p50):
-    """Device time of one train step (torch.profiler, 5 steps) over the
-    step p50 between step-end events: the card's busy share."""
+def busy_share(label, est, criterion, batch, p50, calls=5):
+    """Device time of one train step (torch.profiler, ``calls`` steps)
+    over the step p50 between step-end events: the card's busy share."""
     xs, y, mask = batch
     step = est._make_train_step(criterion)
 
     def run():
         est.tstate, _ = step(est.tstate, xs, y, mask)
 
-    ms, _ = device_ms(run, calls=5)
+    ms, _ = device_ms(run, calls=calls)
     est._write_back()
     print(f"{label}: train step device time {ms:.3f} ms (torch.profiler, "
-          f"5 steps); busy share {ms / p50:.3f} of the step p50", flush=True)
+          f"{calls} steps); busy share {ms / p50:.3f} of the step p50",
+          flush=True)
     return ms
 
 
@@ -5015,6 +5050,870 @@ def text_zoo_phase(fa, seed):
     return bert
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the layer library
+# ---------------------------------------------------------------------------
+
+# 10a: keras-team/keras examples/conv_lstm.py (Keras 2) at its published
+# widths: four ConvLSTM2D(40 filters, 3x3, same, return_sequences), each
+# followed by BatchNormalization over the 40 filters, then Conv3D(1,
+# 3x3x3, sigmoid, same); binary cross-entropy, Adadelta, batch 10; the
+# example's generate_movies (1200 movies of 15 frames, 3-7 squares of side
+# 4 or 6 moving a pixel a frame, noise rings, 80x80 cropped to 40x40; the
+# target is the movie one frame on), drawn from the seed with
+# MOVIE_EVAL_ROWS more held out. In the zoo's "th" layout the input is
+# (B, 15, 1, 40, 40); the zoo's BatchNormalization normalizes axis 1, so a
+# Permute((2, 1, 3, 4)) puts the filters there before each and back after
+# it, and Convolution3D reads the last one as (B, 40, 15, 40, 40) NCDHW.
+# bf16 compute, f32 master weights, the f32 carry (so every convolution
+# after the first ConvLSTM's input one runs in f32, by promotion, as in
+# JAX). Trained through fit for CONVLSTM_EPOCHS (6 epochs, 720 steps:
+# 57-80 s on an H100 machine, PERF.md runs C-E; cut: the example trains
+# 300 epochs), then served at CONVLSTM_SERVE. Epochs, not seconds: the
+# held-out BCE is read in eval mode, from the batch norms' moving
+# statistics (momentum 0.99), which still hold 0.99^N of their initial
+# (0, 1) after N steps; after 360 steps (40 s on a slow host) that share
+# swamped the small variances of the recurrent outputs and the held-out
+# BCE rose to 1.38 while the train loss was 0.003; after 720 it was
+# 0.0016 (PERF.md).
+CONVLSTM_FILTERS, CONVLSTM_LAYERS = 40, 4
+MOVIE_FRAMES, MOVIE_SIDE = 15, 40
+MOVIE_ROWS, MOVIE_EVAL_ROWS = 1200, 100
+CONVLSTM_BATCH, CONVLSTM_EPOCHS = 10, 6
+CONVLSTM_SERVE = (1, 10)
+# 10b: examples/autograd/custom.py as written (SGD 1e-2, 1000 rows, batch
+# 32, 60 epochs) and apps/variational-autoencoder/vae.py's VAE (16x16
+# synthetic digits, latent 8, Adam 3e-3, batch 64, 15 epochs).
+CUSTOM_ROWS, CUSTOM_BATCH, CUSTOM_EPOCHS = 1000, 32, 60
+# custom.py's fit reaches y = 2 x1 + 2 x2 + 0.4 through Dense then +1: its
+# kernel within CUSTOM_WEIGHT_BOUND of (2, 2), its bias of -0.6 and its
+# MAE below CUSTOM_MAE_BOUND. SGD at 1e-2 on MAE moves a weight by at most
+# 1e-2 a step, so from a random start the 1920 steps end 0.005-0.1 short
+# of the optimum (0.005-0.01 on the CPU, 0.094 on an H100 from another
+# start; MAE 0.008-0.032); a broken graph, Lambda or loss leaves the
+# weights at their start, 1 or more off, and the MAE near y's own spread
+# (0.66).
+CUSTOM_WEIGHT_BOUND, CUSTOM_MAE_BOUND = 0.25, 0.1
+VAE_LATENT, VAE_SIDE = 8, 16
+VAE_ROWS, VAE_BATCH, VAE_EPOCHS, VAE_LR = 1024, 64, 15, 3e-3
+# Card against CPU for 10b and 10c: the card's f32 values against the
+# CPU's f64 run of the same weights and inputs, as max |err| over max(1,
+# max |f64|) (updates: |err|_2 over |update|_2). f32 rounding of these
+# sums of at most a few thousand terms stays near 1e-6 (cuDNN's and
+# cuBLAS's f32 without TF32 round as the CPU's kernels); a wrong layout,
+# window, index or gradient is off by 1e-2 or more. The f64 card step is
+# held to the CPU's f64 within F64_BOUND.
+LIB_F32_BOUND = 1e-4
+
+
+def generate_movies(rng, n, frames=MOVIE_FRAMES):
+    """keras-team/keras examples/conv_lstm.py's generate_movies from
+    ``rng``: ``n`` movies and the same movies one frame on, (n, frames, 1,
+    40, 40) float32 in [0, 1]."""
+    noisy = np.zeros((n, frames, 80, 80), np.float32)
+    shifted = np.zeros_like(noisy)
+    for i in range(n):
+        for _ in range(int(rng.integers(3, 8))):
+            x0, y0 = (int(v) for v in rng.integers(20, 60, 2))
+            dx, dy = (int(v) - 1 for v in rng.integers(0, 3, 2))
+            w = int(rng.integers(2, 4))
+            for t in range(frames):
+                x, y = x0 + dx * t, y0 + dy * t
+                noisy[i, t, x - w:x + w, y - w:y + w] += 1
+                if rng.integers(0, 2):  # a noise ring, +-0.1
+                    sign = (-1) ** int(rng.integers(0, 2))
+                    noisy[i, t, x - w - 1:x + w + 1,
+                          y - w - 1:y + w + 1] += sign * 0.1
+                x, y = x0 + dx * (t + 1), y0 + dy * (t + 1)
+                shifted[i, t, x - w:x + w, y - w:y + w] += 1
+    noisy = np.minimum(noisy[:, :, 20:60, 20:60], 1.0)
+    shifted = np.minimum(shifted[:, :, 20:60, 20:60], 1.0)
+    return noisy[:, :, None], shifted[:, :, None]
+
+
+def build_conv_lstm(L, Sequential, filters=CONVLSTM_FILTERS,
+                    n_layers=CONVLSTM_LAYERS, frames=MOVIE_FRAMES,
+                    side=MOVIE_SIDE):
+    """The conv_lstm example's graph from a layers module ``L`` and a
+    ``Sequential`` (either package's)."""
+    model = Sequential()
+    for i in range(n_layers):
+        first = dict(input_shape=(frames, 1, side, side)) if i == 0 else {}
+        model.add(L.ConvLSTM2D(filters, 3, border_mode="same",
+                               return_sequences=True, **first))
+        model.add(L.Permute((2, 1, 3, 4)))
+        model.add(L.BatchNormalization())
+        if i < n_layers - 1:
+            model.add(L.Permute((2, 1, 3, 4)))
+    model.add(L.Convolution3D(1, 3, 3, 3, activation="sigmoid",
+                              border_mode="same"))
+    model.add(L.Permute((2, 1, 3, 4)))
+    return model
+
+
+def conv_lstm_flops(net) -> float:
+    """Multiply-adds x 2 of one movie's forward, counted as
+    ``model_flops`` counts them: each ConvLSTM2D step's input and
+    recurrent convolutions, and the Conv3D (activations and BN left
+    out)."""
+    from analytics_zoo_tpu_torch.keras.layers import (
+        Convolution3D,
+        ConvLSTM2D,
+    )
+
+    total = 0
+    for layer in net.layers():
+        if isinstance(layer, ConvLSTM2D):
+            _, t, c, h, w = layer.input_shape
+            f, k = layer.nb_filter, layer.nb_kernel
+            total += t * 2 * h * w * k * k * (c + f) * 4 * f
+        elif isinstance(layer, Convolution3D):
+            out = layer.output_shape
+            c = layer.input_shape[1]
+            total += (2 * out[1] * out[2] * out[3] * out[4]
+                      * math.prod(layer.kernel_size) * c)
+    return float(total)
+
+
+def bce(p, y) -> float:
+    """Binary cross-entropy of probabilities ``p`` (clipped at 1e-7, as the
+    objective) against ``y``, over every pixel."""
+    p = np.clip(p.astype(np.float64), 1e-7, 1 - 1e-7)
+    return float(-(y * np.log(p) + (1 - y) * np.log(1 - p)).mean())
+
+
+def movie_quality(net, ex, ey):
+    """Held-out BCE, pixel accuracy at 0.5 and the share of lit target
+    pixels predicted lit."""
+    p = net.predict(ex, batch_size=CONVLSTM_BATCH)
+    lit = ey > 0.5
+    hit = (p > 0.5) == lit
+    return bce(p, ey), float(hit.mean()), float(hit[lit].mean())
+
+
+def conv_lstm_slice(rng):
+    """Phase 10a: the ConvLSTM next-frame model card against CPU, trained
+    through fit, its held-out BCE before and after, served at buckets 1
+    and 10 (one CUDA graph each, replay = eager bitwise)."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        _GraphProgram,
+    )
+    from analytics_zoo_tpu_torch.keras import layers as L
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
+    from analytics_zoo_tpu_torch.keras.optimizers import Adadelta
+
+    t0 = time.perf_counter()
+    x, y = generate_movies(rng, MOVIE_ROWS, MOVIE_FRAMES)
+    ex, ey = generate_movies(rng, MOVIE_EVAL_ROWS, MOVIE_FRAMES)
+    net = build_conv_lstm(L, Sequential, CONVLSTM_FILTERS, CONVLSTM_LAYERS,
+                          MOVIE_FRAMES)
+    net.compute_dtype = "bfloat16"
+    net.ensure_params()
+    flops = conv_lstm_flops(net)
+    print(f"layers: ConvLSTM next-frame model: {n_params(net)} parameters; "
+          f"{len(x)} + {len(ex)} movies of {MOVIE_FRAMES} frames made in "
+          f"{time.perf_counter() - t0:.1f} s; lit target pixels "
+          f"{float(y.mean()):.4f}; {flops:.4e} flop per movie forward",
+          flush=True)
+    check_card_against_cpu(net, rng, "ConvLSTM",
+                           input_shape=(MOVIE_FRAMES, 1, MOVIE_SIDE,
+                                        MOVIE_SIDE),
+                           criterion=objectives.binary_crossentropy,
+                           targets=y[:CPU_CHECK_BATCH])
+
+    print(f"layers: ConvLSTM set up and checked card against CPU in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    net.compile(optimizer=Adadelta(), loss="binary_crossentropy")
+    before = movie_quality(net, ex, ey)
+    with step_timing():
+        t0 = time.perf_counter()
+        net.fit(x, y, batch_size=CONVLSTM_BATCH, nb_epoch=CONVLSTM_EPOCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    est = net._estimator
+    p50 = zoo_rate("layers: ConvLSTM fit", est, CONVLSTM_BATCH, wall,
+                   "movies")
+    rate = CONVLSTM_BATCH / (p50 / 1e3)
+    print(f"layers: ConvLSTM {rate * MOVIE_FRAMES:.1f} frames/s at the p50; "
+          f"MFU {flops * 3 * rate / PEAK_FLOPS[torch.bfloat16]:.4f} of 989 "
+          f"TFLOP/s bf16 ({flops * 3 * rate / PEAK_FLOPS[torch.float32]:.4f}"
+          f" of 67 TFLOP/s f32: after the first input convolution the "
+          f"f32 carry makes every convolution f32)", flush=True)
+    losses_report(f"layers: ConvLSTM fit, {CONVLSTM_EPOCHS} epochs of "
+                  f"{MOVIE_ROWS}", est.train_losses)
+    t0 = time.perf_counter()
+    # 2 profiled steps: a step runs about 2700 kernels, whose records
+    # take torch.profiler seconds to gather
+    busy_share("layers: ConvLSTM", est,
+               objectives.get("binary_crossentropy"),
+               first_batch(est, net._to_feature_set(x, y), CONVLSTM_BATCH),
+               p50, calls=2)
+    after = movie_quality(net, ex, ey)
+    share = float(ey.mean())
+    floor = -(share * math.log(share) + (1 - share) * math.log(1 - share))
+    print(f"layers: ConvLSTM held-out ({MOVIE_EVAL_ROWS} movies) BCE "
+          f"{before[0]:.5f} before, {after[0]:.5f} after (bound: below "
+          f"{floor:.5f}, the BCE of predicting every pixel at the lit "
+          f"share {share:.4f}, which a model that ignores the frames "
+          f"reaches); next-frame pixel accuracy at 0.5 {before[1]:.5f} -> "
+          f"{after[1]:.5f}, lit pixels predicted lit {before[2]:.5f} -> "
+          f"{after[2]:.5f}; busy share and BCE in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (after[0] < before[0] and after[0] < floor):
+        fail("ConvLSTM: the held-out BCE did not fall below the lit-share "
+             "entropy")
+
+    t0 = time.perf_counter()
+    im = InferenceModel().do_load_keras(net)
+    for b in CONVLSTM_SERVE:
+        xb = ex[:b]
+        raw = im.do_dispatch(xb)
+        graph = isinstance(im._compiled.get(im._shape_key(xb)),
+                           _GraphProgram)
+        same = same_bits(raw, im._eager(xb))
+        gap = float(np.abs(raw.float().cpu().numpy()
+                           - net.predict(xb, batch_size=b)).max())
+        replay = p50_ms(lambda: im.do_dispatch(xb))
+        eager = p50_ms(lambda: im._eager(xb))
+        print(f"layers: ConvLSTM served at batch {b}: a CUDA graph {graph}; "
+              f"replay = eager bitwise {same}; |served - predict| max "
+              f"{gap:.3e}; p50 replay {replay:.3f} ms, eager {eager:.3f} ms",
+              flush=True)
+        if not (graph and same):
+            fail(f"ConvLSTM batch {b}: not a CUDA graph whose replay is its "
+                 "eager run")
+    im.release()
+    print(f"layers: ConvLSTM served in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def custom_model(L, topo):
+    """examples/autograd/custom.py's graph: Dense(1), then a Lambda
+    adding 1."""
+    a = topo.Input(shape=(2,))
+    b = L.Dense(1)(a)
+    c = L.Lambda(function=lambda t: t + 1.0)(b)
+    return topo.Model(input=a, output=c)
+
+
+def custom_loss(A):
+    """custom.py's MAE in autograd vocabulary, one value per row."""
+    def mean_absolute_error(y_true, y_pred):
+        return A.mean(A.abs(y_true - y_pred), axis=1)
+
+    return mean_absolute_error
+
+
+def custom_data(n=CUSTOM_ROWS):
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    y = ((2 * x).sum(1) + 0.4).reshape(-1, 1).astype(np.float32)
+    return x, y
+
+
+def synth_digits(n=VAE_ROWS, seed=0):
+    """apps/variational-autoencoder/vae.py's blocky two-family digits."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n, VAE_SIDE, VAE_SIDE), np.float32)
+    for i in range(n):
+        cx, cy = rng.integers(4, VAE_SIDE - 4, 2)
+        s = int(rng.integers(2, 4))
+        if i % 2 == 0:
+            x[i, cy - s:cy + s, cx - s:cx + s] = 1.0
+        else:
+            x[i, cy - s:cy + s, cx - 1:cx + 1] = 1.0
+            x[i, cy - 1:cy + 1, cx - s:cx + s] = 1.0
+    x += rng.normal(0, 0.05, x.shape).astype(np.float32)
+    return np.clip(x, 0.0, 1.0).reshape(n, VAE_SIDE * VAE_SIDE)
+
+
+def build_vae(A, L, topo):
+    """vae.py's ``build_vae`` over either package: ``[x, eps] ->
+    concat(recon, mu, logvar)`` with z = mu + eps * exp(logvar / 2) in
+    autograd Variable math."""
+    d = VAE_SIDE * VAE_SIDE
+    x_in = topo.Input(shape=(d,), name="pixels")
+    eps_in = topo.Input(shape=(VAE_LATENT,), name="eps")
+    h = L.Dense(64, activation="relu", name="enc1")(x_in)
+    mu = L.Dense(VAE_LATENT, name="mu")(h)
+    logvar = L.Dense(VAE_LATENT, name="logvar")(h)
+    z = mu + eps_in * A.exp(logvar * 0.5)
+    hd = L.Dense(64, activation="relu", name="dec1")(z)
+    recon = L.Dense(d, activation="sigmoid", name="dec_out")(hd)
+    packed = L.Merge(mode="concat", concat_axis=-1,
+                     name="packed")([recon, mu, logvar])
+    return topo.Model([x_in, eps_in], packed, name="vae")
+
+
+def vae_loss(y_true, y_pred):
+    """vae.py's loss in torch: reconstruction BCE plus KL, batch mean."""
+    d = VAE_SIDE * VAE_SIDE
+    recon = y_pred[:, :d]
+    mu = y_pred[:, d:d + VAE_LATENT]
+    logvar = y_pred[:, d + VAE_LATENT:]
+    eps = 1e-6
+    rec = -torch.sum(y_true * torch.log(recon + eps)
+                     + (1 - y_true) * torch.log(1 - recon + eps), dim=-1)
+    kl = -0.5 * torch.sum(1 + logvar - mu ** 2 - torch.exp(logvar), dim=-1)
+    return torch.mean(rec + kl)
+
+
+def vae_feature_set(x, seed=1):
+    """vae.py's feed: eps drawn fresh for every batch by a
+    TransformedFeatureSet."""
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+
+    rng = np.random.default_rng(seed)
+    base = ArrayFeatureSet([x, np.zeros((len(x), VAE_LATENT), np.float32)],
+                           x)
+    return base.transform(lambda xs, y: (
+        [xs[0], rng.normal(size=xs[1].shape).astype(np.float32)], y))
+
+
+def step_errors(label, net, criterion, x, y):
+    """One SGD(0.01) train step of ``net`` from its weights in f32 on the
+    card and on the CPU and in f64 on both; the forward output, the loss
+    and the updated weights against the CPU's f64 run (see
+    LIB_F32_BOUND, F64_BOUND). Fails out of bound."""
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator, TrainState
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+
+    compute_dtype, net.compute_dtype = net.compute_dtype, None
+    try:
+        est = Estimator(net, SGD(lr=0.01))
+        est._ensure_state()
+        step = est._make_train_step(criterion)
+        runs = {}
+        for name, dev, dt in (("card", est.ctx.device, torch.float32),
+                              ("cpu", "cpu", torch.float32),
+                              ("exact", "cpu", torch.float64),
+                              ("card64", est.ctx.device, torch.float64)):
+            params = _to(est.tstate.params, dev, dt)
+            ts = TrainState(params, _to(est.tstate.model_state, dev, dt),
+                            est._tx().init(params), 0)
+            xs, ys = _to(x, dev, dt), _to(y, dev, dt)
+            with torch.no_grad():
+                out = net.apply(ts.params, ts.model_state, xs)[0]
+            new, loss = step(ts, xs, ys, None)
+            runs[name] = (out.double().cpu(), loss.double().cpu(),
+                          [t.double().cpu() for t in tree_leaves(new.params)])
+        start = [t.double().cpu() for t in tree_leaves(est.tstate.params)]
+    finally:
+        net.compute_dtype = compute_dtype
+    ox, lx, px = runs["exact"]
+    update = math.sqrt(sum(float(((a - s) ** 2).sum())
+                           for a, s in zip(px, start)))
+    errs = {}
+    for name in ("card", "cpu", "card64"):
+        o, l, p = runs[name]
+        errs[name] = {
+            "out": float((o - ox).abs().max() / max(1.0, float(
+                ox.abs().max()))),
+            "loss": float((l - lx).abs() / max(1.0, float(lx.abs()))),
+            "update": math.sqrt(sum(float(((a - b) ** 2).sum())
+                                    for a, b in zip(p, px))) / update}
+    print(f"layers: {label} one train step, against the CPU's f64: " + "; ".join(
+        f"{n} " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+        for n, e in errs.items()) + f" (bounds: card f32 {LIB_F32_BOUND:g}, "
+        f"card f64 {F64_BOUND:g})", flush=True)
+    if not (max(errs["card"].values()) <= LIB_F32_BOUND
+            and max(errs["card64"].values()) <= F64_BOUND):
+        fail(f"{label}: the card's train step is off the CPU's")
+    return errs
+
+
+def autograd_slice(rng):
+    """Phase 10b: custom.py in both loss forms (equal losses, the learned
+    weights), the VAE with CustomLoss and a fresh eps per batch; one step
+    of each card against CPU."""
+    from analytics_zoo_tpu_torch import autograd as A
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.keras import layers as L
+    from analytics_zoo_tpu_torch.keras.engine import topology as topo
+    from analytics_zoo_tpu_torch.keras.engine.base import reset_name_counts
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD, Adam
+
+    x, y = custom_data()
+    runs, init = {}, None
+    for form in ("function", "CustomLoss"):
+        reset_name_counts()
+        model = custom_model(L, topo)
+        loss = custom_loss(A)
+        if form == "CustomLoss":
+            loss = A.CustomLoss(loss)
+        if init is None:  # both forms start from the same weights
+            model.ensure_params()
+            init = _to(model.params, "cpu")
+            step_errors("autograd custom.py", model, loss, x[:64], y[:64])
+        model.params = _to(init, get_nncontext().device)
+        model.compile(optimizer=SGD(lr=1e-2), loss=loss)
+        t0 = time.perf_counter()
+        model.fit(x, y, batch_size=CUSTOM_BATCH, nb_epoch=CUSTOM_EPOCHS)
+        wall = time.perf_counter() - t0
+        w = model.get_weights()
+        layer = next(v for v in w.values() if "kernel" in v)
+        pred = model.predict(x, batch_size=256)
+        runs[form] = (np.asarray(model._estimator.train_losses),
+                      layer["kernel"].ravel(), float(layer["bias"][0]),
+                      float(np.abs(pred - y).mean()))
+        print(f"layers: autograd custom.py, {form} form: {CUSTOM_EPOCHS} "
+              f"epochs ({len(runs[form][0])} steps) in {wall:.1f} s; final "
+              f"MAE {runs[form][3]:.5f} (bound {CUSTOM_MAE_BOUND:g}); Dense "
+              f"kernel "
+              f"{runs[form][1].tolist()} (target [2, 2]), bias "
+              f"{runs[form][2]:.5f} (target -0.6; bound "
+              f"{CUSTOM_WEIGHT_BOUND:g})", flush=True)
+    (la, ka, ba, _), (lb, kb, bb, _) = runs["function"], runs["CustomLoss"]
+    same = la.shape == lb.shape and np.array_equal(la, lb)
+    print(f"layers: custom.py's two loss forms give equal losses at every "
+          f"step: {same} (max |diff| "
+          f"{float(np.abs(la - lb).max()) if la.shape == lb.shape else 'n/a'})",
+          flush=True)
+    if not same:
+        fail("custom.py: the function and CustomLoss forms differ")
+    if not (np.abs(ka - 2.0).max() < CUSTOM_WEIGHT_BOUND
+            and abs(ba + 0.6) < CUSTOM_WEIGHT_BOUND
+            and runs["function"][3] < CUSTOM_MAE_BOUND):
+        fail("custom.py: the learned weights are not near (2, 2) and -0.6, "
+             "or the MAE is not below its bound")
+
+    reset_name_counts()
+    xv = synth_digits()
+    vae = build_vae(A, L, topo)
+    loss = A.CustomLoss(vae_loss)
+    eps = np.random.default_rng(2).normal(
+        size=(64, VAE_LATENT)).astype(np.float32)
+    step_errors("VAE", vae, loss, [xv[:64], eps], xv[:64])
+    vae.compile(optimizer=Adam(lr=VAE_LR), loss=loss)
+    t0 = time.perf_counter()
+    vae.fit(vae_feature_set(xv), batch_size=VAE_BATCH, nb_epoch=VAE_EPOCHS)
+    wall = time.perf_counter() - t0
+    first, last = losses_report(f"layers: VAE, {VAE_EPOCHS} epochs in "
+                                f"{wall:.1f} s", vae._estimator.train_losses)
+    xt = synth_digits(64, seed=9)
+    packed = vae.predict([xt, np.zeros((64, VAE_LATENT), np.float32)],
+                         batch_size=64)
+    recon_mse = float(np.mean((packed[:, :VAE_SIDE ** 2] - xt) ** 2))
+    baseline = float(np.mean((xt - xv.mean(0)) ** 2))
+    dec = topo.Sequential(name="decoder")
+    dec.add(L.Dense(64, activation="relu", input_shape=(VAE_LATENT,),
+                    name="dec1"))
+    dec.add(L.Dense(VAE_SIDE ** 2, activation="sigmoid", name="dec_out"))
+    dec.compile(optimizer=Adam(), loss="mse")
+    dec.set_weights({k: v for k, v in vae.get_weights().items()
+                     if k in ("dec1", "dec_out")})
+    samples = dec.predict(np.random.default_rng(3).normal(
+        size=(16, VAE_LATENT)).astype(np.float32), batch_size=16)
+    sharpness = float(np.mean(np.minimum(samples, 1 - samples)))
+    print(f"layers: VAE held-out recon MSE {recon_mse:.5f} (the data mean "
+          f"image's {baseline:.5f}); sample sharpness {sharpness:.4f} (lower "
+          f"= nearer the binary digit manifold)", flush=True)
+    if not (last < first and recon_mse < baseline):
+        fail("VAE: the loss did not fall or the reconstruction is no better "
+             "than the mean image")
+
+
+def _sweep_cases(L):
+    """(name, layer, batch-free input shape(s), input kind) of every layer
+    the layer library added, at small widths."""
+    from analytics_zoo_tpu_torch.autograd.variable import ParameterLayer
+
+    img, vol = (3, 8, 8), (2, 4, 6, 6)
+    cases = [
+        ("Parameter", ParameterLayer((3, 4)), (5,), "normal"),
+        ("Permute", L.Permute((2, 3, 1)), (3, 4, 5), "normal"),
+        ("RepeatVector", L.RepeatVector(3), (6,), "normal"),
+        ("Squeeze", L.Squeeze(2), (3, 1, 4), "normal"),
+        ("ExpandDim", L.ExpandDim(1), (3, 4), "normal"),
+        ("Masking", L.Masking(0.0), (5, 3), "normal"),
+        ("Select", L.Select(1, -1), (3, 4), "normal"),
+        ("Narrow", L.Narrow(2, -3, 2), (3, 5), "normal"),
+        ("LeakyReLU", L.LeakyReLU(0.2), (12,), "normal"),
+        ("ELU", L.ELU(0.7), (12,), "normal"),
+        ("ThresholdedReLU", L.ThresholdedReLU(0.5), (12,), "normal"),
+        ("SReLU", L.SReLU(), (12,), "normal"),
+        ("PReLU", L.PReLU(), (12,), "normal"),
+        ("GaussianNoise", L.GaussianNoise(0.3), (12,), "normal"),
+        ("GaussianDropout", L.GaussianDropout(0.3), (12,), "normal"),
+        ("SpatialDropout1D", L.SpatialDropout1D(0.3), (5, 4), "normal"),
+        ("SpatialDropout2D", L.SpatialDropout2D(0.3), img, "normal"),
+        ("Convolution3D", L.Convolution3D(4, 3, 3, 3, border_mode="same"),
+         vol, "normal"),
+        ("Convolution3D-tf", L.Conv3D(4, 3, subsample=2,
+                                      dim_ordering="tf"), (5, 7, 7, 2),
+         "normal"),
+        ("Deconvolution2D", L.Deconvolution2D(4, 3, 3, subsample=(2, 2)),
+         img, "normal"),
+        ("Deconvolution2D-tf", L.Deconvolution2D(4, 3, 2,
+                                                 dim_ordering="tf"),
+         (8, 8, 3), "normal"),
+        ("MaxPooling3D", L.MaxPooling3D(2), vol, "normal"),
+        ("AveragePooling3D", L.AveragePooling3D(3, strides=2,
+                                                border_mode="same"),
+         vol, "normal"),
+        ("GlobalMaxPooling3D", L.GlobalMaxPooling3D(), vol, "normal"),
+        ("GlobalAveragePooling3D", L.GlobalAveragePooling3D(), vol,
+         "normal"),
+        ("ZeroPadding1D", L.ZeroPadding1D((1, 2)), (5, 3), "normal"),
+        ("ZeroPadding3D", L.ZeroPadding3D((1, 0, 2)), vol, "normal"),
+        ("Cropping1D", L.Cropping1D((1, 2)), (6, 3), "normal"),
+        ("Cropping2D", L.Cropping2D(((1, 0), (2, 1))), img, "normal"),
+        ("UpSampling1D", L.UpSampling1D(3), (4, 2), "normal"),
+        ("UpSampling3D", L.UpSampling3D((2, 1, 2)), vol, "normal"),
+        ("LocallyConnected1D", L.LocallyConnected1D(4, 3), (9, 3),
+         "normal"),
+        ("Highway", L.Highway(activation="relu"), (16,), "normal"),
+        ("MaxoutDense", L.MaxoutDense(6, nb_feature=4), (16,), "normal"),
+        ("ConvLSTM2D", L.ConvLSTM2D(4, 3, return_sequences=True),
+         (3, 2, 6, 6), "normal"),
+        ("WithinChannelLRN2D", L.WithinChannelLRN2D(3, alpha=0.5), img,
+         "normal"),
+        ("Identity", L.Identity(), (12,), "normal"),
+        ("Exp", L.Exp(), (12,), "normal"),
+        ("Log", L.Log(), (12,), "pos"),
+        ("Sqrt", L.Sqrt(), (12,), "pos"),
+        ("Square", L.Square(), (12,), "normal"),
+        ("Negative", L.Negative(), (12,), "normal"),
+        ("AddConstant", L.AddConstant(1.5), (12,), "normal"),
+        ("MulConstant", L.MulConstant(-2.5), (12,), "normal"),
+        ("Power", L.Power(2.5, scale=0.5, shift=1.0), (12,), "pos"),
+        ("Softmax", L.Softmax(), (12,), "normal"),
+        ("HardTanh", L.HardTanh(-0.5, 0.8), (12,), "normal"),
+        ("HardShrink", L.HardShrink(0.4), (12,), "normal"),
+        ("SoftShrink", L.SoftShrink(0.4), (12,), "normal"),
+        ("Threshold", L.Threshold(0.2, -1.0), (12,), "normal"),
+        ("BinaryThreshold", L.BinaryThreshold(0.1), (12,), "normal"),
+        ("RReLU", L.RReLU(), (12,), "normal"),
+        ("Max", L.Max(2), (3, 4), "normal"),
+        ("CMul", L.CMul((1, 3, 1)), (3, 4), "normal"),
+        ("CAdd", L.CAdd((1, 1, 4)), (3, 4), "normal"),
+        ("Mul", L.Mul(), (3, 4), "normal"),
+        ("Scale", L.Scale((1, 3, 4)), (3, 4), "normal"),
+        ("Expand", L.Expand((3, 4)), (1, 4), "normal"),
+        ("GetShape", L.GetShape(), (3, 4), "normal"),
+        ("SelectTable", L.SelectTable(1), [(3,), (4,)], "normal"),
+        ("GaussianSampler", L.GaussianSampler(), [(4,), (4,)], "normal"),
+        ("ResizeBilinear-grow", L.ResizeBilinear(13, 11), img, "normal"),
+        ("ResizeBilinear-shrink", L.ResizeBilinear(3, 5), img, "normal"),
+        ("ResizeBilinear-corners", L.ResizeBilinear(
+            11, 5, align_corners=True, dim_ordering="tf"), (8, 8, 3),
+         "normal"),
+        ("LRN2D", L.LRN2D(alpha=0.5, n=3), (6, 4, 4), "normal"),
+        ("Cropping3D", L.Cropping3D(((1, 0), (0, 2), (1, 1))), vol,
+         "normal"),
+        ("AtrousConvolution1D", L.AtrousConvolution1D(
+            3, 3, atrous_rate=2, border_mode="same"), (9, 2), "normal"),
+        ("ShareConvolution2D", L.ShareConvolution2D(3, 3, 3), img,
+         "normal"),
+        ("LocallyConnected2D", L.LocallyConnected2D(3, 2, 3), img,
+         "normal"),
+        ("ConvLSTM3D", L.ConvLSTM3D(3, 3), (2, 2, 4, 4, 4), "normal"),
+        ("SpatialDropout3D", L.SpatialDropout3D(0.4), vol, "normal"),
+        ("SparseDense", L.SparseDense(5), (12,), "normal"),
+        ("SparseEmbedding", L.SparseEmbedding(20, 4), (6,), "int20"),
+        ("ComputeMask", L.ComputeMask(mask_value=0.0), (5, 3), "normal"),
+    ]
+    return cases
+
+
+def sweep_input(rng, shape, kind, batch=2):
+    if kind == "pos":
+        return rng.uniform(0.5, 2.0, (batch,) + shape).astype(np.float32)
+    if kind.startswith("int"):
+        return rng.integers(0, int(kind[3:]), (batch,) + shape).astype(
+            np.int64)
+    return rng.standard_normal((batch,) + shape).astype(np.float32)
+
+
+def layer_sweep(rng):
+    """Phase 10c: every layer the layer library added, forward and the
+    gradients to its input and weights on the card in f32 against the
+    CPU's f64 (LIB_F32_BOUND), and its output dtype under bf16 on the card
+    equal to the CPU route's (computed on the meta device). Returns the
+    number of layers."""
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.keras import layers as L
+
+    dev = get_nncontext().device
+    worst, n = ("", 0.0), 0
+    for name, layer, shape, kind in _sweep_cases(L):
+        shapes = shape if isinstance(shape, list) else [shape]
+        layer.ensure_built([(None,) + s for s in shapes]
+                           if isinstance(shape, list) else (None,) + shape)
+        params = {s.name: torch.tensor(rng.normal(0, 0.5, s.shape),
+                                       dtype=torch.float32)
+                  for s in layer.weight_specs}
+        xs = [torch.tensor(sweep_input(rng, s, kind)) for s in shapes]
+        res = {}
+        for route, d, dt in (("card", dev, torch.float32),
+                             ("exact", "cpu", torch.float64)):
+            p = {k: v.to(d, dt).requires_grad_(True)
+                 for k, v in params.items()}
+            x = [v.to(d, dt if v.is_floating_point() else v.dtype)
+                 .requires_grad_(v.is_floating_point()) for v in xs]
+            out = layer.call(p, x if isinstance(shape, list) else x[0])
+            grads = []
+            if out.requires_grad:
+                leaves = [t for t in list(p.values()) + x if t.requires_grad]
+                cot = torch.ones_like(out) + 0.1 * torch.arange(
+                    out.numel(), device=d, dtype=out.dtype).reshape(
+                        out.shape) / max(out.numel(), 1)
+                grads = torch.autograd.grad(out, leaves, cot,
+                                            allow_unused=True)
+                grads = [torch.zeros_like(t) if g is None else g
+                         for g, t in zip(grads, leaves)]
+            res[route] = [t.detach().double().cpu() for t in [out] + grads]
+        err = max(float((a - e).abs().max() / max(1.0, float(
+            e.abs().max()))) for a, e in zip(res["card"], res["exact"]))
+        dtypes = []
+        # the CPU route's dtype on the meta device (the CPU lacks some bf16
+        # kernels, avg_pool3d's among them; dtypes do not depend on it)
+        for d in (dev, "meta"):
+            p = {k: v.to(d, torch.bfloat16) for k, v in params.items()}
+            x = [v.to(d, torch.bfloat16 if v.is_floating_point()
+                      else v.dtype) for v in xs]
+            with torch.no_grad():
+                dtypes.append(layer.call(
+                    p, x if isinstance(shape, list) else x[0]).dtype)
+        if err > worst[1]:
+            worst = (name, err)
+        if not (err <= LIB_F32_BOUND and dtypes[0] == dtypes[1]):
+            fail(f"layer sweep {name}: card error {err:.3e} (bound "
+                 f"{LIB_F32_BOUND:g}); bf16 output dtype card {dtypes[0]}, "
+                 f"CPU route {dtypes[1]}")
+        n += 1
+    torch.cuda.synchronize()
+    print(f"layers: sweep over {n} layers: forward, input and weight "
+          f"gradients on the card in f32 against the CPU's f64 within "
+          f"{LIB_F32_BOUND:g} (largest {worst[1]:.3e}, {worst[0]}); every "
+          f"bf16 output dtype on the card equal to the CPU route's",
+          flush=True)
+    random_layers_in_training(dev)
+    return n
+
+
+# 10c's random layers in training, on the card from a card generator, by
+# the statistics the CPU tests use: at 1e5-2e5 draws a mean or a standard
+# deviation is within 0.01 of its value (about 5 standard errors), the
+# dropped share within 0.03 of p (6 standard errors over 8000 channels).
+RANDOM_STAT_BOUND, DROP_SHARE_BOUND = 0.01, 0.03
+
+
+def random_layers_in_training(dev):
+    """Phase 10c: GaussianNoise, GaussianDropout, the SpatialDropouts,
+    RReLU and GaussianSampler with ``training=True`` on the card, drawn
+    from a card generator and from nothing else: their statistics
+    (RANDOM_STAT_BOUND, DROP_SHARE_BOUND), whole channels dropped, the kept
+    ones scaled by 1 / (1 - p), slopes within [lower, upper), and finite
+    gradients to their inputs. Returns the number of layers."""
+    from analytics_zoo_tpu_torch.keras import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    data = torch.Generator(device=dev).manual_seed(11)  # the inputs
+
+    def rand(*shape):
+        return torch.rand(shape, generator=data, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=data, device=dev)
+
+    state = torch.cuda.get_rng_state(dev)
+    grads_ok, bad = True, []
+
+    def train(layer, x, shape=None):
+        nonlocal grads_ok
+        multi = isinstance(x, list)
+        layer.ensure_built(shape or (None,) + tuple(x.shape[1:]))
+        xs = [t.clone().requires_grad_(True) for t in (x if multi else [x])]
+        y = layer.call({}, xs if multi else xs[0], training=True, rng=gen)
+        gs = torch.autograd.grad(y.sum(), xs)
+        grads_ok &= all(bool(torch.isfinite(g).all()) for g in gs)
+        return y.detach()
+
+    z = train(L.GaussianNoise(0.5), torch.zeros(400, 500, device=dev))
+    if not (abs(z.mean().item()) < RANDOM_STAT_BOUND
+            and abs(z.std().item() - 0.5) < RANDOM_STAT_BOUND):
+        bad.append(f"GaussianNoise mean {z.mean().item():.4f} std "
+                   f"{z.std().item():.4f} (0, 0.5)")
+    p = 0.3
+    d = train(L.GaussianDropout(p), torch.ones(400, 500, device=dev))
+    if not (abs(d.mean().item() - 1) < RANDOM_STAT_BOUND
+            and abs(d.var().item() - p / (1 - p)) < RANDOM_STAT_BOUND):
+        bad.append(f"GaussianDropout mean {d.mean().item():.4f} var "
+                   f"{d.var().item():.4f} (1, {p / (1 - p):.4f})")
+    p, x4, x5 = 0.4, rand(200, 40, 3, 3) + 1, rand(200, 40, 2, 2, 2) + 1
+    for name, layer, x, ch in (
+            ("SpatialDropout1D", L.SpatialDropout1D(p),
+             rand(200, 6, 40) + 1, 2),
+            ("SpatialDropout2D-th", L.SpatialDropout2D(p), x4, 1),
+            ("SpatialDropout2D-tf", L.SpatialDropout2D(p, "tf"),
+             x4.permute(0, 2, 3, 1).contiguous(), 3),
+            ("SpatialDropout3D-th", L.SpatialDropout3D(p), x5, 1),
+            ("SpatialDropout3D-tf", L.SpatialDropout3D(p, "tf"),
+             x5.permute(0, 2, 3, 4, 1).contiguous(), 4)):
+        y = train(layer, x)
+        dims = [k for k in range(1, x.dim()) if k != ch]
+        zero, kept = (y == 0).all(dim=dims), (y != 0).all(dim=dims)
+        share = zero.float().mean().item()
+        if not (bool((zero | kept).all())
+                and abs(share - p) < DROP_SHARE_BOUND
+                and torch.allclose(y[y != 0] / x[y != 0],
+                                   torch.tensor(1 / (1 - p), device=dev))):
+            bad.append(f"{name}: channels whole {bool((zero | kept).all())}"
+                       f", dropped share {share:.4f} (p {p})")
+    lower, upper = 0.1, 0.4
+    x = -rand(300, 400) - 0.1
+    slopes = train(L.RReLU(lower, upper), x) / x
+    if not (slopes.min().item() >= lower - 1e-6
+            and slopes.max().item() < upper + 1e-6
+            and abs(slopes.mean().item() - (lower + upper) / 2)
+            < RANDOM_STAT_BOUND):
+        bad.append(f"RReLU slopes {slopes.min().item():.4f}-"
+                   f"{slopes.max().item():.4f} mean "
+                   f"{slopes.mean().item():.4f} ([{lower}, {upper}))")
+    m, lv = randn(200, 300), randn(200, 300) * 0.5
+    out = train(L.GaussianSampler(), [m, lv], [(None, 300), (None, 300)])
+    eps = (out - m) / torch.exp(lv * 0.5)
+    if not (abs(eps.mean().item()) < RANDOM_STAT_BOUND
+            and abs(eps.std().item() - 1) < RANDOM_STAT_BOUND):
+        bad.append(f"GaussianSampler eps mean {eps.mean().item():.4f} std "
+                   f"{eps.std().item():.4f} (0, 1)")
+    if not grads_ok:
+        bad.append("a gradient is not finite")
+    if not torch.equal(torch.cuda.get_rng_state(dev), state):
+        bad.append("a layer drew from the global generator")
+    if bad:
+        fail("random layers in training: " + "; ".join(bad))
+    print(f"layers: 10 random layers in training on the card from a card "
+          f"generator only: statistics within {RANDOM_STAT_BOUND:g} (dropped "
+          f"share within {DROP_SHARE_BOUND:g} of p), whole channels, kept "
+          f"scaled by 1/(1-p), RReLU slopes in [{lower}, {upper}), finite "
+          f"input gradients", flush=True)
+    return 10
+
+
+def regularized_graph(L, topo):
+    """ids -> Embedding -> LSTM, image -> Conv2D -> Flatten, concatenated
+    -> Dense(3): every weight with an L1L2, L1 or L2 regularizer."""
+    ids = topo.Input((5,))
+    img = topo.Input((2, 6, 6))
+    e = L.Embedding(12, 4, W_regularizer=L.L1L2(0.01, 0.02),
+                    name="emb")(ids)
+    h = L.LSTM(4, W_regularizer=L.L2(0.01), U_regularizer=L.L1(0.005),
+               b_regularizer=L.L1L2(0.01, 0.01), name="lstm")(e)
+    c = L.Flatten(name="flat")(L.Convolution2D(
+        2, 3, 3, activation="relu", W_regularizer=L.L1L2(0.003, 0.01),
+        b_regularizer=L.L2(0.1), name="conv")(img))
+    out = L.Dense(3, activation="softmax", W_regularizer=L.L1L2(0.01, 0.01),
+                  b_regularizer=L.L1(0.02), name="head")(
+        L.merge([h, c], mode="concat"))
+    return topo.Model([ids, img], out)
+
+
+def regularized_data(rng, n):
+    return ([rng.integers(0, 12, (n, 5)).astype(np.int64),
+             rng.standard_normal((n, 2, 6, 6)).astype(np.float32)],
+            rng.integers(0, 3, n).astype(np.int64))
+
+
+def keras2_cnn(k2, side=16, classes=4):
+    """A keras2 functional CNN: channels-last Conv2D, Add, Concatenate,
+    the global pools and Dense, with Keras-2 initializers."""
+    inp = k2.Input(shape=(side, side, 3))
+    a = k2.Conv2D(8, 3, padding="same", activation="relu",
+                  kernel_initializer="he_normal")(inp)
+    b = k2.Conv2D(8, 1, activation="relu",
+                  kernel_initializer="glorot_normal")(inp)
+    c = k2.Concatenate()([a, k2.Add()([a, b])])
+    c = k2.MaxPooling2D((2, 2))(c)
+    d = k2.Conv2D(8, 3, strides=2, padding="same",
+                  kernel_initializer="lecun_normal")(c)
+    h = k2.Concatenate()([k2.GlobalAveragePooling2D()(d),
+                          k2.GlobalMaxPooling2D()(d)])
+    out = k2.Dense(classes, activation="softmax",
+                   kernel_initializer="random_uniform",
+                   bias_initializer="zeros")(h)
+    return k2.Model(inp, out)
+
+
+def planted_patches(rng, n, side=16, classes=4):
+    """Images of noise with a bright 4x4 patch in one of ``classes``
+    quadrants, labelled by the quadrant."""
+    y = rng.integers(0, classes, n)
+    x = rng.normal(0, 0.3, (n, side, side, 3)).astype(np.float32)
+    h = side // 2
+    for i, q in enumerate(y):
+        r, c = (q // 2) * h + 2, (q % 2) * h + 2
+        x[i, r:r + 4, c:c + 4] += 2.0
+    return x, y.astype(np.int64)
+
+
+def regularizer_and_keras2_slices(rng):
+    """Phase 10c's models: the L1L2-regularized graph's penalty and one
+    train step card against CPU; the keras2 CNN trained a few epochs."""
+    from analytics_zoo_tpu_torch import keras2
+    from analytics_zoo_tpu_torch.keras import layers as L
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.engine import topology as topo
+    from analytics_zoo_tpu_torch.keras.optimizers import Adam
+
+    net = regularized_graph(L, topo)
+    net.ensure_params()
+    card = float(net.regularization(net.params))
+    exact = float(net.regularization(_to(net.params, "cpu", torch.float64)))
+    x, y = regularized_data(rng, 16)
+    print(f"layers: L1L2 graph penalty card {card:.7f}, CPU f64 "
+          f"{exact:.7f} (relative {abs(card - exact) / exact:.3e})",
+          flush=True)
+    if not abs(card - exact) <= LIB_F32_BOUND * exact:
+        fail("the regularization penalty on the card is off the CPU's")
+    step_errors("L1L2 graph (Dense, Convolution2D, Embedding, LSTM)", net,
+                objectives.sparse_categorical_crossentropy, x, y)
+
+    cnn = keras2_cnn(keras2)
+    xi, yi = planted_patches(rng, 512)
+    cnn.compile(optimizer=Adam(lr=0.01),
+                loss="sparse_categorical_crossentropy",
+                metrics=["accuracy"])
+    cnn.fit(xi, yi, batch_size=64, nb_epoch=3)
+    first, last = losses_report("layers: keras2 CNN, 3 epochs of 512",
+                                cnn._estimator.train_losses)
+    acc = cnn.evaluate(xi, yi, batch_size=64)["accuracy"]
+    print(f"layers: keras2 CNN training accuracy {acc:.4f} over 4 planted "
+          f"classes", flush=True)
+    if not last < first:
+        fail("keras2 CNN: the loss did not fall")
+
+
+def layer_library_phase(fa, seed):
+    """Phase 10: the ConvLSTM next-frame model, the autograd programs and
+    the layer sweep; none launches a flash kernel. Returns its
+    launches."""
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    zero_launches(fa)  # phase 10's runs start here
+    for part, run in (("10a", conv_lstm_slice), ("10b", autograd_slice),
+                      ("10c sweep", layer_sweep),
+                      ("10c models", regularizer_and_keras2_slices)):
+        t1 = time.perf_counter()
+        run(rng)
+        torch.cuda.empty_cache()
+        print(f"layers: {part} took {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    launches = read_launches(fa)  # ... and end here
+    print(f"layers: flash kernel launches over phase 10 (forward, dq, "
+          f"dk/dv) {launches}: none of these models has attention",
+          flush=True)
+    if any(launches):
+        fail("a layer-library model launched a flash kernel")
+    print(f"layers: phase 10 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5178,6 +6077,9 @@ def main(argv=None) -> int:
     # -- 9. the tagging and ranking zoo, tfpark's BERTClassifier ------------
     zoo_launches = text_zoo_phase(fa, args.seed + 9)
 
+    # -- 10. the layer library: ConvLSTM, autograd, the layer sweep ----------
+    layer_launches = layer_library_phase(fa, args.seed + 10)
+
     bwd_src = "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu"
     bwd_pair = ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
     serve = fwd[0]
@@ -5246,10 +6148,12 @@ def main(argv=None) -> int:
         bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
                 train_launches[2] + resume_launches[2] + zoo_launches[2],
                 dkv_err)]
-    for row, n, z in zip(kernels, detection_launches, zoo_launches):
+    for row, n, z, lib in zip(kernels, detection_launches, zoo_launches,
+                              layer_launches):
         row["detection_launches"] = n  # phase 8's: no attention there
         # phase 9's: 0 over 9a-9d, so all of them BERTClassifier's (9e)
         row["text_zoo_launches"] = z
+        row["layer_library_launches"] = lib  # phase 10's: 0
     print(f"chip_smoke: the whole script took "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

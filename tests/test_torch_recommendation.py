@@ -26,11 +26,7 @@ from analytics_zoo_tpu_torch.inference import InferenceModel
 from analytics_zoo_tpu_torch.interop import load_jax_params
 from analytics_zoo_tpu_torch.keras.engine.base import reset_name_counts
 from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
-from analytics_zoo_tpu_torch.keras.layers import (
-    GRU,
-    Embedding,
-    WordEmbedding,
-)
+from analytics_zoo_tpu_torch.keras.layers import Embedding, WordEmbedding
 from analytics_zoo_tpu_torch.models import recommendation as trec
 from analytics_zoo_tpu_torch.models.common import ZooModel
 
@@ -240,12 +236,9 @@ def test_jax_saved_neural_cf_loads_into_the_port(tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: Embedding(10, 4, W_regularizer="l2"),
     # SessionRecommender and Ranker's MAP/NDCG are ported
-    # (tests/test_torch_ranking_zoo.py, tests/test_torch_training_surface.py);
-    # the recurrent layers' regularizers are not
-    lambda: GRU(4, U_regularizer="l2"),
-    lambda: GRU(4, W_regularizer="l2"),
+    # (tests/test_torch_ranking_zoo.py, tests/test_torch_training_surface.py),
+    # and the regularizers (tests/test_torch_regularizers.py)
     lambda: trec.NeuralCF(USERS, ITEMS, CLASSES).predict_image(None)])
 def test_unported_parts_raise(call):
     with pytest.raises(NotImplementedError):

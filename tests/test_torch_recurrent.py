@@ -217,14 +217,6 @@ def test_gradients_through_a_stack_match_jax(cell):
     _close(tg, jg, GRAD_TOL)
 
 
-@pytest.mark.parametrize("reg", ["W_regularizer", "U_regularizer",
-                                 "b_regularizer"])
-@pytest.mark.parametrize("cls", ["SimpleRNN", "LSTM", "GRU"])
-def test_regularizers_raise_naming_the_roadmap(reg, cls):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        getattr(TL, cls)(U, **{reg: "l2"})
-
-
 @pytest.mark.parametrize("shape", [(4, 8), (8, 4), (6, 6), (3, 2, 5)])
 def test_orthogonal_initializer(shape):
     """The recurrent kernels' initializer: orthonormal columns (or rows,
