@@ -25,10 +25,14 @@ span tracing, a global metrics registry, and compile-event accounting.
   capture of an ``InferenceModel`` bucket — so a serve-time recompile is
   observable process-wide.
 
+- **Tier families** in the global registry, one call per owner:
+  :func:`checkpoint_metrics` (``CheckpointManager``),
+  :func:`training_metrics` (``Estimator.train``) and
+  :func:`hot_reload_metrics` (``CheckpointWatcher``).
+
 The JAX package's families for tiers the port does not have yet wait for
-them (ROADMAP A8): checkpoint, data, hot-reload, batch, distributed,
-training, capture, flywheel, label and drift metrics, and the persistent
-AOT cache's counters (A4).
+them (ROADMAP A8): data, batch, distributed, capture, flywheel, label and
+drift metrics, and the persistent AOT cache's counters (A4).
 """
 
 from __future__ import annotations
@@ -865,3 +869,102 @@ def build_info(registry: Optional[MetricsRegistry] = None) -> Gauge:
     ).labels(**_build_info_values())
     g.set(1)
     return g
+
+
+def checkpoint_metrics() -> Dict[str, Any]:
+    """The fault-tolerance metric families in the global registry:
+    ``saves`` (counter ``zoo_checkpoint_saves_total``), ``save_seconds``
+    (summary ``zoo_checkpoint_save_seconds``), ``bytes`` (counter
+    ``zoo_checkpoint_bytes_total``) and ``restores`` (the labeled family
+    ``zoo_checkpoint_restores_total{outcome=...}``: call
+    ``.labels(outcome=...)`` with ``ok``/``corrupt``/``mismatch``/
+    ``missing``). One call per CheckpointManager, which holds the
+    children."""
+    reg = get_registry()
+    return {
+        "saves": reg.counter(
+            "zoo_checkpoint_saves_total",
+            "Checkpoints durably committed (tmp-dir + rename + COMMIT "
+            "marker).").labels(),
+        "save_seconds": reg.summary(
+            "zoo_checkpoint_save_seconds",
+            "Wall seconds per checkpoint serialize+commit (writer "
+            "thread — the train step is not blocked for this).").labels(),
+        "bytes": reg.counter(
+            "zoo_checkpoint_bytes_total",
+            "Array payload bytes committed across all "
+            "checkpoints.").labels(),
+        "restores": reg.counter(
+            "zoo_checkpoint_restores_total",
+            "Checkpoint restore attempts by outcome "
+            "(ok/corrupt/mismatch/missing).", labels=("outcome",)),
+    }
+
+
+_sweep_children: Optional[Dict[str, Counter]] = None
+
+
+def checkpoint_sweep_counters() -> Dict[str, Counter]:
+    """The process-global ``zoo_checkpoint_sweeps_total`` children keyed by
+    debris kind, which :func:`analytics_zoo_tpu_torch.ft.atomic.sweep_stale`
+    counts instead of deleting silently: ``staging`` (``ckpt_N.tmp``
+    directories from a crash mid-commit), ``uncommitted`` (``ckpt_N``
+    husks whose COMMIT marker never landed), ``retention`` (committed
+    checkpoints removed by a ``keep_steps`` sweep). ``orphan_shard`` and
+    ``dist_abort`` belong to the multi-host layout (ROADMAP A7) and stay
+    at 0 in the port; they are kept so the family's children match the
+    JAX package's."""
+    global _sweep_children
+    if _sweep_children is None:
+        fam = get_registry().counter(
+            "zoo_checkpoint_sweeps_total",
+            "Checkpoint debris removed by sweep_stale / the sharded-commit "
+            "abort path, by kind.",
+            labels=("kind",))
+        _sweep_children = {k: fam.labels(kind=k)
+                           for k in ("staging", "uncommitted", "retention",
+                                     "orphan_shard", "dist_abort")}
+    return _sweep_children
+
+
+def hot_reload_metrics() -> Dict[str, Any]:
+    """The serving hot-reload metric children in the global registry:
+    ``retries`` (counter ``zoo_hot_reload_retries_total``: transient
+    ``build_model``/register failures scheduled for another attempt) and
+    ``skips`` (counter ``zoo_hot_reload_skips_total``: checkpoint steps
+    abandoned as structurally bad, or after exhausting retries). One call
+    per :class:`~analytics_zoo_tpu_torch.ft.hot_reload.CheckpointWatcher`,
+    which holds the children."""
+    reg = get_registry()
+    return {
+        "retries": reg.counter(
+            "zoo_hot_reload_retries_total",
+            "Transient hot-reload failures that will be retried with "
+            "backoff.").labels(),
+        "skips": reg.counter(
+            "zoo_hot_reload_skips_total",
+            "Checkpoint steps the hot-reload watcher gave up on "
+            "(structural failure, or retries exhausted).").labels(),
+    }
+
+
+def training_metrics() -> Dict[str, Any]:
+    """The training metric children in the global registry: ``steps``
+    (counter ``zoo_train_steps_total``), ``step_seconds`` (summary
+    ``zoo_train_step_seconds``) and ``items_per_sec`` (gauge
+    ``zoo_train_items_per_sec``). One call per ``train()``, whose loop
+    holds the children."""
+    reg = get_registry()
+    return {
+        "steps": reg.counter(
+            "zoo_train_steps_total",
+            "Optimizer steps completed by Estimator.train.").labels(),
+        "step_seconds": reg.summary(
+            "zoo_train_step_seconds",
+            "Wall seconds per training step (drain granularity: a "
+            "drain observes its mean per-step time).").labels(),
+        "items_per_sec": reg.gauge(
+            "zoo_train_items_per_sec",
+            "Training throughput over the most recent drain "
+            "window.").labels(),
+    }

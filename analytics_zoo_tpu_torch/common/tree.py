@@ -11,26 +11,29 @@ def _is_namedtuple(tree) -> bool:
     return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
-def tree_map(fn: Callable, tree, *rest):
+def tree_map(fn: Callable, tree, *rest, is_leaf: Callable = None):
     """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest`` (trees of the same structure)."""
+    ``rest`` (trees of the same structure); a node for which ``is_leaf``
+    is true counts as one leaf, as in JAX (an int8 qleaf dict)."""
     if tree is None:
         return None
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        items = [tree_map(fn, v, *(r[i] for r in rest))
+        items = [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
                  for i, v in enumerate(tree)]
         return type(tree)(*items) if _is_namedtuple(tree) else type(tree)(
             items)
     return fn(tree, *rest)
 
 
-def tree_leaves(tree) -> List[Any]:
+def tree_leaves(tree, is_leaf: Callable = None) -> List[Any]:
     """The leaves in :func:`tree_map`'s order."""
     out: List[Any] = []
-    tree_map(out.append, tree)
+    tree_map(out.append, tree, is_leaf=is_leaf)
     return out
 
 

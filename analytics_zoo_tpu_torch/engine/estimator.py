@@ -36,15 +36,32 @@ stream), so that ``train(..., auto_resume=True)`` replays the epoch order,
 skips the batches already taken and continues bitwise. A flagged
 preemption saves, then raises ``PreemptedError``.
 
+Observability: each drain feeds the training metric families
+(``zoo_train_steps_total``, ``zoo_train_step_seconds``,
+``zoo_train_items_per_sec``). ``set_profile`` traces a window of steps of
+the next ``train`` with ``torch.profiler`` (CUDA activity on the card, CPU
+activity on the CPU) into ``log_dir`` and records the window as a
+``train.profiler_window`` host span. ``set_step_watchdog`` arms a stall
+detector over the iteration counter. Steps are launched asynchronously,
+so the counter advances when a step is enqueued, not when it finishes: a
+hung card stalls the loop at its next host read, which is the epoch's
+loss read (``torch.stack(losses).tolist()``), a loss-reading trigger's
+``loss.item()`` every step, a checkpoint's host snapshot, a device-cached
+set's index upload, or a launch once CUDA's launch queue is full. The
+watchdog is paused around the epoch-end checkpoint and validation, and
+around a preemption's save.
+
 Not ported yet, and raising ``NotImplementedError`` where the JAX package
-has a setter or an entry point: profiling, the step watchdog, ZeRO-1,
-``train_distributed`` and ``train_pipelined``.
+has a setter or an entry point: ZeRO-1, ``train_distributed`` and
+``train_pipelined``.
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import sys
+import threading
 import time
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
@@ -53,6 +70,11 @@ import torch
 from analytics_zoo_tpu_torch.common.nncontext import (
     get_nncontext,
     host_to_device,
+)
+from analytics_zoo_tpu_torch.common.observability import (
+    get_tracer,
+    monotonic_s,
+    training_metrics,
 )
 from analytics_zoo_tpu_torch.common.tree import (
     tree_leaves,
@@ -168,6 +190,150 @@ def _generator_state(gen: torch.Generator) -> str:
     return gen.get_state().numpy().tobytes().hex()
 
 
+class _StepWatchdog:
+    """Daemon thread asserting that the train loop's iteration counter
+    advances at least every ``timeout_s``: the stall detector behind
+    ``Estimator.set_step_watchdog``. Fires once per stall episode (re-arms
+    when progress resumes): a CRITICAL log, a faulthandler thread dump
+    (it shows the Python frame blocked on the hung call) and the optional
+    callback."""
+
+    def __init__(self, run_state, timeout_s: float,
+                 on_stall: Optional[Callable], clock=time.monotonic):
+        self.run_state = run_state
+        self.timeout_s = timeout_s
+        self.on_stall = on_stall
+        self._clock = clock
+        self._stop = threading.Event()
+        self._paused = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._last_it, self._last_t = run_state.iteration, clock()
+        self._fired = False
+
+    def start(self):
+        self._last_it, self._last_t = self.run_state.iteration, self._clock()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="azoo-step-watchdog")
+        self._thread.start()
+        return self
+
+    def pause(self):
+        """Suspend stall detection around phases that take no step
+        (validation, checkpoint writes): the counter does not advance
+        there and must not alarm."""
+        self._paused.set()
+
+    def resume(self):
+        self._paused.clear()
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+
+    def _run(self):
+        poll = max(0.5, self.timeout_s / 4.0)
+        while not self._stop.wait(poll):
+            self.poll_once()
+
+    def poll_once(self) -> bool:
+        """One look at the counter, at ``clock()``: re-arms the window on
+        progress (and while paused), fires once per stall episode. Returns
+        whether it fired."""
+        now = self._clock()
+        if self._paused.is_set():
+            self._last_t = now  # re-arm the window on resume
+            return False
+        it = self.run_state.iteration
+        if it != self._last_it:
+            self._last_it, self._last_t, self._fired = it, now, False
+            return False
+        if self._fired or now - self._last_t < self.timeout_s:
+            return False
+        self._fired = True
+        logger.critical(
+            "training stalled: no step completed for %.0fs (iteration "
+            "stuck at %d) — likely a hung device call; thread dump "
+            "follows", self.timeout_s, it)
+        try:
+            import faulthandler
+
+            faulthandler.dump_traceback(file=sys.stderr)
+        except Exception:  # noqa: BLE001 - diagnostics only
+            pass
+        if self.on_stall is not None:
+            try:
+                self.on_stall(self.run_state)
+            except Exception:  # noqa: BLE001 - the detector must live
+                logger.exception("step-watchdog on_stall callback failed")
+        return True
+
+
+class _ProfileWindow:
+    """``set_profile``'s window: a ``torch.profiler`` trace of steps
+    ``[start, start + num)`` of one ``train`` call (counted from 0 in that
+    call), written under ``log_dir`` as a ``*.pt.trace.json`` that
+    :mod:`~analytics_zoo_tpu_torch.common.trace_tools` reads. CUDA
+    activity on the card (the card is synchronised before the trace
+    stops, so the window's kernels are in it), CPU activity on the CPU."""
+
+    def __init__(self, log_dir: str, start: int, num: int, device):
+        self.log_dir, self.start, self.num = log_dir, start, num
+        self.device = device
+        self.started = self.done = False
+        self._prof = None
+        self._t0 = 0.0
+
+    def tick(self, steps: int) -> None:
+        """Called before each step with the steps this call has taken."""
+        if self.done:
+            return
+        if not self.started and steps >= self.start:
+            from torch.profiler import (
+                ProfilerActivity,
+                profile,
+                tensorboard_trace_handler,
+            )
+
+            acts = ([ProfilerActivity.CUDA] if self.device.type == "cuda"
+                    else [ProfilerActivity.CPU])
+            self._prof = profile(
+                activities=acts,
+                on_trace_ready=tensorboard_trace_handler(self.log_dir))
+            self._prof.start()
+            self.started = True
+            self._t0 = monotonic_s()
+        elif self.started and steps >= self.start + self.num:
+            self.stop()
+
+    def stop(self) -> None:
+        """End the trace (also when a step raised inside the window)."""
+        if not self.started or self.done:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        self.done = True
+        tracer = get_tracer()
+        if tracer.enabled:
+            # the device-trace window as one host span, so the Perfetto
+            # view shows where the profiler dump sits in the run
+            tracer.record_span("train.profiler_window",
+                               tracer.current_trace_id() or "train",
+                               self._t0, monotonic_s(), log_dir=self.log_dir)
+        logger.info("Profiler trace written to %s", self.log_dir)
+        try:  # diagnostics only: never fail training over a parse
+            from analytics_zoo_tpu_torch.common.trace_tools import top_ops
+
+            plane = "GPU" if self.device.type == "cuda" else "CPU"
+            for name, ms, count in top_ops(self.log_dir, line="",
+                                           plane_substr=plane, n=5):
+                logger.info("  top op %8.2f ms x%-5d %s", ms, count,
+                            name[:80])
+        except Exception as e:  # noqa: BLE001
+            logger.debug("trace summary unavailable: %s", e)
+
+
 class TrainState(NamedTuple):
     params: Any
     model_state: Any
@@ -221,6 +387,8 @@ class Estimator:
         self.train_losses: List[float] = []
         self.batch_seconds: List[float] = []
         self.step_events: List[Any] = []
+        self._profile: Optional[tuple] = None
+        self._watchdog: Optional[tuple] = None
 
     # -- configuration ---------------------------------------------------
 
@@ -285,11 +453,33 @@ class Estimator:
         self.val_summary = ValidationSummary(log_dir, app_name)
         return self
 
-    def set_profile(self, *args, **kwargs):
-        _not_ported("profiling")
+    def set_step_watchdog(self, timeout_s: float,
+                          on_stall: Optional[Callable] = None):
+        """Arm a training-loop stall detector. While ``train()`` runs, a
+        daemon thread checks that the iteration counter advances at least
+        every ``timeout_s`` seconds; on a stall it logs CRITICAL with a
+        thread dump (faulthandler) showing the Python frame the loop is
+        blocked in, and calls ``on_stall(run_state)`` if given (to alert,
+        checkpoint elsewhere, or ``os._exit`` for a supervisor restart).
+        It fires once per stall and re-arms when steps resume. Steps are
+        launched asynchronously, so a hung card stalls the loop at its
+        next host read (see the module docstring). Detection only: the
+        stuck native call cannot be interrupted from Python.
+        ``timeout_s=0`` disarms."""
+        self._watchdog = (float(timeout_s), on_stall) if timeout_s else None
+        return self
 
-    def set_step_watchdog(self, *args, **kwargs):
-        _not_ported("the step watchdog")
+    def set_profile(self, log_dir: str, start_iteration: int = 2,
+                    num_iterations: int = 3):
+        """Trace ``num_iterations`` steps of the next ``train()``,
+        beginning at its step ``start_iteration`` (the first steps, which
+        build kernels and the cuBLAS workspace, are skipped by default),
+        with ``torch.profiler`` into ``log_dir`` (a ``*.pt.trace.json``
+        that TensorBoard, Perfetto and
+        :mod:`~analytics_zoo_tpu_torch.common.trace_tools` read). One-shot:
+        call again for another trace."""
+        self._profile = (log_dir, int(start_iteration), int(num_iterations))
+        return self
 
     def train_distributed(self, *args, **kwargs):
         _not_ported("train_distributed")
@@ -629,7 +819,16 @@ class Estimator:
                 "criterion %s has no per-sample form: the wrap-padded tail "
                 "batch weights duplicated samples twice",
                 getattr(criterion, "__name__", criterion))
+        obs = training_metrics()
+        profile = (None if self._profile is None else
+                   _ProfileWindow(*self._profile, self.ctx.device))
+        steps_this_call = 0
+        watchdog = None
         try:
+            # started inside the try so that any raise reaches the stop in
+            # the finally (a leaked daemon would alarm on a dead run)
+            if self._watchdog:
+                watchdog = _StepWatchdog(rs, *self._watchdog).start()
             while not end_trigger(rs):
                 rs.epoch_finished = False
                 epoch_start = last_drain = time.time()
@@ -642,6 +841,8 @@ class Estimator:
                 if self.time_steps:
                     batches = self._timed(batches)
                 for xs, y, mask in batches:
+                    if profile is not None:
+                        profile.tick(steps_this_call)
                     self.tstate, loss = step(self.tstate, xs, y, mask)
                     if self.time_steps and self.ctx.device.type == "cuda":
                         self.step_events.append(
@@ -649,10 +850,11 @@ class Estimator:
                         self.step_events[-1].record()
                     rs.iteration += 1
                     rs.epoch_step += 1
+                    steps_this_call += 1
                     losses.append(loss)
                     if sync_loss:
                         rs.loss = loss.item()
-                    self._check_preemption()
+                    self._check_preemption(watchdog)
                     if end_trigger(rs):
                         break
                     if mid_epoch_ckpt and checkpoint_trigger(rs):
@@ -662,6 +864,10 @@ class Estimator:
                     dt = time.time() - last_drain
                     rs.loss = vals[-1]
                     self.train_losses.extend(vals)
+                    obs["steps"].inc(len(vals))
+                    if dt > 0:
+                        obs["step_seconds"].observe(dt / len(vals))
+                        obs["items_per_sec"].set(len(vals) * batch_size / dt)
                     if self.train_summary is not None:
                         for j, v in enumerate(vals):
                             self.train_summary.add_scalar("Loss", v,
@@ -676,6 +882,11 @@ class Estimator:
                 rs.epoch += 1
                 rs.epoch_step = 0
                 rs.epoch_finished = True
+                # phases that take no step: the iteration counter stalls
+                # here (a checkpoint's snapshot, a validation epoch), so
+                # the watchdog must not alarm
+                if watchdog is not None:
+                    watchdog.pause()
                 if checkpoint_trigger(rs):
                     self._maybe_checkpoint()
                 if validation_set is not None and validation_method:
@@ -689,12 +900,21 @@ class Estimator:
                                                         rs.iteration)
                     logger.info("Validation @ epoch %d: %s", rs.epoch,
                                 results)
-                self._check_preemption()
+                if watchdog is not None:
+                    watchdog.resume()
+                self._check_preemption(watchdog)
             # raise writer failures, and make every triggered save durable
             # before returning
             self._drain_checkpoints()
         finally:
+            if watchdog is not None:
+                watchdog.stop()
             self._drain_checkpoints(raising=False)
+            # close an open trace even when a step raised
+            if profile is not None:
+                profile.stop()
+                if profile.started:
+                    self._profile = None  # one-shot: the next train()
             self._write_back()
         return self
 
@@ -742,7 +962,7 @@ class Estimator:
                 raise
             logger.exception("async checkpoint write failed during unwind")
 
-    def _check_preemption(self) -> None:
+    def _check_preemption(self, watchdog=None) -> None:
         """Act on a flagged SIGTERM/SIGINT at a step boundary: checkpoint
         (if configured), wait until it is committed, raise
         PreemptedError."""
@@ -751,6 +971,8 @@ class Estimator:
             return
         from analytics_zoo_tpu_torch.ft.preemption import PreemptedError
 
+        if watchdog is not None:
+            watchdog.pause()
         self._drain_checkpoints()
         it = self.run_state.iteration
         if (self._ckpt_manager is not None

@@ -19,8 +19,7 @@ mismatched structure fails naming the key. Every kill site is a
 
 The bytes on disk are the JAX package's, so each package reads what the
 other wrote. Left out until the distributed port (ROADMAP A7): the
-multi-host layout (``host_K/`` shards under a merged manifest); until the
-observability port (A8): the sweep counters.
+multi-host layout (``host_K/`` shards under a merged manifest).
 """
 
 from __future__ import annotations
@@ -172,10 +171,16 @@ def sweep_stale(directory: str, prefix: str = "ckpt",
                 keep_steps: Optional[set] = None) -> List[str]:
     """Delete crash debris (``*.tmp`` staging directories and uncommitted
     ``<prefix>_<step>`` husks) and, when ``keep_steps`` is given, the
-    committed checkpoints whose step is not in it (retention). Returns the
-    removed paths."""
+    committed checkpoints whose step is not in it (retention). Every
+    removal is counted in ``zoo_checkpoint_sweeps_total{kind}``. Returns
+    the removed paths."""
+    from analytics_zoo_tpu_torch.common.observability import (
+        checkpoint_sweep_counters,
+    )
+
     if not os.path.isdir(directory):
         return []
+    counters = checkpoint_sweep_counters()
     pat = re.compile(rf"{re.escape(prefix)}_(\d+)(\.tmp)?$")
     removed = []
     for fname in os.listdir(directory):
@@ -183,11 +188,17 @@ def sweep_stale(directory: str, prefix: str = "ckpt",
         path = os.path.join(directory, fname)
         if not m or not os.path.isdir(path):
             continue
-        if (m.group(2) is not None or not is_committed(path)
-                or (keep_steps is not None
-                    and int(m.group(1)) not in keep_steps)):
-            shutil.rmtree(path, ignore_errors=True)
-            removed.append(path)
+        if m.group(2) is not None:
+            kind = "staging"
+        elif not is_committed(path):
+            kind = "uncommitted"
+        elif keep_steps is not None and int(m.group(1)) not in keep_steps:
+            kind = "retention"
+        else:
+            continue
+        shutil.rmtree(path, ignore_errors=True)
+        removed.append(path)
+        counters[kind].inc()
     return removed
 
 

@@ -17,9 +17,13 @@ Retention: ``keep_last=N`` keeps the N newest committed checkpoints;
 ``keep_every=M`` also keeps every checkpoint whose step is a multiple of
 M. Sweeps remove crash debris too.
 
-The JAX package's checkpoint metrics and ``ckpt.*`` tracer spans wait for
-the observability port (ROADMAP A8); the writer logs each commit's bytes
-and seconds.
+Observability, as in the JAX package: the checkpoint metric families
+(:func:`~analytics_zoo_tpu_torch.common.observability.checkpoint_metrics`:
+saves, save seconds, bytes, restores by outcome) and, with the global
+tracer enabled, a ``ckpt.snapshot`` span around the host snapshot, a
+``ckpt.commit`` span per commit on the writer thread (step, bytes) and a
+``ckpt.restore`` span per restore attempt. The writer also logs each
+commit's bytes and seconds.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.common.observability import (
+    checkpoint_metrics,
+    get_tracer,
+    monotonic_s,
+)
 from analytics_zoo_tpu_torch.engine.checkpoint import flatten
 from analytics_zoo_tpu_torch.ft import atomic
 
@@ -82,6 +91,7 @@ class CheckpointManager:
         self._error: Optional[BaseException] = None
         self._error_lock = threading.Lock()
         self._closed = False
+        self._metrics = checkpoint_metrics()
 
     # -- save -------------------------------------------------------------
 
@@ -99,7 +109,9 @@ class CheckpointManager:
         if self._closed:
             raise RuntimeError("CheckpointManager is closed")
         self._raise_pending()
-        job = _SaveJob(int(step), flatten(tree), dict(metadata or {}),
+        with get_tracer().span("ckpt.snapshot", step=int(step)):
+            flat = flatten(tree)
+        job = _SaveJob(int(step), flat, dict(metadata or {}),
                        self.step_path(step))
         if blocking or not self.asynchronous:
             self._write_job(job)
@@ -158,12 +170,21 @@ class CheckpointManager:
 
     def _write_job(self, job: _SaveJob) -> None:
         t0 = time.perf_counter()
+        span_t0 = monotonic_s()
         atomic.commit_checkpoint(job.path, job.flat, job.metadata,
                                  overwrite=self.overwrite)
         self._sweep(current_step=job.step)
+        dt = time.perf_counter() - t0
         nbytes = sum(a.nbytes for _, a in job.flat)
+        self._metrics["saves"].inc()
+        self._metrics["save_seconds"].observe(dt)
+        self._metrics["bytes"].inc(nbytes)
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.record_span("ckpt.commit", "ckpt", span_t0, monotonic_s(),
+                               step=job.step, bytes=nbytes)
         logger.info("Checkpoint committed: %s (%.1f MB in %.2fs)", job.path,
-                    nbytes / 2**20, time.perf_counter() - t0)
+                    nbytes / 2**20, dt)
 
     # -- retention --------------------------------------------------------
 
@@ -201,19 +222,29 @@ class CheckpointManager:
         arrays, checksums and shapes validated. Raises
         :class:`~analytics_zoo_tpu_torch.ft.atomic.CheckpointError` when
         nothing restorable exists."""
+        tracer = get_tracer()
+        restores = self._metrics["restores"]
         candidates = ([path] if path is not None else
                       [p for _, p in reversed(self.all_checkpoints())])
         if not candidates:
+            restores.labels(outcome="missing").inc()
             raise atomic.CheckpointError(
                 f"no committed checkpoint under {self.directory!r}")
         last_err: Optional[BaseException] = None
         for cand in candidates:
             try:
-                return atomic.read_checkpoint(cand, like=like)
+                with tracer.span("ckpt.restore", path=cand):
+                    tree, meta = atomic.read_checkpoint(cand, like=like)
+                restores.labels(outcome="ok").inc()
+                return tree, meta
             except atomic.CheckpointCorruptError as e:
+                restores.labels(outcome="corrupt").inc()
                 logger.warning("checkpoint %s is corrupt (%s): falling "
                                "back to the previous committed one", cand, e)
                 last_err = e
+            except ValueError:
+                restores.labels(outcome="mismatch").inc()
+                raise
         raise atomic.CheckpointError(
             f"every committed checkpoint under {self.directory!r} is "
             f"corrupt") from last_err

@@ -28,14 +28,15 @@ depends on the device:
   replay's outputs are cloned on the card before the lock is released.
   A capture that fails raises; there is no eager fallback on the card.
 
-On the card a model's graphs share one memory pool, and PyTorch lets its
-allocator hand a pool's blocks back to the device (at its next release of
-cached blocks, such as ``torch.cuda.empty_cache``) only once no graph of
-the pool is left: after a load, a release, or the eviction of the last
-graph. An eviction that leaves other graphs alive frees no card memory;
-its blocks are reused by the pool's next capture. So
-``executable_cache_size`` bounds the number of graphs, not the card memory
-they hold.
+**Graph memory.** On the card a model's graphs share one memory pool, and
+PyTorch lets its allocator hand a pool's blocks back to the device (at its
+next release of cached blocks, such as ``torch.cuda.empty_cache``) only
+once no graph of the pool is left: after a load, a release, a quantize or
+calibrate, or the eviction of the last graph. An eviction that leaves
+other graphs alive frees no card memory; its blocks are reused by the
+pool's next capture. So ``executable_cache_size`` bounds the number of
+graphs, not the card memory they hold (``chip_smoke.py`` phase 11c prints
+the reserved MiB around both kinds of eviction).
 
 **Programs** (:meth:`InferenceModel.compile_program`, the sequence tier's
 compile surface) are the same executables over argument pytrees, keyed
@@ -44,10 +45,21 @@ compile surface) are the same executables over argument pytrees, keyed
 (prefill -> admit -> step -> step), and integer tensors keep their dtype
 (int32 tokens stay int32).
 
-Quantization and calibration (``do_quantize`` and ``do_calibrate`` raise,
-so the catalog's ``-quantize`` models serve in float), sharding and stage
-plans, the AOT cache and the TF/ONNX loaders are not ported yet (ROADMAP
-A4).
+**int8.** :meth:`InferenceModel.do_quantize` is weight-only int8: every
+float leaf of rank 2 or more becomes a qleaf ``{"__q8__": int8, "scale":
+float32}`` (symmetric, per output channel), which stays int8 on the card;
+every program dequantizes it on each call, ``bf16(f32(q) * scale)`` under
+bf16 compute, inside the bucket's CUDA graph, as the JAX package's forward
+does. :meth:`InferenceModel.do_calibrate` is static int8
+(:mod:`~analytics_zoo_tpu_torch.inference.calibration`): Dense and Conv2D
+kernels become qleafs with an activation scale, and those layers run
+integer products (:mod:`analytics_zoo_tpu_torch.ops.int8`); their qleafs
+pass the compute-dtype cast whole, so a float32 scale never rounds
+through bf16.
+
+Not ported yet: sharding and stage plans (ROADMAP A7), the TF/ONNX
+loaders (A6) and the persistent AOT executable cache (A4:
+``aot_cache_dir`` and ``set_aot_cache`` raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -81,19 +93,89 @@ logger = logging.getLogger("analytics_zoo_tpu_torch")
 _CAPTURE_LOCK = threading.Lock()
 
 
+def _quantize_leaf(w, channel_axis: int = -1) -> Any:
+    """Per-output-channel symmetric int8 of a floating tensor of rank 2 or
+    more (anything else is returned as it is): ``{"__q8__": int8, "scale":
+    float32 keepdims}`` with ``scale = max|w| / 127`` over every axis but
+    ``channel_axis`` (1 where that is 0) and ``q = clip(round(w / scale),
+    -127, 127)``, rounding half to even. ``channel_axis`` is the output
+    channel: -1 for Keras (in, out) kernels."""
+    if not (isinstance(w, torch.Tensor) and w.is_floating_point()
+            and w.dim() >= 2):
+        return w
+    ch = channel_axis % w.dim()
+    axes = tuple(a for a in range(w.dim()) if a != ch)
+    # divided by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which can land 1 ulp off the quotient
+    # (and so off JAX's scale, and flip a rounding of q)
+    scale = w.abs().amax(dim=axes, keepdim=True) / torch.full(
+        (), 127.0, dtype=w.dtype, device=w.device)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return {"__q8__": q, "scale": scale.float()}
+
+
+def _dequantize_leaf(leaf: Any) -> Any:
+    """``f32(q) * scale`` of a qleaf; anything else as it is."""
+    if _is_qleaf(leaf):
+        return torch.mul(leaf["__q8__"], leaf["scale"])  # int8 * f32 -> f32
+    return leaf
+
+
+def _is_qleaf(x) -> bool:
+    return isinstance(x, dict) and "__q8__" in x
+
+
+def _dequantize_params(params, dtype: Optional[torch.dtype] = None):
+    """The tree with every qleaf dequantized, ``f32(q) * scale``, and cast
+    to ``dtype`` after when one is given (``bf16(f32(q) * scale)``); the
+    other leaves as they are. What a weight-only int8 program runs on."""
+    return tree_map(
+        lambda t: (t if not _is_qleaf(t) else _dequantize_leaf(t)
+                   if dtype is None else _dequantize_leaf(t).to(dtype)),
+        params, is_leaf=_is_qleaf)
+
+
+def param_bytes(tree) -> int:
+    """Bytes the tensors of a parameter tree hold (a qleaf's int8 payload
+    and its scales counted as they are)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+
+def _cast_params(params, model):
+    """The parameters the programs run on: float32 leaves cast once to the
+    model's compute dtype; qleafs whole (their int8 payload, and their
+    float32 scales, which must not round through bf16)."""
+    cd = getattr(model, "compute_dtype", None)
+    if not cd:
+        return params
+    dt = getattr(torch, cd)
+    return tree_map(
+        lambda t: (t.to(dt) if isinstance(t, torch.Tensor)
+                   and t.dtype == torch.float32 else t), params,
+        is_leaf=_is_qleaf)
+
 class _Snapshot:
     """What one executable was built from: the model, its parameters cast
-    to the compute dtype, its state, the device and the generation. An
-    executable holds its snapshot, so the tensors a graph captured by
-    address stay alive as long as the graph does."""
+    to the compute dtype (qleafs whole), its state, the device, the
+    generation and whether the params are weight-only int8 (every program
+    then dequantizes them per call). An executable holds its snapshot, so
+    the tensors a graph captured by address stay alive as long as the
+    graph does."""
 
-    __slots__ = ("model", "params", "state", "device", "gen", "dtype")
+    __slots__ = ("model", "params", "state", "device", "gen", "dtype",
+                 "param_dtype", "quantized")
 
-    def __init__(self, model, params, state, device, gen):
+    def __init__(self, model, params, state, device, gen, quantized=False):
         self.model, self.params, self.state = model, params, state
         self.device, self.gen = device, gen
+        self.quantized = quantized
         cd = getattr(model, "compute_dtype", None)
-        self.dtype = getattr(torch, cd) if cd else None
+        # the arguments' cast (a program may keep float32 arguments) and
+        # the parameters' (always the model's compute dtype)
+        self.dtype = self.param_dtype = getattr(torch, cd) if cd else None
 
 
 def _predict_inner(model):
@@ -107,14 +189,18 @@ def _predict_inner(model):
 def _forward(snap: _Snapshot, inner, args):
     """``inner(params, state, *args)`` under ``inference_mode``: float32
     argument leaves cast to the compute dtype (the parameters already
-    are), floating outputs made float32 (integer outputs, such as argmax
-    tokens, pass through)."""
+    are; weight-only int8 qleafs are dequantized here, on every call, and
+    cast after: ``bf16(f32(q) * scale)``), floating outputs made float32
+    (integer outputs, such as argmax tokens, pass through)."""
     dt = snap.dtype
     if dt is not None:
         args = tree_map(
             lambda t: t.to(dt) if t.dtype == torch.float32 else t, args)
     with torch.inference_mode():
-        out = inner(snap.params, snap.state, *args)
+        params = snap.params
+        if snap.quantized:
+            params = _dequantize_params(params, snap.param_dtype)
+        out = inner(params, snap.state, *args)
         return tree_map(
             lambda t: t.float() if t.is_floating_point() else t, out)
 
@@ -144,6 +230,7 @@ class _EagerProgram:
         self.snap, self.inner = snap, inner
         self.gen = snap.gen
         self.capture_bytes = 0
+        self.warmup_seconds = self.capture_seconds = 0.0
 
     def __call__(self, params, state, *args):
         return self.run(*args)
@@ -168,7 +255,10 @@ class _GraphProgram:
     stream and runs the flash kernel's ``cudaFuncSetAttribute``, none of
     which may happen inside a capture), then the capture itself into the
     model's shared memory pool. ``capture_bytes`` is what the pool grew by
-    during the capture. The captured ``cudaGraph_t`` is kept beside its
+    during the capture; ``warmup_seconds`` and ``capture_seconds`` split
+    the build's wall time between the eager warm-up and the capture with
+    its instantiation (what a persistent cache of graphs could save). The
+    captured ``cudaGraph_t`` is kept beside its
     instantiation, so the graph the card replays can be inspected
     (``graph.raw_cuda_graph()``).
 
@@ -199,9 +289,11 @@ class _GraphProgram:
                                _to_device_tree(example_args, dev))
         cur = torch.cuda.current_stream(dev)
         stream.wait_stream(cur)
+        t0 = time.perf_counter()
         with torch.cuda.stream(stream):
             _forward(snap, inner, self.inputs)  # warm-up: real launches
         stream.synchronize()
+        t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = torch.cuda.memory_reserved(dev)
         with torch.cuda.stream(stream):
@@ -217,6 +309,8 @@ class _GraphProgram:
             graph.capture_end()
             graph.instantiate()
         stream.synchronize()
+        self.warmup_seconds = t1 - t0
+        self.capture_seconds = time.perf_counter() - t1
         self.capture_bytes = torch.cuda.memory_reserved(dev) - before
         self.graph = graph
         self.outputs = out
@@ -258,10 +352,20 @@ class InferenceModel:
     (the CUDA card unless the context was made with ``device="cpu"``).
 
     ``concurrent_num`` is kept for API parity: every executable takes
-    concurrent callers, so there is no model pool."""
+    concurrent callers, so there is no model pool.
+
+    ``executable_cache_size`` caps the number of executables (``None``:
+    unbounded). On the card it bounds the number of CUDA graphs, not the
+    card memory they hold: the graphs share one pool, and an eviction that
+    leaves other graphs alive returns no memory to the device (see the
+    module docstring). ``aot_cache_dir`` other than ``None`` raises
+    ``NotImplementedError`` (:meth:`set_aot_cache`)."""
 
     def __init__(self, concurrent_num: int = 1,
-                 executable_cache_size: Optional[int] = 32):
+                 executable_cache_size: Optional[int] = 32,
+                 aot_cache_dir: Optional[str] = None):
+        if aot_cache_dir is not None:
+            self.set_aot_cache(aot_cache_dir)
         self.concurrent_num = concurrent_num
         self.model = None
         self.params = None
@@ -278,8 +382,13 @@ class InferenceModel:
         self._warmed: set = set()
         self.warmup_overflows = 0
         self._lock = threading.Lock()
-        # bumped on every load/release; an executable built for generation
-        # g is cached and replayed only while _gen == g
+        # weight-only int8 (every program dequantizes) and calibrated int8
+        # (the layer wrappers run integer products; no dequantize pass)
+        self._quantized = False
+        self._calibrated = False
+        # bumped on every load/quantize/calibrate/release; an executable
+        # built for generation g is cached and replayed only while
+        # _gen == g
         self._gen = 0
         # card only: the graphs' shared memory pool, the graphs alive in it,
         # the side stream they capture and replay on, and the lock that
@@ -291,19 +400,81 @@ class InferenceModel:
             weakref.WeakSet()
         self._stream = None
 
-    # -- int8 (not ported) ------------------------------------------------
+    # -- int8 -------------------------------------------------------------
+
+    def set_aot_cache(self, directory: Optional[str]) -> "InferenceModel":
+        """The persistent AOT executable cache is not ported: a CUDA graph
+        cannot be saved, so a restarted process captures its graphs again.
+        Raises ``NotImplementedError``; ``None`` is a no-op."""
+        if directory is not None:
+            raise NotImplementedError(
+                "the persistent AOT executable cache is not ported "
+                "(ROADMAP A4): PyTorch cannot save a CUDA graph, so every "
+                "process captures its buckets at register")
+        return self
 
     def do_calibrate(self, batches) -> "InferenceModel":
-        """Post-training static int8: not ported yet."""
-        raise NotImplementedError(
-            "do_calibrate: int8 inference waits for ROADMAP A4 "
-            "(inference/calibration.py)")
+        """Post-training static int8: a calibration pass over
+        representative ``batches`` (host arrays, or lists of them for a
+        multi-input model) records each Dense/Conv2D input's absmax on
+        the uncast float32 params, then those layers run integer products
+        with one float32 rescale
+        (:mod:`~analytics_zoo_tpu_torch.inference.calibration`).
+        Idempotent; raises after :meth:`do_quantize`. Drops every
+        executable."""
+        from analytics_zoo_tpu_torch.inference import calibration as calib
+
+        if self.model is None:
+            raise RuntimeError("load a model before do_calibrate")
+        if not hasattr(self.model, "layers"):
+            raise NotImplementedError(
+                "do_calibrate needs a Keras-protocol model")
+        with self._lock:
+            if self._calibrated:
+                return self  # idempotent
+            if self._quantized:
+                raise RuntimeError(
+                    "do_calibrate after do_quantize: the weight-only scales "
+                    "are already baked in — reload the model and call "
+                    "do_calibrate directly for the integer activation path")
+            scales = calib.calibrate_activations(
+                self.model, self.params, self.model_state, batches)
+            self.params = calib.apply_calibration(
+                self.model, self.params, scales)
+            self._exec_params = _cast_params(self.params, self.model)
+            self._calibrated = True
+            self._gen += 1
+            self._compiled.clear()
+            self._warmed.clear()
+        return self
 
     def do_quantize(self) -> "InferenceModel":
-        """Weight-only int8: not ported yet."""
-        raise NotImplementedError(
-            "do_quantize: int8 inference waits for ROADMAP A4 "
-            "(inference/calibration.py)")
+        """Weight-only int8: every float parameter of rank 2 or more
+        becomes a per-output-channel int8 qleaf, which stays int8 on the
+        device (about a quarter of the float32 bytes); every program
+        dequantizes it on each call (inside the bucket's CUDA graph on the
+        card). Idempotent, a no-op without params or after
+        :meth:`do_calibrate`; bumps the generation and drops every
+        executable."""
+        with self._lock:
+            if self._quantized or self._calibrated:
+                return self  # re-quantizing would corrupt the scales
+            if not self.params:
+                return self  # nothing to quantize: keep the executables
+            self._gen += 1
+            axes = getattr(self.model, "quantize_axes", None)
+            if axes is not None:
+                # per-parameter channel axes; the rest stays float
+                self.params = {
+                    k: (_quantize_leaf(v, axes[k]) if k in axes else v)
+                    for k, v in self.params.items()}
+            else:
+                self.params = tree_map(_quantize_leaf, self.params)
+            self._exec_params = _cast_params(self.params, self.model)
+            self._quantized = True
+            self._compiled.clear()
+            self._warmed.clear()
+        return self
 
     # -- loaders -----------------------------------------------------------
 
@@ -327,17 +498,13 @@ class InferenceModel:
         params, state = (tree_map(lambda t: t.to(device, copy=True), tree)
                          for tree in (keras_net.params,
                                       keras_net.model_state or {}))
-        cd = getattr(keras_net, "compute_dtype", None)
-        if cd:
-            dt = getattr(torch, cd)
-            exec_params = tree_map(
-                lambda t: t.to(dt) if t.dtype == torch.float32 else t, params)
-        else:
-            exec_params = params
+        exec_params = _cast_params(params, keras_net)
         with self._lock:
             self._gen += 1
             self._compiled.clear()
             self._warmed.clear()
+            self._quantized = False
+            self._calibrated = False
             self.model = keras_net
             self.device = device
             self.params = params
@@ -358,7 +525,7 @@ class InferenceModel:
     def _snapshot(self) -> _Snapshot:
         # call under self._lock
         return _Snapshot(self.model, self._exec_params, self.model_state,
-                         self.device, self._gen)
+                         self.device, self._gen, self._quantized)
 
     def _eager(self, x):
         """The eager forward of ``x`` (host arrays) on the current model,
@@ -572,6 +739,8 @@ class InferenceModel:
             self._gen += 1
             self._compiled.clear()
             self._warmed.clear()
+            self._quantized = False
+            self._calibrated = False
             self.model = None
             self.params = None
             self._exec_params = None

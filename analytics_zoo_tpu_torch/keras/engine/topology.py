@@ -12,8 +12,8 @@ weights in and out (``get_weights``/``set_weights``/``set_states``,
 ``save_weights``/``load_weights``), ``resume_from_checkpoint`` and
 ``summary``. ``Sequential`` (a linear stack) and ``Model`` (a functional
 graph of ``Input`` and layer calls) thread the state of stateful layers
-through ``apply``. The GraphNet surface and ``set_profile`` are not ported
-yet.
+through ``apply``. ``set_profile`` traces a window of the next ``fit``
+(``Estimator.set_profile``). The GraphNet surface is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,6 +89,7 @@ class KerasNet(nn.Module):
         self._estimator = None
         self._clipping: Optional[Tuple[str, Tuple]] = None
         self._tensorboard: Optional[Tuple[str, str]] = None
+        self._profile: Optional[Tuple[str, int, int]] = None
         self._checkpoint: Optional[Tuple[str, bool]] = None
         self._gradient_accumulation = 1
 
@@ -156,6 +157,16 @@ class KerasNet(nn.Module):
         self._tensorboard = (log_dir, app_name)
         if self._estimator is not None:
             self._estimator.set_tensorboard(log_dir, app_name)
+        return self
+
+    def set_profile(self, log_dir: str, start_iteration: int = 2,
+                    num_iterations: int = 3):
+        """Trace ``num_iterations`` steps of the next ``fit`` from its step
+        ``start_iteration`` with ``torch.profiler`` into ``log_dir``
+        (``Estimator.set_profile``)."""
+        self._profile = (log_dir, start_iteration, num_iterations)
+        if self._estimator is not None:
+            self._estimator.set_profile(*self._profile)
         return self
 
     def get_train_summary(self, tag: str):
@@ -227,6 +238,8 @@ class KerasNet(nn.Module):
                             gradient_accumulation=self._gradient_accumulation)
             if self._tensorboard:
                 est.set_tensorboard(*self._tensorboard)
+            if self._profile:
+                est.set_profile(*self._profile)
             if self._checkpoint:
                 est.set_checkpoint(*self._checkpoint)
             if self._clipping:

@@ -16,9 +16,9 @@ a hand-written kernel.
 
 Left out, each raising ``NotImplementedError``: the Keras ``.h5`` branches
 of ``load_pretrained_weights`` and ``ImageClassifier.from_pretrained`` wait
-for the foreign-model importers (ROADMAP A6); a ``-quantize`` name builds
-the float graph, and its int8 serving waits for ``do_quantize`` (ROADMAP
-A4).
+for the foreign-model importers (ROADMAP A6). A ``-quantize`` name builds
+the float graph; it serves int8 through ``InferenceModel.do_quantize``, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -564,14 +564,16 @@ _CATALOG = {
 }
 
 # "<arch>-quantize" names (ref ImageClassificationConfig.scala:33-52): the
-# same float graph; int8 serving waits for do_quantize (ROADMAP A4).
+# same float graph; int8 weights are applied at serving time by
+# InferenceModel.do_quantize.
 QUANTIZED_SUFFIX = "-quantize"
 
 
 def build_model(name: str, num_classes: int = 1000, **kw):
     """The catalog architecture ``name`` (ref
     ImageClassificationConfig.scala:57); a "<arch>-quantize" name builds
-    the same graph as "<arch>"."""
+    the same graph as "<arch>", served int8 through
+    ``InferenceModel.do_quantize``."""
     key = name.lower()
     if key.endswith(QUANTIZED_SUFFIX):
         key = key[: -len(QUANTIZED_SUFFIX)]

@@ -23,10 +23,12 @@ prefill cell, admission width and the decode step);
 :meth:`ServingEngine.generate` and :meth:`ServingEngine.generate_async`
 serve it.
 
+Hot reload: :meth:`ServingEngine.watch_checkpoints` registers every
+committed checkpoint of a training run as a new version
+(:class:`~analytics_zoo_tpu_torch.ft.hot_reload.CheckpointWatcher`).
+
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: :meth:`ServingEngine.watch_checkpoints`
-(``ft/hot_reload.py``, A8) and ``register(sharding_plan=...,
-stage_plan=...)`` (A7).
+ROADMAP item: ``register(sharding_plan=..., stage_plan=...)`` (A7).
 
 Resilience is on by default: a
 :class:`~analytics_zoo_tpu_torch.serving.resilience.ResilienceConfig` gives
@@ -559,11 +561,36 @@ class ServingEngine:
                           max_retries: int = 3,
                           retry_backoff_s: float = 0.5,
                           aot_cache_dir: Optional[str] = None):
-        """Hot-reload from a training run's checkpoint directory: not
-        ported yet (``ft/hot_reload.py``, ROADMAP A8)."""
-        raise NotImplementedError(
-            "watch_checkpoints needs ft/hot_reload.py, which is not ported "
-            "yet (ROADMAP A8)")
+        """Hot reload: watch a training run's checkpoint ``directory`` and
+        register every new committed checkpoint as model version
+        ``str(step)`` under ``name``, so training output flows into
+        serving without downtime (``predict`` without a version routes to
+        the newest, or with a rollout configured the new version enters
+        the canary ladder). ``build_model(ckpt_dir)`` maps a committed
+        checkpoint directory to a servable model (a batched
+        ``do_predict``); versions beyond ``keep_versions`` are retired
+        (draining first), except those the control plane still routes to.
+        Returns the started
+        :class:`~analytics_zoo_tpu_torch.ft.hot_reload.CheckpointWatcher`
+        (``.stop()`` stops watching; ``shutdown`` stops it too).
+
+        The atomic commit protocol is what makes this safe: a checkpoint
+        directory is visible if and only if its COMMIT marker landed, so
+        the watcher never loads a torn or in-progress save.
+        ``aot_cache_dir`` other than ``None`` raises
+        ``NotImplementedError``: the persistent executable cache is not
+        ported."""
+        from analytics_zoo_tpu_torch.ft.hot_reload import CheckpointWatcher
+
+        watcher = CheckpointWatcher(
+            self, name, directory, build_model, example_input,
+            config=config, poll_interval_s=poll_interval_s,
+            keep_versions=keep_versions, max_retries=max_retries,
+            retry_backoff_s=retry_backoff_s, aot_cache_dir=aot_cache_dir)
+        watcher.start(register_existing=register_existing)
+        with self._lock:
+            self._watchers.append(watcher)
+        return watcher
 
     def set_capture(self, tap) -> None:
         """Attach (or with ``None`` detach) a flywheel

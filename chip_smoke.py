@@ -259,7 +259,42 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    an L1L2-regularized graph
    (Dense, Convolution2D, Embedding, LSTM): its penalty and one step card
    against CPU; a keras2 functional CNN trained 3 epochs (its loss must
-   fall). No flash launch.
+   fall). No flash launch;
+11. int8 inference and training output flowing into serving
+   (``int8_reload_phase``; ``python3 scripts/torch_int8_reload_phase.py``
+   runs it alone): 11a BERT-base (phase 3's configuration, bf16) with
+   ``do_quantize`` registered in a ``ServingEngine`` over the ladder 1-32
+   at 128 tokens (one CUDA graph per bucket; the int8 bytes on the card
+   beside the float model's; each bucket's replay and served answer equal
+   to its eager forward bitwise; 12 flash nodes per graph; the f32
+   batch-2 forward card against CPU within phase 3c's bounds; argmax
+   agreement with the float model on ``INT8_AGREE_REQUESTS`` requests of
+   at least ``INT8_AGREE_MIN``; replay p50 int8 against float at (8, 128)
+   and (32, 128)); ResNet-50 (full width, 1000 classes, bf16) with
+   ``do_calibrate`` on 4 seeded batches of 32 (every integer layer's int8
+   input and int32 accumulator on the card equal to the CPU's on the
+   CPU's float input, the f32 logits within ``INT8_LOGIT_REL``; buckets 1
+   and 32, replay = eager bitwise; the bucket-32 graph's kernel nodes read
+   through libcuda and a profiled replay summarized by
+   ``common.trace_tools``: int8 GEMMs, no float GEMM or convolution; top-1
+   agreement with the float model printed); phase 6's Seq2seq (seeded
+   weights) with ``do_quantize`` behind a ``ContinuousBatcher`` (every
+   stream its sequential quantized reference, or leaving it at a counted
+   near-tie as in phase 6); 11b NeuralCF at phase 3d's configuration
+   trained through ``Estimator.train`` with a checkpoint each epoch,
+   ``set_profile`` over steps 2-4 and ``set_step_watchdog``, while
+   ``watch_checkpoints(keep_versions=2)`` registers each committed step
+   and 4 HTTP clients (2 pinning the latest version) predict: no failed
+   request, every response its version's replayed batch rows and every
+   replay that version's eager forward bitwise, at most 2 live versions
+   after each reload, a checkpoint torn by ``AZOO_FT_CHAOS=before_commit``
+   in a child never registered, no hot-reload skip, the watchdog silent
+   on the healthy run and firing once per stall (two stalls of the data
+   iterator, each twice its timeout), ``summarize_trace`` and ``top_ops``
+   agreeing on the profiled steps (the summary printed); 11c the reserved
+   MiB around three evictions that leave other graphs of the pool alive
+   and after the last graph is gone (it must drop), and BERT-base's
+   register split into eager warm-up and capture per bucket.
    The script prints its own seconds at the end.
 
 The build phase prints each kernel's ptxas registers and spills and, for
@@ -269,6 +304,9 @@ the wgmma kernels, the SASS's top register and local-memory instructions
 ``text_zoo_launches`` its launches over phase 9, all of them
 BERTClassifier's, and counted in ``launches`` too;
 ``layer_library_launches`` its launches over phase 10, 0;
+``int8_reload_launches`` its wrapper launches over phase 11, counted in
+``launches``, and the forward's ``int8_reload_replay_launches`` its
+launches in phase 11's graph replays, counted in ``replay_launches``;
 ``ms`` is its device time under torch.profiler and ``event_ms`` CUDA-event
 time over back-to-back calls; ``plain_ms`` is event time; the backward
 rows add the whole backward's times and bound and each bf16 route's tiles
@@ -5914,6 +5952,838 @@ def layer_library_phase(fa, seed):
     return launches
 
 
+# Phase 11: int8 inference, then training output flowing into serving.
+# 11a: BERT-base (phase 3's configuration, bf16) with do_quantize in a
+# ServingEngine over the ladder INT8_LADDER at INT8_SEQ tokens; ResNet-50
+# (full width, 1000 classes, bf16) with do_calibrate over
+# INT8_CAL_BATCHES seeded batches of INT8_CAL_BATCH images, served at
+# INT8_RESNET_BUCKETS; phase 6's Seq2seq (FULL_SIZE, seeded weights) with
+# do_quantize behind a ContinuousBatcher with SEQ_CONFIG. 11b: NeuralCF at
+# phase 3d's configuration trained RELOAD_EPOCHS epochs through
+# Estimator.train (a checkpoint each epoch, a profile window, the step
+# watchdog), each committed checkpoint hot-reloaded into a ServingEngine
+# while RELOAD_CLIENTS HTTP clients predict. 11c: graph memory around
+# evictions, and register's warm-up/capture split.
+INT8_LADDER = (1, 2, 4, 8, 16, 32)
+INT8_SEQ = 128
+INT8_TIMED = (8, 32)  # replay p50 at (rows, INT8_SEQ), int8 against float
+INT8_LATENCY_REPLAYS = 30
+INT8_AGREE_REQUESTS, INT8_AGREE_MIN = 512, 0.99
+INT8_CAL_BATCHES, INT8_CAL_BATCH = 4, 32
+INT8_RESNET_BUCKETS = (1, 32)
+INT8_RESNET_LAYERS = 54  # 53 convolutions and the head
+INT8_RESNET_AGREE_IMAGES = 256
+INT8_LOGIT_REL = 1e-5
+INT8_SEQ_REQUESTS = 32
+RELOAD_EPOCHS = 5
+RELOAD_CLIENTS = 4
+RELOAD_LADDER = (1, 2, 4, 8, 16, 32)
+RELOAD_KEEP = 2
+RELOAD_CLIENT_PAUSE_S = 0.02  # each client's pause between requests
+RELOAD_PROFILE = (2, 3)  # set_profile: steps 2, 3 and 4 of the first train
+RELOAD_WATCHDOG_S = 30.0  # the healthy run's timeout
+STALL_WATCHDOG_S = 1.5  # the stalled run's; its iterator sleeps twice that
+RELOAD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_reload"
+GRAPH_MEM_CACHE = 3  # executable_cache_size of 11c's model
+
+
+def _mib(n) -> float:
+    return n / 2 ** 20
+
+
+def load_on(net, device):
+    """An ``InferenceModel`` of ``net`` loaded on ``device`` whatever the
+    context's device (the context's device is swapped for the load)."""
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+
+    ctx = get_nncontext()
+    saved, ctx.device = ctx.device, torch.device(device)
+    try:
+        return InferenceModel().do_load_keras(net)
+    finally:
+        ctx.device = saved
+
+
+def int8_bert(fa, rng):
+    """Phase 11a, BERT-base with weight-only int8: bytes on the card,
+    every bucket's replay against its eager forward, the flash nodes of
+    each graph (the float model's too), the served int8 program in f32 at
+    batch 2 card against CPU, argmax agreement with the float model under
+    a trace of the replays, replay p50 int8 against float. Returns (the
+    flash wrapper's launches, the replays' flash launches, register's
+    split)."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        _is_qleaf,
+        param_bytes,
+    )
+    from analytics_zoo_tpu_torch.serving import BatcherConfig, ServingEngine
+    from analytics_zoo_tpu_torch.tfpark.bert import BERTClassifierNet
+
+    vocab, n_block = BERT_BASE["vocab"], BERT_BASE["n_block"]
+    t0 = time.perf_counter()
+    net = BERTClassifierNet(num_classes=2, hidden_drop=0.0, attn_drop=0.0,
+                            **BERT_BASE)
+    fim = InferenceModel().do_load_keras(net)
+    qim = InferenceModel().do_load_keras(net).do_quantize()
+    torch.cuda.synchronize()
+    leaves = tree_leaves(qim._exec_params, is_leaf=_is_qleaf)
+    q = [v for v in leaves if _is_qleaf(v)]
+    q_bytes = sum(v["__q8__"].numel() for v in q)
+    s_bytes = sum(v["scale"].numel() * 4 for v in q)
+    rest = param_bytes([v for v in leaves if not _is_qleaf(v)])
+    print(f"int8: BERT-base built, loaded and quantized in "
+          f"{time.perf_counter() - t0:.1f} s; params on the card: int8 "
+          f"{q_bytes} bytes in {len(q)} qleafs + scales {s_bytes} + the "
+          f"rest in bf16 {rest} = {q_bytes + s_bytes + rest} bytes "
+          f"({(q_bytes + s_bytes + rest) / 1e9:.4f} GB); float model "
+          f"{param_bytes(fim._exec_params)} bytes in bf16 "
+          f"({param_bytes(fim._exec_params) / 1e9:.4f} GB), "
+          f"{param_bytes(fim.params)} in f32 "
+          f"({param_bytes(fim.params) / 1e9:.4f} GB)", flush=True)
+    if any(v["__q8__"].dtype != torch.int8
+           or v["__q8__"].device.type != qim.device.type for v in q):
+        fail("a quantized BERT leaf is not int8 on the card")
+
+    engine = ServingEngine()
+    cfg = BatcherConfig(max_batch_size=max(INT8_LADDER), buckets=INT8_LADDER,
+                        max_wait_ms=2.0)
+    zero_launches(fa)  # the int8 BERT path's run starts here
+    t0 = time.perf_counter()
+    engine.register("bert-int8", qim, [np.zeros((1, INT8_SEQ), np.int32),
+                                       np.zeros((1, INT8_SEQ), np.int32),
+                                       np.zeros((1, INT8_SEQ), np.float32)],
+                    config=cfg)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    registered = read_launches(fa)[0]
+    split = {k[0][0][0]: (round(fn.warmup_seconds, 4),
+                          round(fn.capture_seconds, 4))
+             for k, fn in sorted(qim._compiled.items())}
+    want = 2 * n_block * len(INT8_LADDER)
+    mib = [round(_mib(v), 1) for _, v in sorted(qim.capture_bytes.items())]
+    print(f"int8: BERT-base int8 registered in {reg_s:.2f} s, one CUDA "
+          f"graph per bucket {list(INT8_LADDER)} at {INT8_SEQ} tokens; "
+          f"flash wrapper launches {registered} (want {want}: each bucket's "
+          f"eager warm-up and capture); register's seconds by bucket (eager "
+          f"warm-up, capture) {split}; MiB each capture added {mib}",
+          flush=True)
+    if registered != want:
+        fail("the int8 BERT register did not launch the flash kernel once "
+             "per layer in each warm-up and capture")
+    check_bucket_graphs(qim, n_block, "int8")
+    replays = 0
+    for b in INT8_LADDER:
+        x = make_request(rng, b, INT8_SEQ, vocab)
+        got = engine.predict("bert-int8", x)
+        replay = qim.do_predict(x)
+        replays += 2
+        eager = qim.do_fetch(qim._eager(x))
+        if not (np.array_equal(replay, eager) and np.array_equal(got, replay)):
+            fail(f"int8 BERT bucket {b}: the replay or the served answer "
+                 f"differs from the eager forward")
+    print(f"int8: every bucket's replay and served answer equal its eager "
+          f"forward bitwise", flush=True)
+
+    # the served int8 program in f32 at batch 2, card against CPU (phase
+    # 3c's bounds): do_predict of a quantized model without compute dtype,
+    # which dequantizes its int8 params inside the program (the card's
+    # CUDA graph, the CPU's eager call); exact: the f64 forward on the
+    # qleafs dequantized in f64
+    x = make_request(rng, CPU_CHECK_BATCH, INT8_SEQ, vocab)
+    runs = {}
+    compute_dtype, net.compute_dtype = net.compute_dtype, None
+    try:
+        for route, dev in (("card", qim.device), ("cpu", "cpu")):
+            im = load_on(net, dev).do_quantize()
+            runs[route] = torch.from_numpy(im.do_predict(x)).double()
+            if route == "card":
+                check_bucket_graphs(im, n_block, "int8-f32")
+                replays += 1
+            else:
+                # qim quantized its f32 params on the card, im on the CPU
+                qpairs = list(zip(
+                    (v for v in tree_leaves(im.params, is_leaf=_is_qleaf)
+                     if _is_qleaf(v)), q))
+                same = sum(torch.equal(a["__q8__"], b["__q8__"].cpu())
+                           and torch.equal(a["scale"], b["scale"].cpu())
+                           for a, b in qpairs)
+                print(f"int8: BERT-base qleafs quantized on the card equal "
+                      f"the CPU's bitwise in {same} of {len(qpairs)} "
+                      f"(want {len(q)})", flush=True)
+                if same != len(q):
+                    fail("do_quantize on the card differs from the CPU's")
+                p64 = tree_map(
+                    lambda t: (t["__q8__"].double() * t["scale"].double()
+                               if _is_qleaf(t) else t.double()
+                               if t.is_floating_point() else t),
+                    im.params, is_leaf=_is_qleaf)
+            im.release()
+        xs = [torch.tensor(a) for a in x]
+        xs[2] = xs[2].double()
+        with torch.inference_mode():
+            runs["exact"] = net.apply(p64, {}, xs, training=False)[0]
+    finally:
+        net.compute_dtype = compute_dtype
+    ex = runs["exact"]
+    errs = {r: ((runs[r] - ex).abs().max() / ex.abs().max()).item()
+            for r in ("card", "cpu")}
+    bound = CPU_FACTOR * errs["cpu"] + CPU_FLOOR["logits"]
+    print(f"int8: BERT-base int8 served in f32 at batch {CPU_CHECK_BATCH} "
+          f"(do_predict, dequantizing in the program) against the f64 "
+          f"forward on the f64-dequantized weights: card {errs['card']:.3e}, "
+          f"cpu {errs['cpu']:.3e} (bound card <= {CPU_FACTOR:g} x cpu + "
+          f"{CPU_FLOOR['logits']:g} = {bound:.3e})", flush=True)
+    if not errs["card"] <= bound:
+        fail("the int8 BERT's served f32 program on the card is further "
+             "from the exact values than its bound")
+    del runs, p64
+
+    # argmax against the float model (traced: the replays' flash kernels
+    # are held to the count read from the graphs), and replay p50 int8
+    # against float
+    fim.do_optimize(make_request(rng, 32, INT8_SEQ, vocab))
+    requests = [make_request(rng, 32, INT8_SEQ, vocab)
+                for _ in range(INT8_AGREE_REQUESTS // 32)]
+    (pairs, traced) = traced_launches(
+        lambda: [(fim.do_predict(x), qim.do_predict(x)) for x in requests])
+    replays += 2 * len(requests)
+    check_traced("int8", traced, 2 * n_block * len(requests))
+    agree = sum(int((pf.argmax(-1) == pq.argmax(-1)).sum())
+                for pf, pq in pairs)
+    gaps = np.concatenate([np.abs(pf[:, 0] - pf[:, 1]) for pf, _ in pairs])
+    share = agree / INT8_AGREE_REQUESTS
+    print(f"int8: argmax of the int8 and the bf16 float model agree on "
+          f"{agree} of {INT8_AGREE_REQUESTS} requests ({share:.4f}; want >= "
+          f"{INT8_AGREE_MIN}); the float model's class-probability gap p10 "
+          f"{np.percentile(gaps, 10):.3e}, p50 {np.percentile(gaps, 50):.3e}",
+          flush=True)
+    if share < INT8_AGREE_MIN:
+        fail("the int8 BERT's argmax leaves the float model's too often")
+    for rows in INT8_TIMED:
+        x = make_request(rng, rows, INT8_SEQ, vocab)
+        fim.do_optimize(x)
+        p50 = {}
+        for label, im in (("float", fim), ("int8", qim)):
+            im.do_predict(x)
+            lat = []
+            for _ in range(INT8_LATENCY_REPLAYS):
+                t0 = time.perf_counter()
+                im.do_fetch(im.do_dispatch(x))
+                lat.append((time.perf_counter() - t0) * 1e3)
+            p50[label] = float(np.percentile(lat, 50))
+        replays += 2 * (1 + INT8_LATENCY_REPLAYS)
+        dev = {label: device_ms(lambda im=im: im.do_fetch(im.do_dispatch(x)),
+                                10)[0]
+               for label, im in (("float", fim), ("int8", qim))}
+        replays += 2 * 11
+        print(f"int8: BERT-base ({rows}, {INT8_SEQ}) replay p50 int8 "
+              f"{p50['int8']:.3f} ms against float {p50['float']:.3f} ms; "
+              f"device time int8 {dev['int8']:.3f} ms, float "
+              f"{dev['float']:.3f} ms", flush=True)
+    engine.shutdown()
+    wrapper = read_launches(fa)  # ... and ends here; a replay's flash
+    # launches are its graph's nodes, n_block per replay of either model
+    check_bucket_graphs(fim, n_block, "int8-float")
+    print(f"int8: BERT part: flash launches by the wrappers (forward, dq, "
+          f"dk/dv) {wrapper}; {replays} graph replays of the int8 and float "
+          f"models, each graph read through libcuda above, "
+          f"{n_block * replays} flash forward launches in them",
+          flush=True)
+    return wrapper, n_block * replays, split
+
+
+def served_params(im):
+    """The parameters an int8 ``InferenceModel``'s programs run on: its
+    weight-only qleafs dequantized and cast to the compute dtype, as
+    every program does per call, the rest as cast at load."""
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        _dequantize_params,
+    )
+
+    cd = getattr(im.model, "compute_dtype", None)
+    return _dequantize_params(im._exec_params,
+                              getattr(torch, cd) if cd else None)
+
+
+def int8_resnet(rng):
+    """Phase 11a, ResNet-50 with calibrated int8: every integer layer's
+    int8 input and int32 accumulator on the card against the CPU's, the
+    f32 logits, each bucket's replay against eager, a profiled replay's
+    kernels (int8 GEMMs, no float GEMM or convolution), and top-1
+    agreement with the float model."""
+    from analytics_zoo_tpu_torch.common.trace_tools import (
+        _categorize,
+        summarize_trace,
+        top_ops,
+    )
+    from analytics_zoo_tpu_torch.common.tree import tree_map
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference import calibration as calib
+    from analytics_zoo_tpu_torch.keras.layers import Dense
+
+    t0 = time.perf_counter()
+    net = build_resnet()
+    fim = InferenceModel().do_load_keras(net)
+    cal = [(resnet_images(rng, INT8_CAL_BATCH)[0].astype(np.float32)
+            - 127.5) / 127.5 for _ in range(INT8_CAL_BATCHES)]
+    qim = InferenceModel().do_load_keras(net).do_calibrate(cal)
+    torch.cuda.synchronize()
+    layers = [l for l in net.layers() if calib._quantizable(l)]
+    print(f"int8: ResNet-50 calibrated on {INT8_CAL_BATCHES} batches of "
+          f"{INT8_CAL_BATCH} in {time.perf_counter() - t0:.1f} s; "
+          f"{len(layers)} integer layers", flush=True)
+    if len(layers) != INT8_RESNET_LAYERS:
+        fail(f"ResNet-50 has {len(layers)} integer layers, want "
+             f"{INT8_RESNET_LAYERS}")
+
+    # card against CPU in f32 at batch 2: each integer layer on the CPU's
+    # float input, then the whole forward's logits
+    x = (resnet_images(rng, CPU_CHECK_BATCH)[0].astype(np.float32)
+         - 127.5) / 127.5
+    records = {}
+    for route, dev in (("cpu", "cpu"), ("card", qim.device)):
+        p, s = (tree_map(lambda t: t.to(dev), tree)
+                for tree in (qim.params, qim.model_state))
+        rec = records[route] = {}
+        for l in layers:
+            l._int8_record = rec
+        try:
+            with torch.inference_mode():
+                logits = net.apply(p, s, torch.tensor(x, device=dev),
+                                   training=False)[0]
+        finally:
+            for l in layers:
+                del l._int8_record
+        rec["__logits__"] = logits.double().cpu()
+        if route == "card":
+            card_p = p
+    cpu, card = records["cpu"], records["card"]
+    same_path = bad = 0
+    with torch.inference_mode():
+        for l in layers:
+            xf, xq, acc = cpu[l.name]
+            one = {}
+            fn = (calib._int_dense if isinstance(l, Dense)
+                  else calib._int_conv2d)
+            fn(l, card_p[l.name], xf.to(qim.device), one)
+            _, cq, cacc = one[l.name]
+            if not (torch.equal(cq.cpu(), xq) and torch.equal(cacc.cpu(),
+                                                              acc)):
+                bad += 1
+            _, eq, eacc = card[l.name]
+            same_path += int(torch.equal(eq.cpu(), xq)
+                             and torch.equal(eacc.cpu(), acc))
+    lc, lx = card["__logits__"], cpu["__logits__"]
+    rel = ((lc - lx).abs().max() / lx.abs().max()).item()
+    print(f"int8: ResNet-50 f32 batch {CPU_CHECK_BATCH}: on the CPU's float "
+          f"input of each layer, the card's int8 input and int32 "
+          f"accumulator differ from the CPU's in {bad} of {len(layers)} "
+          f"integer layers (want 0); in the card's own forward "
+          f"{same_path} of {len(layers)} layers match the CPU's bitwise; "
+          f"logits {rel:.3e} relative (bound {INT8_LOGIT_REL:g})", flush=True)
+    if bad:
+        fail("an integer layer's int8 input or int32 accumulator on the "
+             "card differs from the CPU's")
+    if not rel <= INT8_LOGIT_REL:
+        fail("the int8 ResNet-50's f32 logits on the card differ from the "
+             "CPU's beyond the bound")
+    del card_p, records
+
+    # serving: a graph per bucket, replay = eager bitwise
+    for b in INT8_RESNET_BUCKETS:
+        xb = (resnet_images(rng, b)[0].astype(np.float32) - 127.5) / 127.5
+        qim.do_optimize(xb)
+        if not np.array_equal(qim.do_predict(xb),
+                              qim.do_fetch(qim._eager(xb))):
+            fail(f"int8 ResNet-50 bucket {b}: the replay differs from the "
+                 f"eager forward")
+    key = [k for k in qim._compiled if k[0][0][0] == max(INT8_RESNET_BUCKETS)]
+    graph = qim._compiled[key[0]].graph
+    kinds = collections.Counter()
+    names = collections.Counter()
+    for kind, name in graph_nodes(graph):
+        if kind == "kernel":
+            kinds[_categorize(name)] += 1
+            if _categorize(name) in ("int8 gemm", "gemm", "conv"):
+                names[(_categorize(name), name[:90])] += 1
+    print(f"int8: ResNet-50 bucket {max(INT8_RESNET_BUCKETS)} graph "
+          f"(read through libcuda): kernel nodes by class {dict(kinds)}; "
+          f"GEMM and convolution kernels {dict(names)}", flush=True)
+    if kinds["int8 gemm"] < INT8_RESNET_LAYERS or kinds["gemm"] or \
+            kinds["conv"]:
+        fail("the int8 ResNet-50 graph does not run its integer layers as "
+             "int8 GEMMs alone")
+    # one replay under torch.profiler, summarized by trace_tools
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    trace_dir = RELOAD_DIR / "resnet_int8_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    xb = (resnet_images(rng, max(INT8_RESNET_BUCKETS))[0].astype(np.float32)
+          - 127.5) / 127.5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 on_trace_ready=tensorboard_trace_handler(str(trace_dir))):
+        qim.do_predict(xb)
+        torch.cuda.synchronize()
+    # every record of the trace (CUDA activity alone: the card's kernels,
+    # copies and the runtime calls that launched them)
+    cats = collections.Counter()
+    summary = summarize_trace(str(trace_dir))
+    for plane in summary.values():
+        for line in plane["lines"].values():
+            cats.update(line["by_category"])
+    counts = collections.Counter()
+    for name, _ms, n in top_ops(str(trace_dir), line="", plane_substr="",
+                                n=1 << 20):
+        counts[_categorize(name)] += n
+    print(f"int8: a profiled ResNet-50 replay (bucket "
+          f"{max(INT8_RESNET_BUCKETS)}), planes {list(summary)}: ms by class "
+          f"{ {k: round(v, 4) for k, v in cats.items()} }; records by class "
+          f"{dict(counts)}", flush=True)
+    if not counts["int8 gemm"] or counts["gemm"] or counts["conv"]:
+        fail("the profiled int8 ResNet-50 replay shows no int8 GEMM, or a "
+             "float GEMM or convolution")
+
+    # top-1 agreement with the float model
+    agree = 0
+    for _ in range(INT8_RESNET_AGREE_IMAGES // 32):
+        xb = (resnet_images(rng, 32)[0].astype(np.float32) - 127.5) / 127.5
+        agree += int((fim.do_predict(xb).argmax(-1)
+                      == qim.do_predict(xb).argmax(-1)).sum())
+    print(f"int8: ResNet-50 calibrated int8 top-1 agrees with the bf16 "
+          f"float model on {agree} of {INT8_RESNET_AGREE_IMAGES} images "
+          f"({agree / INT8_RESNET_AGREE_IMAGES:.4f})", flush=True)
+
+
+def int8_seq2seq(rng):
+    """Phase 11a, phase 6's Seq2seq (seeded weights) with weight-only int8
+    behind a ContinuousBatcher: every stream equal to the sequential
+    decode on the same dequantized weights, or leaving it first at a
+    near-tie of the reference (TIE_BOUND, counted, as in phase 6)."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq
+    from analytics_zoo_tpu_torch.serving import (
+        ContinuousBatcher,
+        SequenceConfig,
+    )
+
+    t0 = time.perf_counter()
+    s2s = Seq2seq(vocab_size=SEQ_SIZE["vocab"], embed_dim=SEQ_SIZE["embed"],
+                  hidden_sizes=SEQ_SIZE["hidden"], cell_type="lstm",
+                  bridge="pass")
+    net = s2s.model
+    im = InferenceModel().do_load_keras(net).do_quantize()
+    cfg = SequenceConfig(**SEQ_CONFIG)
+    b = ContinuousBatcher(im, cfg, name="s2s-int8")
+    try:
+        b.warmup()
+        warm_s = time.perf_counter() - t0
+        workload = make_seq_workload(INT8_SEQ_REQUESTS, cfg,
+                                     SEQ_SIZE["vocab"], SEQ_ZIPF,
+                                     seed=int(rng.integers(1 << 30)))
+        futs = [b.submit(p, max_new_tokens=n) for p, n in workload]
+        got = [f.result(timeout=300) for f in futs]
+    finally:
+        b.stop(drain=False)
+    deq = served_params(im)
+    ties = []
+    for i, ((p, n), toks) in enumerate(zip(workload, got)):
+        want, gaps = reference_decode(net, deq, p, n)
+        if len(toks) != len(want):
+            fail(f"int8 seq2seq request {i}: {len(toks)} tokens, want "
+                 f"{len(want)}")
+        diff = np.nonzero(toks != want)[0]
+        if diff.size:
+            step = int(diff[0])
+            if not gaps[step] < TIE_BOUND:
+                fail(f"int8 seq2seq request {i} leaves its quantized "
+                     f"reference at step {step} (top-2 gap {gaps[step]:.3e})")
+            ties.append((i, step))
+    print(f"int8: Seq2seq int8 ({_n_params(im.params)} parameters) "
+          f"warmed {len(cfg.grid()) + len(cfg.batch_ladder()) + 1} programs "
+          f"in {warm_s:.1f} s; {len(workload)} streams, "
+          f"{sum(len(t) for t in got)} tokens, equal to the sequential "
+          f"quantized reference: {len(workload) - len(ties)}, near-ties "
+          f"{ties}", flush=True)
+
+
+class _StallingSet:
+    """A feature set whose training index batches sleep for each entry of
+    ``stalls`` ({batch index: seconds}), once: an injected stall of the
+    data iterator. Everything else is the wrapped set's."""
+
+    def __init__(self, fs, stalls):
+        self._fs, self._stalls = fs, dict(stalls)
+
+    def __getattr__(self, name):
+        return getattr(self._fs, name)
+
+    def train_index_batches(self, *a, **k):
+        for i, b in enumerate(self._fs.train_index_batches(*a, **k)):
+            if i in self._stalls:
+                time.sleep(self._stalls.pop(i))
+            yield b
+
+
+TORN_CHILD = (
+    "import sys\n"
+    "from analytics_zoo_tpu_torch.ft import atomic\n"
+    "from analytics_zoo_tpu_torch.ft.manager import CheckpointManager\n"
+    "flat, meta = atomic.read_checkpoint(sys.argv[1])\n"
+    "CheckpointManager(sys.argv[2], asynchronous=False).save(\n"
+    "    int(sys.argv[3]), dict(flat), metadata=meta)\n")
+
+
+def _npy_predict(conn, path, x):
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, x, allow_pickle=False)
+    conn.request("POST", path, body=buf.getvalue(),
+                 headers={"Content-Type": "application/x-npy",
+                          "Accept": "application/x-npy"})
+    resp = conn.getresponse()
+    data = resp.read()
+    if resp.status != 200:
+        return resp.status, data[:200]
+    return 200, np.load(io.BytesIO(data), allow_pickle=False)
+
+
+def hot_reload(seed):
+    """Phase 11b: NeuralCF trained through Estimator.train (a checkpoint
+    each epoch, a profile window, the step watchdog) while every committed
+    checkpoint is hot-reloaded into a ServingEngine that HTTP clients keep
+    querying (half of them pinning the latest version); a torn checkpoint
+    from a killed child; then a stalled run for the watchdog."""
+    import http.client
+
+    from analytics_zoo_tpu_torch.common.observability import (
+        hot_reload_metrics,
+    )
+    from analytics_zoo_tpu_torch.common.trace_tools import (
+        print_trace_summary,
+        summarize_trace,
+        top_ops,
+    )
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.engine.triggers import MaxEpoch
+    from analytics_zoo_tpu_torch.ft import atomic, chaos
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.interop import fill_from_flat
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.serving import (
+        BatcherConfig,
+        ServingEngine,
+        serve_http,
+    )
+
+    shutil.rmtree(RELOAD_DIR / "ncf", ignore_errors=True)
+    ckpt_dir = RELOAD_DIR / "ncf"
+    trace_dir = RELOAD_DIR / "ncf_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    pairs, y = ncf_data(seed)
+    fs = ArrayFeatureSet(pairs, y).cache_device()
+    net = NeuralCF(NCF_USERS, NCF_ITEMS, NCF_CLASSES).model
+    est = Estimator(net, Adam())
+    est.set_checkpoint(str(ckpt_dir))
+    est.set_profile(str(trace_dir), *RELOAD_PROFILE)
+    fired = []
+    est.set_step_watchdog(RELOAD_WATCHDOG_S,
+                          on_stall=lambda rs: fired.append(rs.iteration))
+    loss = objectives.sparse_categorical_crossentropy
+    models, recorders, built = {}, {}, []
+
+    def build_model(path):
+        m = NeuralCF(NCF_USERS, NCF_ITEMS, NCF_CLASSES).model
+        flat, _meta = atomic.read_checkpoint(path)
+        m.params, m.model_state = fill_from_flat(m, flat, ".params",
+                                                 ".model_state")
+        im = InferenceModel().do_load_keras(m)
+        v = Path(path).name.split("_")[-1]
+        built.append(int(v))
+        recorders[v] = DispatchRecorder(im)
+        models[v] = im
+        return im
+
+    hm = hot_reload_metrics()
+    skips0 = hm["skips"].value
+    engine = ServingEngine()
+    cfg = BatcherConfig(max_batch_size=max(RELOAD_LADDER),
+                        buckets=RELOAD_LADDER, max_wait_ms=1.0)
+    watcher = engine.watch_checkpoints(
+        "ncf", str(ckpt_dir), build_model,
+        example_input=np.ones((1, 2), np.int32), config=cfg,
+        poll_interval_s=0.1, keep_versions=RELOAD_KEEP)
+    server, _ = serve_http(engine, port=0)
+    port = server.server_address[1]
+    stop = threading.Event()
+    results, failures, live = [], [], []
+    lock = threading.Lock()
+
+    def client(ci):
+        crng = np.random.default_rng(seed + 100 + ci)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            while not stop.is_set():
+                rows = int(crng.integers(1, 9))
+                x = np.stack([crng.integers(1, NCF_USERS + 1, rows),
+                              crng.integers(1, NCF_ITEMS + 1, rows)],
+                             axis=1).astype(np.int32)
+                version = (engine.describe_model("ncf")["latest"]
+                           if ci % 2 else None)  # half pin a version
+                path = ("/v1/models/ncf" + (f"/versions/{version}"
+                                            if version else "")
+                        + ":predict")
+                status, out = _npy_predict(conn, path, x)
+                with lock:
+                    if status != 200:
+                        failures.append((version, status, out))
+                    else:
+                        results.append((version, x, out))
+                    live.append(len(engine.stats()["ncf"]["versions"]))
+                time.sleep(RELOAD_CLIENT_PAUSE_S)
+        except Exception as e:  # noqa: BLE001 - reported after join
+            failures.append((None, "error", repr(e)))
+        finally:
+            conn.close()
+
+    def wait_registered(step, timeout=120.0):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            info = engine.stats().get("ncf", {}).get("versions", {})
+            if watcher.last_step == step and str(step) in info and \
+                    len(info) <= RELOAD_KEEP:
+                return len(info)
+            time.sleep(0.02)
+        fail(f"hot reload: step {step} was not registered (or the older "
+             f"versions not retired) within {timeout:.0f} s")
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(RELOAD_CLIENTS)]
+    steady, torn_step = [], None
+    t0 = time.perf_counter()
+    try:
+        for epoch in range(1, RELOAD_EPOCHS + 1):
+            est.train(fs, loss, end_trigger=MaxEpoch(epoch),
+                      batch_size=NCF_BATCH)
+            steady.append(wait_registered(est.run_state.iteration))
+            if epoch == 1:
+                for t in threads:
+                    t.start()
+            if epoch == 2:
+                # a checkpoint torn by a writer killed before its COMMIT
+                # marker, in a child process, newer than any committed one
+                torn_step = est.run_state.iteration + 1
+                child = subprocess.run(
+                    [sys.executable, "-c", TORN_CHILD,
+                     str(ckpt_dir / f"ckpt_{est.run_state.iteration}"),
+                     str(ckpt_dir), str(torn_step)],
+                    cwd=Path(__file__).resolve().parent,
+                    env=dict(os.environ, AZOO_FT_CHAOS="before_commit"),
+                    capture_output=True, text=True, timeout=300)
+                torn = ckpt_dir / f"ckpt_{torn_step}"
+                print(f"reload: the torn-checkpoint child exited "
+                      f"{child.returncode} (want {chaos.EXIT_CODE}); "
+                      f"{torn.name} exists {torn.is_dir()}, committed "
+                      f"{atomic.is_committed(str(torn))}", flush=True)
+                if child.returncode != chaos.EXIT_CODE or not torn.is_dir() \
+                        or atomic.is_committed(str(torn)):
+                    fail("the child did not leave a torn checkpoint")
+                time.sleep(5 * 0.1)  # the watcher polls it several times
+        healthy_fired = list(fired)
+        # the stalled run: the iterator sleeps twice the timeout, twice
+        fired.clear()
+        est.set_step_watchdog(STALL_WATCHDOG_S,
+                              on_stall=lambda rs: fired.append(rs.iteration))
+        first = est.run_state.iteration
+        stalled = _StallingSet(fs, {2: 2 * STALL_WATCHDOG_S,
+                                    9: 2 * STALL_WATCHDOG_S})
+        est.train(stalled, loss, end_trigger=MaxEpoch(RELOAD_EPOCHS + 1),
+                  batch_size=NCF_BATCH)
+        steady.append(wait_registered(est.run_state.iteration))
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        server.shutdown()
+        server.server_close()
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail("a hot-reload client did not finish")
+    skips = hm["skips"].value - skips0
+    print(f"reload: NeuralCF trained {est.run_state.iteration} steps over "
+          f"{RELOAD_EPOCHS + 1} epochs in {wall:.1f} s while "
+          f"{RELOAD_CLIENTS} HTTP clients (2 pinning the latest version) "
+          f"sent {len(results) + len(failures)} requests: {len(failures)} "
+          f"failed {failures[:3]}; versions registered {built} (torn step "
+          f"{torn_step}); live versions after each reload {steady}, most "
+          f"seen by a client {max(live) if live else 0} (a new version is "
+          f"registered before the oldest is retired); "
+          f"zoo_hot_reload_skips_total +{skips}", flush=True)
+    if failures:
+        fail("hot reload: a request failed")
+    if torn_step in built:
+        fail("hot reload: the torn checkpoint was registered")
+    if max(steady) > RELOAD_KEEP:
+        fail(f"hot reload: more than {RELOAD_KEEP} versions stayed live")
+    if skips:
+        fail("hot reload: the healthy run skipped a checkpoint")
+
+    # every response against the batch its version dispatched
+    index, outs = {}, {}
+    for v, rec in recorders.items():
+        for j, (bx, out) in enumerate(rec.take()):
+            outs[(v, j)] = (bx, models[v].do_fetch(out))
+            for i in range(len(bx)):
+                index.setdefault(bx[i].tobytes(), []).append((v, j, i))
+    pinned = 0
+    for version, x, out in results:
+        hit = None
+        for v, j, i in index.get(x[0].tobytes(), []):
+            bx, bout = outs[(v, j)]
+            if (i + len(x) <= len(bx) and np.array_equal(bx[i:i + len(x)], x)
+                    and np.array_equal(bout[i:i + len(x)], out)):
+                hit = v
+                break
+        if hit is None or (version is not None and hit != version):
+            fail("hot reload: a response is no replayed batch's rows of the "
+                 "version that answered it")
+        pinned += version is not None
+    for (v, j), (bx, bout) in outs.items():
+        if not np.array_equal(models[v].do_fetch(models[v]._eager(bx)),
+                              bout):
+            fail(f"hot reload: version {v}'s replay differs from its eager "
+                 f"forward")
+    print(f"reload: all {len(results)} responses ({pinned} pinned) equal "
+          f"their version's replayed batch rows, and each of the {len(outs)} "
+          f"batches' replay equals its version's eager forward bitwise",
+          flush=True)
+
+    # the step watchdog
+    print(f"reload: step watchdog fired {healthy_fired} on the healthy run "
+          f"(timeout {RELOAD_WATCHDOG_S:g} s) and at iterations {fired} on "
+          f"the stalled one (timeout {STALL_WATCHDOG_S:g} s, two "
+          f"{2 * STALL_WATCHDOG_S:g} s stalls of the data iterator from "
+          f"iteration {first})", flush=True)
+    if healthy_fired:
+        fail("the step watchdog fired on the healthy run")
+    if fired != [first + 2, first + 9]:
+        fail("the step watchdog did not fire exactly once per stall")
+
+    # the profile window's trace, summarized
+    summary = summarize_trace(str(trace_dir))
+    events = sum(line["events"] for plane in summary.values()
+                 for line in plane["lines"].values())
+    ms = sum(line["total_ms"] for plane in summary.values()
+             for line in plane["lines"].values())
+    rows = top_ops(str(trace_dir), line="", plane_substr="", n=1 << 20)
+    print(f"reload: the profiled steps {RELOAD_PROFILE[0]}-"
+          f"{sum(RELOAD_PROFILE) - 1}: planes {list(summary)}; "
+          f"summarize_trace {events} events {ms:.4f} ms, top_ops "
+          f"{sum(c for _, _, c in rows)} events "
+          f"{sum(m for _, m, _ in rows):.4f} ms; top 5 {rows[:5]}",
+          flush=True)
+    print_trace_summary(str(trace_dir))
+    if not events or events != sum(c for _, _, c in rows) or \
+            not math.isclose(ms, sum(m for _, m, _ in rows), rel_tol=1e-9):
+        fail("summarize_trace and top_ops disagree on the profiled steps")
+    engine.shutdown()
+    watcher.stop()
+    shutil.rmtree(RELOAD_DIR / "ncf", ignore_errors=True)
+
+
+def graph_memory(rng, split):
+    """Phase 11c: reserved card memory around three evictions that leave
+    other graphs of the pool alive, and after the last graph is gone and
+    ``empty_cache`` runs; BERT-base's register split by bucket."""
+    import gc
+
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+
+    net = build_resnet()
+    im = InferenceModel(executable_cache_size=GRAPH_MEM_CACHE
+                        ).do_load_keras(net)
+
+    def reserved():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return _mib(torch.cuda.memory_reserved())
+
+    ladder = (1, 2, 4, 8, 16, 32)
+    xs = {b: (resnet_images(rng, b)[0].astype(np.float32) - 127.5) / 127.5
+          for b in ladder}
+    for b in ladder[:GRAPH_MEM_CACHE]:
+        im.do_optimize(xs[b])
+    before = reserved()
+    for b in ladder[GRAPH_MEM_CACHE:]:
+        im.do_optimize(xs[b])
+    evicted = im.cache_stats["evictions"]
+    after = reserved()
+    # keep the parameters alive: what is freed now is the pool alone
+    kept = (im.params, im._exec_params, im.model_state)
+    im.release()
+    del im
+    gone = reserved()
+    del kept
+    print(f"memory: ResNet-50 at executable_cache_size {GRAPH_MEM_CACHE}: "
+          f"reserved {before:.1f} MiB with buckets {ladder[:GRAPH_MEM_CACHE]}"
+          f" captured, {after:.1f} MiB after {evicted} evictions (each left "
+          f"{GRAPH_MEM_CACHE - 1} graphs of the pool alive) and the captures "
+          f"of {ladder[GRAPH_MEM_CACHE:]}, {gone:.1f} MiB after release() "
+          f"dropped the last graph and empty_cache ran", flush=True)
+    if evicted != len(ladder) - GRAPH_MEM_CACHE or not gone < after:
+        fail("graph memory: the evictions did not happen, or the pool's "
+             "memory stayed reserved after its last graph was gone")
+    warm = sum(w for w, _ in split.values())
+    cap = sum(c for _, c in split.values())
+    print(f"memory: BERT-base int8 register over {list(split)}: eager "
+          f"warm-up {warm:.3f} s, capture and instantiate {cap:.3f} s "
+          f"(by bucket {split})", flush=True)
+
+
+def int8_reload_phase(fa, seed):
+    """Phase 11: int8 serving (BERT-base, ResNet-50, Seq2seq), hot reload
+    of a training run into serving with the watchdog and a profile window,
+    graph memory. Returns (the flash wrappers' launches, the replays'
+    flash forward launches)."""
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    wrapper, replayed, split = int8_bert(fa, rng)
+    torch.cuda.empty_cache()
+    print(f"int8: 11a BERT-base took {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    zero_launches(fa)  # the rest of phase 11 starts here
+    for part, run in (("11a ResNet-50", lambda: int8_resnet(rng)),
+                      ("11a Seq2seq", lambda: int8_seq2seq(rng)),
+                      ("11b hot reload", lambda: hot_reload(seed)),
+                      ("11c graph memory", lambda: graph_memory(rng, split))):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        print(f"int8: {part} took {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    rest = read_launches(fa)  # ... and ends here
+    shutil.rmtree(RELOAD_DIR, ignore_errors=True)
+    if any(rest):
+        fail(f"phase 11 launched a flash kernel outside BERT: {rest}")
+    print(f"int8: phase 11 took {time.perf_counter() - t0:.1f} s; flash "
+          f"launches by the wrappers {wrapper}, in graph replays {replayed}",
+          flush=True)
+    return wrapper, replayed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6080,6 +6950,9 @@ def main(argv=None) -> int:
     # -- 10. the layer library: ConvLSTM, autograd, the layer sweep ----------
     layer_launches = layer_library_phase(fa, args.seed + 10)
 
+    # -- 11. int8 serving, hot reload, the watchdog, profiling ---------------
+    int8_launches, int8_replayed = int8_reload_phase(fa, args.seed + 11)
+
     bwd_src = "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu"
     bwd_pair = ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
     serve = fwd[0]
@@ -6125,12 +6998,12 @@ def main(argv=None) -> int:
         # serving-tier paths' runs (on the serving paths: each bucket's
         # eager warm-up and its capture)
         "launches": (launches + train_launches[0] + resume_launches[0]
-                     + serve_launches + zoo_launches[0]),
+                     + serve_launches + zoo_launches[0] + int8_launches[0]),
         # the kernel's runs on the card in CUDA graph replays, which no
         # wrapper sees, in phase 3's traffic and phase 5's traced run:
         # the flash nodes of each bucket's graph (read through the driver)
         # times its replays; and what torch.profiler traced of them
-        "replay_launches": replayed + serve_replayed,
+        "replay_launches": replayed + serve_replayed + int8_replayed,
         "replay_launches_traced": traced + serve_traced,
         "max_abs_err": serve_err,
         # device times at the (32, 512) serving shape; every main-path
@@ -6143,17 +7016,23 @@ def main(argv=None) -> int:
             "shape", "ms", "event_ms", "library_ms", "bound_ms", "bound_by")}
             for r in fwd],
     }, bwd_row("dq", 0, "analytics_zoo_tpu/ops/flash_attention.py:323",
-               train_launches[1] + resume_launches[1] + zoo_launches[1],
-               dq_err),
+               train_launches[1] + resume_launches[1] + zoo_launches[1]
+               + int8_launches[1], dq_err),
         bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
-                train_launches[2] + resume_launches[2] + zoo_launches[2],
-                dkv_err)]
-    for row, n, z, lib in zip(kernels, detection_launches, zoo_launches,
-                              layer_launches):
+                train_launches[2] + resume_launches[2] + zoo_launches[2]
+                + int8_launches[2], dkv_err)]
+    for row, n, z, lib, q in zip(kernels, detection_launches, zoo_launches,
+                                 layer_launches, int8_launches):
         row["detection_launches"] = n  # phase 8's: no attention there
         # phase 9's: 0 over 9a-9d, so all of them BERTClassifier's (9e)
         row["text_zoo_launches"] = z
         row["layer_library_launches"] = lib  # phase 10's: 0
+        # phase 11's by the wrappers (int8 and float BERT-base's warm-ups,
+        # captures and eager forwards; no backward), counted in launches
+        row["int8_reload_launches"] = q
+    # phase 11's flash forward launches in graph replays, counted in
+    # replay_launches
+    kernels[0]["int8_reload_replay_launches"] = int8_replayed
     print(f"chip_smoke: the whole script took "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,8 @@ continuous batching (``serving.sequence``, ``serving.decode_state``),
 / ``generate`` and HTTP ``:generate``.
 
 The cases of the JAX package's ``tests/test_sequence_serving.py`` run
-here against the port, except its int8 and AOT-cache cases, which wait
-for ``do_quantize`` and the AOT cache (ROADMAP A4). The load-bearing pin
+here against the port, the int8 one included; its AOT-cache case waits
+for the persistent executable cache (ROADMAP A4). The load-bearing pin
 is **interleaving parity**: whatever admission/eviction schedule the
 continuous batcher picks, each request's generated tokens equal its
 single-request sequential generate (``Seq2seqNet.infer``), token for
@@ -316,6 +316,36 @@ def test_continuous_batching_parity(seqmodel):
             got = fut.result(timeout=JOIN_S)
             assert got.dtype == np.int32
             np.testing.assert_array_equal(got, ref)
+    finally:
+        b.stop(drain=False)
+
+
+def test_quantized_decode_matches_quantized_oracle(seqmodel):
+    """Weight-only int8: the continuous batcher's programs run over the
+    ``do_quantize``d params (dequantized inside every program) and its
+    greedy decode equals the sequential reference on the same dequantized
+    weights, bitwise. Parity is per variant: int8 may change argmax ties
+    against the float model."""
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        _dequantize_params,
+        _is_qleaf,
+    )
+
+    net = Seq2seqNet(VOCAB, 8, (8,), cell_type="lstm", name="s2s_qparity")
+    m = InferenceModel()
+    m.do_load_keras(net)
+    m.do_quantize()
+    assert any(_is_qleaf(v) for p in m.params.values()
+               for v in (p.values() if isinstance(p, dict) else ()))
+    b = ContinuousBatcher(m, SequenceConfig(**CFG), name="qparity")
+    try:
+        prompt = np.array([1, 2, 3, 4])
+        got = b.submit(prompt, max_new_tokens=4).result(timeout=JOIN_S)
+        deq = _dequantize_params(m.params)
+        with torch.inference_mode():
+            ref = net.infer(deq, torch.tensor(prompt[None, :].astype(
+                np.int32)), start_token=1, max_seq_len=4)[0].numpy()
+        np.testing.assert_array_equal(got, ref.astype(np.int32))
     finally:
         b.stop(drain=False)
 

@@ -314,13 +314,16 @@ def test_engine_host_behaviour_split_queue_full_deadline():
                                   "watch_checkpoints", "sequence",
                                   "sharding_plan", "stage_plan"])
 def test_unported_surfaces_raise_naming_the_roadmap(call):
-    """``watch_checkpoints`` and the sharding and stage plans are not
-    ported and raise naming their ROADMAP items. Generation is ported
-    (``tests/test_torch_sequence_serving.py`` drives it); its cases here
-    hold what it raises on a model it cannot serve: ``generate`` and
+    """The sharding and stage plans are not ported and raise naming their
+    ROADMAP item. Generation and hot reload are ported
+    (``tests/test_torch_sequence_serving.py`` and
+    ``tests/test_torch_hot_reload.py`` drive them); their cases here hold
+    what they raise on what they cannot serve: ``generate`` and
     ``generate_async`` of an unregistered name raise the registry miss,
-    and ``register(sequence=)`` of a model without the decode contract
-    raises ``TypeError``. Either way the engine stays empty."""
+    ``register(sequence=)`` of a model without the decode contract raises
+    ``TypeError``, and ``watch_checkpoints(aot_cache_dir=...)`` raises
+    naming the AOT cache's ROADMAP item. Either way the engine stays
+    empty."""
     engine = port_serving.ServingEngine()
     ex = np.zeros((1, 3), np.float32)
     try:
@@ -332,12 +335,13 @@ def test_unported_surfaces_raise_naming_the_roadmap(call):
             with pytest.raises(TypeError, match="seq_init_carries"):
                 engine.register("m", plain, ex,
                                 sequence=port_serving.SequenceConfig())
+        elif call == "watch_checkpoints":
+            with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+                engine.watch_checkpoints("m", "/nonexistent", None, ex,
+                                         aot_cache_dir="/nonexistent")
         else:
-            with pytest.raises(NotImplementedError, match="ROADMAP A[78]"):
-                if call == "watch_checkpoints":
-                    engine.watch_checkpoints("m", "/nonexistent", None, ex)
-                else:
-                    engine.register("m", object(), ex, **{call: object()})
+            with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+                engine.register("m", object(), ex, **{call: object()})
         assert engine.model_names() == []
     finally:
         engine.shutdown()

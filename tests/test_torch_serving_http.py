@@ -261,9 +261,8 @@ def _families(text):
 
 # Families the JAX process registry may carry from tiers the port has not
 # ported (registered by whatever else ran in the same test process).
-_UNPORTED = ("zoo_train_", "zoo_checkpoint_", "zoo_data_", "zoo_dist_",
-             "zoo_batch_", "zoo_capture_", "zoo_flywheel_", "zoo_label_",
-             "zoo_drift_", "zoo_hot_reload_", "zoo_serving_aot_")
+_UNPORTED = ("zoo_data_", "zoo_dist_", "zoo_batch_", "zoo_capture_",
+             "zoo_flywheel_", "zoo_label_", "zoo_drift_", "zoo_serving_aot_")
 
 
 def test_metrics_families_match_the_jax_engine_after_the_same_traffic():
@@ -274,9 +273,15 @@ def test_metrics_families_match_the_jax_engine_after_the_same_traffic():
     texts = {}
     for root in ROOTS:
         P = _ns(root)
-        # registered on first use of either package's InferenceModel, which
+        # registered on first use of either package's InferenceModel,
+        # Estimator.train, CheckpointManager, sweep_stale or
+        # CheckpointWatcher, which
         # another test in this process may or may not have made
         P.obs.inference_cache_counters()
+        P.obs.training_metrics()
+        P.obs.checkpoint_metrics()
+        P.obs.checkpoint_sweep_counters()
+        P.obs.hot_reload_metrics()
         base, engine, srv = _start(P, {"dbl": Doubler()})
         try:
             for _ in range(3):
