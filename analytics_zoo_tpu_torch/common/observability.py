@@ -30,9 +30,15 @@ span tracing, a global metrics registry, and compile-event accounting.
   :func:`training_metrics` (``Estimator.train``) and
   :func:`hot_reload_metrics` (``CheckpointWatcher``).
 
+- :func:`data_metrics` (``zoo_data_*``, one call per streaming
+  :class:`~analytics_zoo_tpu_torch.data.pipeline.Pipeline` epoch) and
+  :func:`batch_metrics` (``zoo_batch_*``, one call per
+  :class:`~analytics_zoo_tpu_torch.batch.runner.BatchJobRunner`, whose
+  job and shards are the ``batch.job`` and ``batch.shard`` spans).
+
 The JAX package's families for tiers the port does not have yet wait for
-them (ROADMAP A8): data, batch, distributed, capture, flywheel, label and
-drift metrics, and the persistent AOT cache's counters (A4).
+them (ROADMAP A7, A8): distributed, capture, flywheel, label and drift
+metrics, and the persistent AOT cache's counters (A4).
 """
 
 from __future__ import annotations
@@ -70,6 +76,8 @@ __all__ = [
     "parse_traceparent",
     "format_traceparent",
     "inference_cache_counters",
+    "data_metrics",
+    "batch_metrics",
 ]
 
 
@@ -807,10 +815,15 @@ def process_metrics(
 def refresh_process_metrics(
         registry: Optional[MetricsRegistry] = None) -> Dict[str, float]:
     """Sample ``/proc/self`` into the process gauges — no psutil, just
-    two reads. On platforms without ``/proc`` the gauges keep their last
-    value (0 initially) and this is a cheap no-op. Returns the sampled
-    ``{name: value}`` for callers that want the numbers directly."""
+    two reads — and, where ``registry`` holds ``zoo_build_info``, its
+    device label as it reads now. On platforms without ``/proc`` the
+    gauges keep their last value (0 initially) and this is a cheap no-op.
+    Returns the sampled ``{name: value}`` for callers that want the
+    numbers directly."""
     gauges = process_metrics(registry)
+    reg = registry if registry is not None else get_registry()
+    if "zoo_build_info" in reg._families:
+        build_info(reg)  # the device label as it reads now
     out: Dict[str, float] = {}
     try:
         with open("/proc/self/statm", "rb") as f:
@@ -828,8 +841,26 @@ def refresh_process_metrics(
 
 
 # Build-info label values are computed once — they cannot change within
-# a process.
+# a process — except the device label while it reads "no-context": a
+# process that initialises CUDA after its first call (an engine built
+# before its card model) gets the card's name at its next scrape.
 _build_info_labels: Optional[Dict[str, str]] = None
+
+
+def _device_label() -> str:
+    """The card's name where this process already holds a CUDA context;
+    ``no-context`` where a card is visible but this process has not
+    initialised CUDA (asking for the name would create a context, and a
+    process that never computes on the card, such as the front door or
+    the fleet door, must not hold one); ``cpu`` without a card."""
+    try:
+        import torch
+
+        if torch.cuda.is_initialized():
+            return torch.cuda.get_device_name(0)
+        return "no-context" if torch.cuda.is_available() else "cpu"
+    except Exception:  # pragma: no cover - torch is a dependency
+        return "unavailable"
 
 
 def _build_info_values() -> Dict[str, str]:
@@ -839,18 +870,20 @@ def _build_info_values() -> Dict[str, str]:
             from analytics_zoo_tpu_torch import __version__ as version
         except Exception:  # pragma: no cover - defensive
             version = "unknown"
-        torch_v = cuda_v = device = "unavailable"
+        torch_v = cuda_v = "unavailable"
         try:
             import torch
 
             torch_v = torch.__version__
             cuda_v = torch.version.cuda or "none"
-            device = (torch.cuda.get_device_name(0)
-                      if torch.cuda.is_available() else "cpu")
         except Exception:  # pragma: no cover - torch is a dependency
             pass
         _build_info_labels = {"version": version, "torch": torch_v,
-                              "cuda": cuda_v, "device": device}
+                              "cuda": cuda_v, "device": _device_label()}
+    elif _build_info_labels["device"] == "no-context":
+        device = _device_label()
+        if device != "no-context":
+            _build_info_labels = dict(_build_info_labels, device=device)
     return _build_info_labels
 
 
@@ -859,14 +892,23 @@ def build_info(registry: Optional[MetricsRegistry] = None) -> Gauge:
     info-gauge (value pinned to 1) in ``registry`` (default: the global
     one) so every scrape identifies exactly what is running — package
     version, the torch and CUDA versions, and the card's name (``cpu``
-    without a card). Idempotent; returns the gauge child."""
+    without a card, ``no-context`` in a process that has not initialised
+    CUDA yet). Idempotent; :func:`refresh_process_metrics` calls it again
+    at every scrape, so the one sample carries the labels as they read
+    then. Returns the gauge child."""
     reg = registry if registry is not None else get_registry()
-    g = reg.gauge(
+    fam = reg.gauge(
         "zoo_build_info",
         "Build/runtime identity of this process (value is always 1; the "
         "information is in the labels).",
         labels=("version", "torch", "cuda", "device"),
-    ).labels(**_build_info_values())
+    )
+    values = _build_info_values()
+    key = tuple(values[n] for n in fam.label_names)
+    with fam._lock:
+        for stale in [k for k in fam._children if k != key]:
+            del fam._children[stale]
+    g = fam.labels(**values)
     g.set(1)
     return g
 
@@ -967,4 +1009,81 @@ def training_metrics() -> Dict[str, Any]:
             "zoo_train_items_per_sec",
             "Training throughput over the most recent drain "
             "window.").labels(),
+    }
+
+
+def data_metrics() -> Dict[str, Any]:
+    """The streaming-input-pipeline metric children in the global
+    registry: ``samples`` (counter ``zoo_data_samples_total``),
+    ``batches`` (counter ``zoo_data_batches_total``), ``wait_seconds``
+    (summary ``zoo_data_wait_seconds`` — consumer time blocked on the
+    iterator per batch), ``queue_depth`` (gauge ``zoo_data_queue_depth``
+    — ready prefetched batches), ``samples_per_sec`` (gauge) and
+    ``starvation_ratio`` (gauge ``zoo_data_starvation_ratio`` — the
+    fraction of recent step wall-time spent waiting on the input
+    iterator; near 1.0 means training is input-bound, near 0.0 means the
+    prefetcher keeps the device fed). One call per pipeline/epoch, whose
+    caller holds the children."""
+    reg = get_registry()
+    return {
+        "samples": reg.counter(
+            "zoo_data_samples_total",
+            "Samples produced by streaming input pipelines (wrap-padding "
+            "excluded).").labels(),
+        "batches": reg.counter(
+            "zoo_data_batches_total",
+            "Batches assembled by streaming input pipelines.").labels(),
+        "wait_seconds": reg.summary(
+            "zoo_data_wait_seconds",
+            "Seconds the consumer spent blocked on the input iterator, "
+            "per batch.").labels(),
+        "queue_depth": reg.gauge(
+            "zoo_data_queue_depth",
+            "Device-prefetch queue depth (ready batches) at the last "
+            "dequeue.").labels(),
+        "samples_per_sec": reg.gauge(
+            "zoo_data_samples_per_sec",
+            "Input-pipeline throughput over the most recent "
+            "epoch.").labels(),
+        "starvation_ratio": reg.gauge(
+            "zoo_data_starvation_ratio",
+            "Fraction of step wall-time spent waiting on the input "
+            "iterator (1.0 = fully input-bound).").labels(),
+    }
+
+
+def batch_metrics() -> Dict[str, Any]:
+    """The offline batch-scoring metric children in the global registry:
+    ``rows`` (counter ``zoo_batch_rows_total`` — scored rows durably
+    committed, pad rows excluded), ``shards`` (counter
+    ``zoo_batch_shards_committed_total``), ``rows_per_sec`` (gauge
+    ``zoo_batch_rows_per_sec`` — throughput over the most recent job),
+    ``write_seconds`` (summary ``zoo_batch_write_seconds`` — wall seconds
+    per shard stage+fsync+rename+manifest commit) and ``resume_skipped``
+    (counter ``zoo_batch_resume_skipped_shards_total`` — shards a resumed
+    job found already committed and did not re-score). One call per
+    :class:`~analytics_zoo_tpu_torch.batch.runner.BatchJobRunner`, which
+    holds the children."""
+    reg = get_registry()
+    return {
+        "rows": reg.counter(
+            "zoo_batch_rows_total",
+            "Rows scored and durably committed by batch-predict jobs "
+            "(pad rows excluded).").labels(),
+        "shards": reg.counter(
+            "zoo_batch_shards_committed_total",
+            "Output shards committed through the atomic "
+            "stage/fsync/rename/manifest protocol.").labels(),
+        "rows_per_sec": reg.gauge(
+            "zoo_batch_rows_per_sec",
+            "Batch-predict throughput over the most recent job "
+            "segment.").labels(),
+        "write_seconds": reg.summary(
+            "zoo_batch_write_seconds",
+            "Wall seconds per shard commit (stage + fsync + rename + "
+            "manifest update).").labels(),
+        "resume_skipped": reg.counter(
+            "zoo_batch_resume_skipped_shards_total",
+            "Already-committed shards a resumed batch job skipped "
+            "instead of re-scoring.").labels(),
     }

@@ -1,5 +1,6 @@
-"""Data: feature sets (port of ``analytics_zoo_tpu.data``); ``text_set``,
-``image_set`` and ``roi`` are imported by module."""
+"""Data: feature sets and the streaming pipeline (port of
+``analytics_zoo_tpu.data``); ``sources``, ``text_set``, ``image_set`` and
+``roi`` are imported by module."""
 
 from analytics_zoo_tpu_torch.data.feature_set import (
     ArrayFeatureSet,
@@ -7,6 +8,7 @@ from analytics_zoo_tpu_torch.data.feature_set import (
     PairFeatureSet,
     TransformedFeatureSet,
 )
+from analytics_zoo_tpu_torch.data.pipeline import Pipeline, PipelineIterator
 
 __all__ = ["FeatureSet", "ArrayFeatureSet", "PairFeatureSet",
-           "TransformedFeatureSet"]
+           "TransformedFeatureSet", "Pipeline", "PipelineIterator"]

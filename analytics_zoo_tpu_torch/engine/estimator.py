@@ -801,7 +801,17 @@ class Estimator:
         ``auto_resume=True`` first restores the newest committed
         checkpoint under the ``set_checkpoint`` directory (nothing when
         there is none, or when this estimator has already trained), so a
-        restarted process continues bitwise where the last one stopped."""
+        restarted process continues bitwise where the last one stopped.
+        A streaming :class:`~analytics_zoo_tpu_torch.data.pipeline.Pipeline`
+        is not accepted yet (ROADMAP A6): it raises
+        ``NotImplementedError``."""
+        from analytics_zoo_tpu_torch.data.pipeline import Pipeline
+
+        if isinstance(train_set, Pipeline):
+            raise NotImplementedError(
+                "Estimator.train over a streaming Pipeline (with its stream "
+                "position in the checkpoints) is not ported yet (ROADMAP "
+                "A6): train over a FeatureSet")
         rs = self.run_state
         if (auto_resume and self._checkpoint_path is not None
                 and rs.iteration == 0):

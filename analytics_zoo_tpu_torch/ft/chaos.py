@@ -22,8 +22,16 @@ for subprocess or manual drills, and exercise the resilience layer:
 ``predict_raises`` drives the circuit breaker, ``predict_slow`` the
 admission EWMA and wedge detection, ``flush_thread_dies`` the watchdog.
 
-The JAX package's batch, distributed, front-door, flywheel, fleet and
-pipeline points belong to tiers the port does not have yet (ROADMAP A8).
+Batch scoring kill sites (:data:`BATCH_POINTS`) have the checkpoint
+points' hard-death semantics, placed inside the shard commit protocol of
+:mod:`analytics_zoo_tpu_torch.batch.writers` and the job runner loop; a
+resumed job's output must be bitwise that of an uninterrupted run. The
+front door's worker kill site (:data:`FRONTDOOR_POINTS`) is armed in a
+worker's environment; the fleet fabric's forward drop
+(:data:`FLEET_POINTS`) is in-process, armed like the serving points.
+
+The JAX package's distributed, flywheel and pipeline points belong to
+tiers the port does not have yet (ROADMAP A7, A8).
 """
 
 from __future__ import annotations
@@ -33,9 +41,11 @@ import threading
 import time
 from typing import Dict, Optional
 
-__all__ = ["FAILURE_POINTS", "EXIT_CODE", "active_point", "should_fail",
+__all__ = ["FAILURE_POINTS", "BATCH_POINTS", "FRONTDOOR_POINTS",
+           "FLEET_POINTS", "EXIT_CODE", "active_point", "should_fail",
            "fail", "maybe_fail", "reset",
-           "SERVING_POINTS", "ChaosPredictError", "FlushThreadDeath",
+           "SERVING_POINTS", "ChaosPredictError", "ChaosForwardError",
+           "FlushThreadDeath",
            "arm_serving", "disarm_serving", "serving_chaos", "serving_hits"]
 
 #: The commit protocol's kill sites, in write order:
@@ -49,6 +59,32 @@ __all__ = ["FAILURE_POINTS", "EXIT_CODE", "active_point", "should_fail",
 #:   marker lands.
 FAILURE_POINTS = ("torn_arrays", "after_arrays", "before_rename",
                   "before_commit")
+
+#: The batch scoring engine's kill sites, in the shard commit protocol's
+#: write order (same ``os._exit`` semantics and environment arming as
+#: :data:`FAILURE_POINTS`):
+#:
+#: - ``batch_writer_torn``: half a shard file's bytes hit the staging
+#:   path, then death (the ``.tmp`` must never become visible as a
+#:   committed shard).
+#: - ``batch_before_manifest``: the shard file is renamed into place but
+#:   the process dies before the manifest records it: a reader of
+#:   ``MANIFEST.json`` must still see only the previously recorded shards.
+#: - ``batch_mid_job_kill``: death in the runner loop between two
+#:   committed shards (with ``AZOO_FT_CHAOS_SKIP=N`` the job survives N
+#:   shard boundaries first).
+BATCH_POINTS = ("batch_writer_torn", "batch_before_manifest",
+                "batch_mid_job_kill")
+
+#: The front door's kill site, armed in a worker's environment
+#: (``FrontDoorConfig.worker_env``):
+#:
+#: - ``frontdoor_worker_exit``: the worker dies hard inside ``predict``
+#:   (after ``AZOO_FT_CHAOS_SKIP`` survivals), mid-request from the front
+#:   door's point of view: the proxy must see the transport failure, eject
+#:   the worker, retry the request on a live worker and respawn the dead
+#:   one; the client never sees an error.
+FRONTDOOR_POINTS = ("frontdoor_worker_exit",)
 
 #: Exit status of a chaos kill, distinguishable from a real crash.
 EXIT_CODE = 43
@@ -73,8 +109,27 @@ SERVING_POINTS = ("predict_raises", "predict_slow", "flush_thread_dies",
                   "canary_errors", "canary_slow")
 
 
+#: The fleet fabric's in-process fault, armed like :data:`SERVING_POINTS`
+#: (the fleet doors may run as threads of one process, where an
+#: ``os._exit`` point would kill every host under test):
+#:
+#: - ``fleet_forward_drop``: a cross-host forward fails at the transport
+#:   (:class:`ChaosForwardError`, an ``OSError``): the fleet door must
+#:   suspect the target host at once, serve the request from its own
+#:   workers, and let the suspicion clear when the peer's heartbeat
+#:   advances.
+FLEET_POINTS = ("fleet_forward_drop",)
+
+
 class ChaosPredictError(RuntimeError):
     """The injected model failure behind ``predict_raises``."""
+
+
+class ChaosForwardError(ConnectionError):
+    """The injected cross-host transport failure behind
+    ``fleet_forward_drop``: an ``OSError``, so the fleet door's normal
+    transport-error handling (suspect, then local failover) is what
+    fires."""
 
 
 class FlushThreadDeath(BaseException):
@@ -108,18 +163,19 @@ def arm_serving(point: str, times: Optional[int] = None,
     """Arm a serving failure point in-process.
 
     Args:
-      point: one of :data:`SERVING_POINTS`.
+      point: one of :data:`SERVING_POINTS` or :data:`FLEET_POINTS`.
       times: fire on this many hits then stop (None = every hit until
         :func:`disarm_serving`).
       sleep_s: sleep of ``predict_slow`` / ``canary_slow`` (ignored
         otherwise).
       tag: fire only at call sites carrying this tag (the batcher passes
         ``name@version``, so ``tag="m@2"`` breaks only version 2 of model
-        ``m``); None fires everywhere.
+        ``m``; the fleet door passes the target host id, so ``tag="b"``
+        drops only forwards to host ``b``); None fires everywhere.
     """
-    if point not in SERVING_POINTS:
+    if point not in SERVING_POINTS + FLEET_POINTS:
         raise ValueError(f"{point!r} is not a serving failure point; "
-                         f"known: {SERVING_POINTS}")
+                         f"known: {SERVING_POINTS + FLEET_POINTS}")
     with _serving_lock:
         _serving_armed[point] = {"remaining": times, "sleep_s": sleep_s,
                                  "hits": 0, "tag": tag}
@@ -185,14 +241,18 @@ def serving_chaos(point: str, tag: Optional[str] = None) -> None:
         return
     if point == "flush_thread_dies":
         raise FlushThreadDeath("chaos: injected flush-thread death")
+    if point == "fleet_forward_drop":
+        raise ChaosForwardError(
+            f"chaos: injected cross-host forward failure (tag={tag})")
 
 
 def active_point() -> Optional[str]:
     """The failure point armed via ``AZOO_FT_CHAOS`` (None = chaos off)."""
     point = os.environ.get("AZOO_FT_CHAOS")
-    if point and point not in FAILURE_POINTS:
+    known = FAILURE_POINTS + BATCH_POINTS + FRONTDOOR_POINTS
+    if point and point not in known:
         raise ValueError(f"AZOO_FT_CHAOS={point!r} is not a failure point; "
-                         f"known: {FAILURE_POINTS}")
+                         f"known: {known}")
     return point or None
 
 

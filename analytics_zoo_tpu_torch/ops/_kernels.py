@@ -4,14 +4,18 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` beside the
 package (one shared library per source, named by a hash of the source, the
 shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
-is rebuilt) and loaded with ``ctypes``. Nothing
+is rebuilt) and loaded with ``ctypes``. Processes that boot together on
+one build directory (the front door's card workers) serialise their
+builds on a file lock there, so each source compiles once. Nothing
 here runs at import time: the CPU tests import every module, and a CPU
 tensor never reaches the loader.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -100,27 +104,47 @@ def _paths(name: str) -> Tuple[Path, Path]:
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive ``flock`` on ``BUILD_DIR/.build.lock``: across
+    processes, one builds while the others wait, then find its libraries
+    and build nothing."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel that is not built yet: one ``nvcc`` per
-    source, all started together. Each fresh build reports its own
-    seconds, from its start to its end, to the compile listeners. Returns
-    each fresh build's compiler log (``-Xptxas -v``: registers, shared
-    memory, spills); raises ``RuntimeError`` with the log if a build
-    fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source, all started together, under the build directory's file lock
+    (the check, the compiles and the renames). Each fresh build reports
+    its own seconds, from its start to its end, to the compile listeners.
+    Returns each fresh build's compiler log (``-Xptxas -v``: registers,
+    shared memory, spills), written under a temporary name and renamed
+    beside its library as ``.log``; raises ``RuntimeError`` with the log
+    if a build fails."""
+    with _build_lock():
+        return _build_locked(list(names))
+
+
+def _build_locked(names: List[str]) -> Dict[str, str]:
     jobs = []
     for name in names:
         src, lib = _paths(name)
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        log = lib.with_suffix(".log")
-        with open(log, "w") as fh:
+        log_tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.log.tmp")
+        with open(log_tmp, "w") as fh:
             t0 = time.perf_counter()
             proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=fh, stderr=subprocess.STDOUT)
-        jobs.append((name, proc, t0, tmp, lib, log))
+        jobs.append((name, proc, t0, tmp, lib, log_tmp))
 
     def wait(job):
         rc = job[1].wait()
@@ -129,8 +153,10 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     with ThreadPoolExecutor(max(1, len(jobs))) as pool:
         ends = list(pool.map(wait, jobs))
     logs, failed = {}, []
-    for (name, _, _, tmp, lib, log), (rc, seconds) in zip(jobs, ends):
-        logs[name] = log.read_text()
+    for (name, _, _, tmp, lib, log_tmp), (rc, seconds) in zip(jobs, ends):
+        logs[name] = log_tmp.read_text()
+        # the log first: a reader that finds the library finds its log
+        os.replace(log_tmp, lib.with_suffix(".log"))
         if rc == 0:
             # atomic: another process never loads a half-written library
             os.replace(tmp, lib)

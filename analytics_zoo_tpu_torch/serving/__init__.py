@@ -35,10 +35,12 @@ batching is a host-side concern. The modules:
   :mod:`~analytics_zoo_tpu_torch.serving.decode_state` — sequence serving:
   length-bucketed prefill and continuous decode batching over a slot
   array (``register(sequence=...)``, ``generate``, HTTP ``:generate``).
-
-Not ported yet (ROADMAP A8): the multi-process front door and its workers
-(``frontdoor.py``, ``worker.py``) and the fleet fabric beyond its tree
-codec.
+- :mod:`~analytics_zoo_tpu_torch.serving.frontdoor` /
+  :mod:`~analytics_zoo_tpu_torch.serving.worker` — the preforked
+  multi-process front door and its engine workers (``python -m
+  analytics_zoo_tpu_torch.serving.worker``), and
+  :mod:`~analytics_zoo_tpu_torch.serving.fabric` — the multi-host fleet
+  door, membership, cooperative cache and autoscaler.
 """
 
 from analytics_zoo_tpu_torch.serving.batcher import (
@@ -52,6 +54,12 @@ from analytics_zoo_tpu_torch.serving.engine import (
     ModelEntry,
     ModelNotFoundError,
     ServingEngine,
+)
+from analytics_zoo_tpu_torch.serving.frontdoor import (
+    FrontDoor,
+    FrontDoorConfig,
+    NoLiveWorkersError,
+    WorkerBootError,
 )
 from analytics_zoo_tpu_torch.serving.http import serve as serve_http
 from analytics_zoo_tpu_torch.serving.metrics import ServingMetrics
@@ -105,9 +113,12 @@ __all__ = [
     "DynamicBatcher",
     "FlushThreadRestartedError",
     "FlushWatchdog",
+    "FrontDoor",
+    "FrontDoorConfig",
     "InputSignature",
     "ModelEntry",
     "ModelNotFoundError",
+    "NoLiveWorkersError",
     "QueueFullError",
     "QuotaConfig",
     "QuotaExceededError",
@@ -126,6 +137,7 @@ __all__ = [
     "TenantQuota",
     "TrafficPolicy",
     "VersionHealth",
+    "WorkerBootError",
     "install_drain_on_preemption",
     "serve_http",
 ]

@@ -9,19 +9,27 @@ load — a malicious peer cannot execute code here), the tree structure as a
 JSON skeleton referencing them by index. Unsupported leaf types (object
 arrays, arbitrary Python objects) raise ``TypeError`` from
 :func:`encode_tree`; the serving side treats that as "entry not
-shareable" and answers 404. The peer cache client is not ported yet
-(ROADMAP A8).
+shareable" and answers 404.
+
+:class:`PeerCacheClient` is the small HTTP client a *worker* uses on a
+single-flight leader miss. It points at its own front door's
+``GET /v1/fleet/cache/<key>`` (the door searches its other local workers
+first, then its peer doors) with a short timeout: the cooperative layer is
+best-effort, and a slow or dead peer costs at most ``timeout_s`` before
+the leader executes locally.
 """
 
 from __future__ import annotations
 
 import io
 import json
-from typing import Any
+import urllib.parse
+from typing import Any, Optional
 
 import numpy as np
 
-__all__ = ["TREE_CONTENT_TYPE", "decode_tree", "encode_tree"]
+__all__ = ["TREE_CONTENT_TYPE", "PeerCacheClient", "decode_tree",
+           "encode_tree"]
 
 #: Content type of an encoded result tree (the fleet cache endpoints).
 TREE_CONTENT_TYPE = "application/x-zoo-tree"
@@ -93,3 +101,48 @@ def decode_tree(data: bytes) -> Any:
             raise ValueError(f"unknown tree node type {t!r}")
 
         return dec(structure)
+
+
+class PeerCacheClient:
+    """HTTP client for cooperative cache lookups, installed as
+    ``ResultCache.peer_client`` on fleet workers.
+
+    ``base_url`` is the front door's fleet-cache prefix (e.g.
+    ``http://127.0.0.1:8500/v1/fleet/cache``) — the worker reaches the
+    fleet *through its own door*, which knows the membership view; the
+    worker itself stays fleet-oblivious. ``timeout_s`` bounds the whole
+    lookup: past it the leader simply executes locally."""
+
+    def __init__(self, base_url: str, timeout_s: float = 0.5):
+        self.base_url = base_url.rstrip("/")
+        self.timeout_s = float(timeout_s)
+        u = urllib.parse.urlsplit(self.base_url)
+        self._host = u.hostname or "127.0.0.1"
+        self._port = u.port or 80
+        self._path = u.path
+
+    def fetch(self, key: str) -> Optional[Any]:
+        """The cached tree for ``key`` from anywhere in the fleet, or
+        ``None`` on miss / timeout / any transport or codec failure."""
+        import http.client
+        conn = http.client.HTTPConnection(self._host, self._port,
+                                          timeout=self.timeout_s)
+        try:
+            conn.request("GET", f"{self._path}/{key}",
+                         headers={"Accept": TREE_CONTENT_TYPE})
+            resp = conn.getresponse()
+            body = resp.read()
+        except (OSError, http.client.HTTPException):
+            return None
+        finally:
+            conn.close()
+        if resp.status != 200:
+            return None
+        try:
+            return decode_tree(body)
+        except Exception:   # noqa: BLE001 — corrupt peer payload = miss
+            return None
+
+    def __repr__(self) -> str:
+        return (f"PeerCacheClient({self.base_url!r}, "
+                f"timeout_s={self.timeout_s})")

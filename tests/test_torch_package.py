@@ -3,9 +3,12 @@ package, it runs on the card unless told otherwise, and CPU tensors never
 reach the CUDA kernel loader."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
+import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -81,6 +84,12 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import analytics_zoo_tpu_torch.models.anomalydetection\n"
             "import analytics_zoo_tpu_torch.data\n"
             "import analytics_zoo_tpu_torch.data.text_set\n"
+            "import analytics_zoo_tpu_torch.data.sources\n"
+            "import analytics_zoo_tpu_torch.data.pipeline\n"
+            "import analytics_zoo_tpu_torch.batch\n"
+            "import analytics_zoo_tpu_torch.serving.frontdoor\n"
+            "import analytics_zoo_tpu_torch.serving.worker\n"
+            "import analytics_zoo_tpu_torch.serving.fabric\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'analytics_zoo_tpu.'))]\n"
             "assert not bad and 'analytics_zoo_tpu' not in sys.modules, bad\n")
@@ -157,3 +166,126 @@ def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
     assert _kernels._paths("k")[1] not in (first, second)
     (tmp_path / "other.cuh").unlink()
     assert _kernels._paths("k")[1] == second
+
+
+_STUB_NVCC = """#!/bin/sh
+# a stand-in nvcc: note the call, take a while, write the -o file
+out=""
+prev=""
+for a in "$@"; do
+  if [ "$prev" = "-o" ]; then out="$a"; fi
+  prev="$a"
+done
+echo "$out" >> "$STUB_NVCC_CALLS"
+echo "ptxas info    : Used 1 registers"
+sleep 1
+echo lib > "$out"
+"""
+
+
+def test_processes_booting_together_build_each_source_once(tmp_path):
+    """N processes on one empty build directory: the file lock lets one
+    of them compile each source, the others find its libraries, and
+    every log is whole."""
+    cuda = tmp_path / "cuda"
+    (cuda / "bin").mkdir(parents=True)
+    nvcc = cuda / "bin" / "nvcc"
+    nvcc.write_text(_STUB_NVCC)
+    nvcc.chmod(0o755)
+    build_dir = tmp_path / "build"
+    calls = tmp_path / "calls.txt"
+    child = textwrap.dedent(f"""
+        import json, sys
+        from pathlib import Path
+        from analytics_zoo_tpu_torch.ops import _kernels
+        _kernels.BUILD_DIR = Path({str(build_dir)!r})
+        logs = _kernels.build()
+        print(json.dumps({{
+            "built": sorted(logs),
+            "libs": [str(_kernels._paths(n)[1]) for n in _kernels.KERNELS]}}))
+        """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_HOME=str(cuda),
+               STUB_NVCC_CALLS=str(calls))
+    procs = [subprocess.Popen([sys.executable, "-c", child], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    # each source compiled once, by one of the two processes
+    assert sorted(outs[0]["built"] + outs[1]["built"]) == sorted(
+        _kernels.KERNELS)
+    assert len(calls.read_text().split()) == len(_kernels.KERNELS)
+    assert outs[0]["libs"] == outs[1]["libs"]
+    for lib in map(Path, outs[0]["libs"]):
+        assert lib.read_text() == "lib\n"
+        assert lib.with_suffix(".log").read_text() == (
+            "ptxas info    : Used 1 registers\n")
+    assert not list(build_dir.glob("*.tmp"))
+
+
+_WORKER_SPEC = """
+import json
+import sys
+
+import numpy as np
+
+from analytics_zoo_tpu_torch import init_nncontext
+from analytics_zoo_tpu_torch.serving import BatcherConfig, ServingEngine
+
+
+class Model:
+    def do_predict(self, x):
+        # what this worker process holds, read while it serves
+        bad = sorted(m for m in sys.modules if m in ("jax", "analytics_zoo_tpu")
+                     or m.startswith(("jax.", "analytics_zoo_tpu.")))
+        with open(__file__ + ".modules.json", "w") as f:
+            json.dump(bad, f)
+        return np.asarray(x, np.float32) * 2
+
+
+def build_engine():
+    init_nncontext(device="cpu")
+    engine = ServingEngine()
+    engine.register("m", Model(), example_input=np.zeros((1, 2)),
+                    config=BatcherConfig(max_batch_size=2, max_wait_ms=1.0))
+    return engine
+"""
+
+
+def test_booted_worker_holds_no_jax(tmp_path):
+    """A port worker booted from a spec serves with neither jax nor the
+    JAX package in its sys.modules, and exits 0 on SIGTERM."""
+    import urllib.request
+
+    spec = tmp_path / "spec.py"
+    spec.write_text(_WORKER_SPEC)
+    ready = tmp_path / "ready.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.worker",
+         "--spec", f"{spec}:build_engine", "--ready-file", str(ready)],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.monotonic()
+        while not ready.exists():
+            assert proc.poll() is None, proc.communicate()[1]
+            assert time.monotonic() - t0 < 90, "worker never became ready"
+            time.sleep(0.05)
+        info = json.loads(ready.read_text())
+        assert info["pid"] == proc.pid
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{info['port']}/v1/models/m:predict",
+            data=json.dumps({"instances": [[1.0, 2.0]]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert json.loads(r.read())["predictions"] == [[2.0, 4.0]]
+        assert json.loads(
+            (tmp_path / "spec.py.modules.json").read_text()) == []
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=60) == 0
