@@ -36,9 +36,16 @@ span tracing, a global metrics registry, and compile-event accounting.
   :class:`~analytics_zoo_tpu_torch.batch.runner.BatchJobRunner`, whose
   job and shards are the ``batch.job`` and ``batch.shard`` spans).
 
+- The online-learning flywheel's families, one call per owner:
+  :func:`capture_metrics` (``zoo_capture_*``, ``CaptureTap``),
+  :func:`flywheel_metrics` (``zoo_flywheel_*``, ``FlywheelTrainer`` and
+  ``FlywheelController``), :func:`label_metrics` (``zoo_label_*``,
+  ``LabelStore``) and :func:`drift_metrics` (``zoo_drift_*``,
+  ``DriftDetector`` and ``PredictionTracker``).
+
 The JAX package's families for tiers the port does not have yet wait for
-them (ROADMAP A7, A8): distributed, capture, flywheel, label and drift
-metrics, and the persistent AOT cache's counters (A4).
+them: distributed metrics (ROADMAP A7) and the persistent AOT cache's
+counters (A4).
 """
 
 from __future__ import annotations
@@ -78,6 +85,10 @@ __all__ = [
     "inference_cache_counters",
     "data_metrics",
     "batch_metrics",
+    "capture_metrics",
+    "flywheel_metrics",
+    "label_metrics",
+    "drift_metrics",
 ]
 
 
@@ -1086,4 +1097,157 @@ def batch_metrics() -> Dict[str, Any]:
             "zoo_batch_resume_skipped_shards_total",
             "Already-committed shards a resumed batch job skipped "
             "instead of re-scoring.").labels(),
+    }
+
+
+def capture_metrics() -> Dict[str, Any]:
+    """The serving capture tap's metric children in the global registry
+    (:mod:`analytics_zoo_tpu_torch.flywheel.capture`): ``sampled`` (counter
+    ``zoo_capture_sampled_total`` — requests the error-diffusion sampler
+    selected), ``dropped`` (labeled counter
+    ``zoo_capture_dropped_total{reason=...}`` with reasons
+    ``queue_full``/``predict_failed``/``encode_error``), ``rows`` (counter
+    ``zoo_capture_rows_total`` — rows durably committed to capture
+    shards), ``shards`` (counter ``zoo_capture_shards_committed_total``)
+    and ``queue_depth`` (gauge ``zoo_capture_queue_depth``). One call per
+    :class:`~analytics_zoo_tpu_torch.flywheel.capture.CaptureTap` — the tap
+    holds the children."""
+    reg = get_registry()
+    return {
+        "sampled": reg.counter(
+            "zoo_capture_sampled_total",
+            "Serving requests selected by the capture tap's "
+            "error-diffusion sampler.").labels(),
+        "dropped": reg.counter(
+            "zoo_capture_dropped_total",
+            "Sampled requests the tap could not capture, by reason "
+            "(queue_full/predict_failed/encode_error).",
+            labels=("reason",)),
+        "rows": reg.counter(
+            "zoo_capture_rows_total",
+            "Request rows durably committed to capture shards.").labels(),
+        "shards": reg.counter(
+            "zoo_capture_shards_committed_total",
+            "Capture shards committed through the atomic "
+            "stage/fsync/rename/manifest protocol (time-rolled partial "
+            "shards included).").labels(),
+        "queue_depth": reg.gauge(
+            "zoo_capture_queue_depth",
+            "Pending records in the capture tap's hand-off queue "
+            "(sampled on the writer thread).").labels(),
+    }
+
+
+def flywheel_metrics() -> Dict[str, Any]:
+    """The online-learning flywheel's metric children in the global
+    registry (:mod:`analytics_zoo_tpu_torch.flywheel`): ``cycles`` (labeled
+    counter ``zoo_flywheel_cycles_total{outcome=...}`` with outcomes
+    ``promoted``/``rolled_back``/``no_data``/``timeout``),
+    ``cycle_seconds`` (summary ``zoo_flywheel_cycle_seconds`` — wall
+    seconds per capture→retrain→promote cycle), ``rows_trained``
+    (counter ``zoo_flywheel_rows_trained_total`` — captured rows consumed
+    by incremental retrains), ``quarantined`` (counter
+    ``zoo_flywheel_quarantined_segments_total`` — capture segments
+    quarantined after a rollback) and ``candidate_step`` (gauge
+    ``zoo_flywheel_candidate_step`` — the checkpoint step of the most
+    recent retrain candidate). One call per
+    :class:`~analytics_zoo_tpu_torch.flywheel.controller.FlywheelController` —
+    the controller holds the children."""
+    reg = get_registry()
+    return {
+        "cycles": reg.counter(
+            "zoo_flywheel_cycles_total",
+            "Flywheel cycles by outcome "
+            "(promoted/rolled_back/no_data/timeout).",
+            labels=("outcome",)),
+        "cycle_seconds": reg.summary(
+            "zoo_flywheel_cycle_seconds",
+            "Wall seconds per capture-rotate + retrain + promotion "
+            "cycle.").labels(),
+        "rows_trained": reg.counter(
+            "zoo_flywheel_rows_trained_total",
+            "Captured rows consumed by incremental retrains.").labels(),
+        "quarantined": reg.counter(
+            "zoo_flywheel_quarantined_segments_total",
+            "Capture segments quarantined after a canary "
+            "rollback.").labels(),
+        "candidate_step": reg.gauge(
+            "zoo_flywheel_candidate_step",
+            "Checkpoint step of the most recent retrain "
+            "candidate.").labels(),
+    }
+
+
+def label_metrics() -> Dict[str, Any]:
+    """The outcome plane's label-side metric children in the global
+    registry (:mod:`analytics_zoo_tpu_torch.flywheel.labels`): ``received``
+    (counter ``zoo_label_received_total`` — outcome records accepted by
+    ingest), ``rows`` (counter ``zoo_label_rows_total`` — label rows
+    durably committed to label shards), ``shards`` (counter
+    ``zoo_label_shards_committed_total``), ``duplicates`` (counter
+    ``zoo_label_duplicates_total`` — labels superseded by a
+    later/winning record for the same trace), ``watermark`` (labeled
+    gauge ``zoo_label_watermark_ts{model=...}``), ``unmatched``
+    (labeled gauge ``zoo_label_unmatched{model=...}`` — labels whose
+    trace matches no captured row yet) and ``join_lag`` (labeled gauge
+    ``zoo_label_join_lag_s{model=...}`` — how far the newest captured
+    request is ahead of the label watermark; 0 when every window is
+    closed). One call per :class:`~analytics_zoo_tpu_torch.flywheel.labels
+    .LabelStore` — the store holds the children."""
+    reg = get_registry()
+    return {
+        "received": reg.counter(
+            "zoo_label_received_total",
+            "Outcome label records accepted by ingest.").labels(),
+        "rows": reg.counter(
+            "zoo_label_rows_total",
+            "Label rows durably committed to label shards.").labels(),
+        "shards": reg.counter(
+            "zoo_label_shards_committed_total",
+            "Label shards committed through the atomic "
+            "stage/fsync/rename/manifest protocol.").labels(),
+        "duplicates": reg.counter(
+            "zoo_label_duplicates_total",
+            "Duplicate labels resolved last-write-wins during "
+            "joins.").labels(),
+        "watermark": reg.gauge(
+            "zoo_label_watermark_ts",
+            "Max label timestamp across committed label segments (the "
+            "join watermark).", labels=("model",)),
+        "unmatched": reg.gauge(
+            "zoo_label_unmatched",
+            "Labels whose trace id matches no captured request row.",
+            labels=("model",)),
+        "join_lag": reg.gauge(
+            "zoo_label_join_lag_s",
+            "Seconds the newest captured request is ahead of the label "
+            "watermark (0 = all capture windows closed).",
+            labels=("model",)),
+    }
+
+
+def drift_metrics() -> Dict[str, Any]:
+    """The drift detectors' metric children in the global registry
+    (:mod:`analytics_zoo_tpu_torch.flywheel.drift`): ``feature_psi`` (labeled
+    gauge ``zoo_drift_feature_psi{model,feature}`` — per-feature
+    population stability index between the pinned reference window and
+    the live capture window), ``prediction_js`` (labeled gauge
+    ``zoo_drift_prediction_js{model}`` — Jensen–Shannon divergence
+    between the canary's and incumbent's prediction distributions) and
+    ``evaluations`` (labeled counter
+    ``zoo_drift_evaluations_total{model}``). One call per detector —
+    the detector holds the children."""
+    reg = get_registry()
+    return {
+        "feature_psi": reg.gauge(
+            "zoo_drift_feature_psi",
+            "Per-feature PSI between the pinned reference window and "
+            "the live capture window.", labels=("model", "feature")),
+        "prediction_js": reg.gauge(
+            "zoo_drift_prediction_js",
+            "Jensen-Shannon divergence between canary and incumbent "
+            "prediction distributions.", labels=("model",)),
+        "evaluations": reg.counter(
+            "zoo_drift_evaluations_total",
+            "Drift score evaluations performed.", labels=("model",)),
     }

@@ -1,6 +1,6 @@
-"""Streaming input pipeline: parallel transform workers, host prefetch,
-and checkpointable iterators (port of ``analytics_zoo_tpu.data.pipeline``,
-its host side).
+"""Streaming input pipeline: parallel transform workers, asynchronous
+device prefetch, and checkpointable iterators (port of
+``analytics_zoo_tpu.data.pipeline``).
 
 The reference runs its feature-engineering chains (ImageSet/TextSet
 ``Preprocessing``) in parallel on Spark executors and overlaps data prep
@@ -16,7 +16,7 @@ streaming subsystem:
             .shuffle(1024, seed=7)
             .batch(128)
             .prefetch(2))
-    for x, y, mask in pipe.host_batches(): ...
+    Estimator(...).train(pipe, criterion, ...)   # accepted directly
 
 Stage semantics:
 
@@ -36,22 +36,24 @@ Stage semantics:
   padded up to the smallest bucket of an explicit ladder with
   ``pad_to_bucket=(8, 16, 32)`` (the serving bucket idea, so tail
   batches hit smaller captured shapes instead of full-size pads).
-- ``prefetch(k)`` — a host thread assembling batches ``k`` deep ahead of
-  the consumer (:meth:`Pipeline.host_batches`).
+- ``prefetch(k)`` — a background thread assembling batches ``k`` deep
+  ahead of the consumer and, for :meth:`Pipeline.device_batches`,
+  starting their copy to the device (the Estimator adopts the depth for
+  its infeed); :meth:`Pipeline.host_batches` keeps them on the host.
 
 Every stream is bitwise the JAX package's for the same source, seed,
-worker count and ladder, ``state_dict`` included. Not ported yet
-(ROADMAP A6): :meth:`Pipeline.device_batches` and ``Estimator.train``
-over a ``Pipeline`` (with the stream position in its checkpoints) raise
-``NotImplementedError``; so do the flywheel's capture and label sources
-(ROADMAP A8).
+worker count and ladder, ``state_dict`` included. The flywheel's capture
+and label sources (:meth:`Pipeline.from_capture`,
+:meth:`Pipeline.from_labeled_capture`) replay the serving tap's segments.
 
 Checkpointing: iterators expose ``state_dict()`` /
 ``load_state_dict()`` (source position, shuffle stream seed, prefetch
 high-water mark). Because every stage is a pure function of
 ``(seed, epoch, position)``, restore is O(1) in sample work: the integer
 order is re-derived and the stream continues at the recorded batch —
-no consumed sample is ever re-decoded.
+no consumed sample is ever re-decoded. ``Estimator`` stores this state
+in its checkpoint metadata, so a streamed run's kill and ``auto_resume``
+continue the stream bitwise.
 
 Observability: ``zoo_data_*`` metric families (samples/batches
 throughput, consumer wait seconds, prefetch queue depth, and an
@@ -197,6 +199,78 @@ class PipelineIterator:
                                          samples_seen=self.samples_seen)
 
 
+def _map_batch(fn: Callable, item):
+    """``fn`` over every array of an ``(x, y, mask)`` batch (``x`` and
+    ``y`` may be lists of arrays; ``y`` may be None)."""
+    def one(a):
+        if a is None:
+            return None
+        if isinstance(a, (list, tuple)):
+            return [fn(v) for v in a]
+        return fn(a)
+
+    return tuple(one(a) for a in item)
+
+
+class _HostTransfer:
+    """The CPU device's transfer: a synchronous copy (never an alias of
+    the pipeline's buffers)."""
+
+    def __init__(self, device):
+        from analytics_zoo_tpu_torch.common.nncontext import host_to_device
+
+        self._copy = lambda a: host_to_device(a, device)
+
+    def __call__(self, item):
+        return _map_batch(self._copy, item)
+
+    @staticmethod
+    def ready(item):
+        return item
+
+
+class _CudaTransfer:
+    """The CUDA transfer, run on the prefetch thread: each array is
+    copied into pinned host memory, then to the card with
+    ``non_blocking=True`` on a side stream, and the stream's event is
+    recorded behind the copies. :meth:`ready` runs on the consumer's
+    thread: its current stream waits on the event, and every tensor is
+    ``record_stream``-ed on it. The pinned staging tensors stay
+    referenced until then (the copies read them asynchronously)."""
+
+    def __init__(self, device):
+        import torch
+
+        self._torch = torch
+        self.device = device
+        self.stream = torch.cuda.Stream(device=device)
+
+    def _pinned(self, a):
+        torch = self._torch
+        arr = np.asarray(a)
+        if arr.dtype == np.float64:
+            arr = arr.astype(np.float32)
+        # pin_memory copies: the staging buffer is ours, not the pipeline's
+        return torch.from_numpy(np.ascontiguousarray(arr)).pin_memory()
+
+    def __call__(self, item):
+        torch = self._torch
+        pinned = _map_batch(self._pinned, item)
+        with torch.cuda.stream(self.stream):
+            dev = _map_batch(
+                lambda t: t.to(self.device, non_blocking=True), pinned)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return dev, event, pinned
+
+    def ready(self, payload):
+        dev, event, _pinned = payload
+        compute = self._torch.cuda.current_stream(self.device)
+        compute.wait_event(event)
+        _map_batch(lambda t: t.record_stream(compute), dev)
+        return dev
+
+
 class Pipeline:
     """Composable streaming input pipeline over an indexable
     :class:`~analytics_zoo_tpu_torch.data.sources.Source`.
@@ -206,8 +280,8 @@ class Pipeline:
     base pipeline can fan out into train/eval variants. The object also
     speaks the ``FeatureSet`` batch-iterator protocol (``num_samples``,
     ``train_batches``, ``eval_batches``, ``steps_per_epoch``; multi-host
-    windows and mid-epoch ``start_step`` resume included), though the
-    port's ``Estimator.train`` does not take it yet (ROADMAP A6).
+    windows and mid-epoch ``start_step`` resume included), and
+    ``Estimator.train`` takes it directly.
     """
 
     def __init__(self, source: sources_lib.Source, seed: int = 0):
@@ -262,21 +336,28 @@ class Pipeline:
 
     @staticmethod
     def from_capture(dirs, seed: int = 0) -> "Pipeline":
-        """Stream committed capture segments of the serving tap. Not
-        ported yet: the flywheel's capture source waits for ROADMAP A8's
-        flywheel item; raises ``NotImplementedError``."""
-        raise NotImplementedError(
-            "Pipeline.from_capture needs the flywheel's CaptureSource, "
-            "which is not ported yet (ROADMAP A8, flywheel)")
+        """Stream committed capture segments (the serving tap's output —
+        :mod:`analytics_zoo_tpu_torch.flywheel.capture`) as ``(x, y)``
+        samples with the captured prediction as the target. ``dirs`` may
+        be segment directories or model capture roots; ordering is
+        stable, corruption is loud — the flywheel retrain's input path."""
+        from analytics_zoo_tpu_torch.flywheel.replay import CaptureSource
+
+        return Pipeline(CaptureSource(dirs), seed=seed)
 
     @staticmethod
     def from_labeled_capture(dirs, label_dirs, seed: int = 0) -> "Pipeline":
-        """Stream capture segments joined with outcome labels. Not ported
-        yet: the flywheel's label source waits for ROADMAP A8's flywheel
-        item; raises ``NotImplementedError``."""
-        raise NotImplementedError(
-            "Pipeline.from_labeled_capture needs the flywheel's "
-            "LabeledSource, which is not ported yet (ROADMAP A8, flywheel)")
+        """Stream committed capture segments joined with outcome labels
+        (:mod:`analytics_zoo_tpu_torch.flywheel.labels`) as ``(x,
+        outcome)`` samples — the target is the ground truth a client
+        reported for the trace, not the incumbent's prediction. Rows
+        without a matching label are skipped; duplicate labels resolve
+        last-write-wins by timestamp, independent of arrival order. The
+        outcome-mode retrain's input path."""
+        from analytics_zoo_tpu_torch.flywheel.labels import LabeledSource
+
+        return Pipeline(LabeledSource(dirs, label_dirs=label_dirs),
+                        seed=seed)
 
     # -- stages ----------------------------------------------------------
 
@@ -603,18 +684,39 @@ class Pipeline:
     def device_batches(self, batch_size: Optional[int] = None,
                        shuffle: bool = True, seed: int = 0,
                        start_step: int = 0):
-        """The JAX package's device-resident stream (an async
-        ``jax.device_put`` with data-axis sharded placement). Not ported
-        yet (ROADMAP A6): raises ``NotImplementedError``; consumers that
-        move batches themselves use :meth:`host_batches`."""
-        raise NotImplementedError(
-            "Pipeline.device_batches is not ported yet (ROADMAP A6): use "
-            "host_batches and move the batches to the card yourself")
+        """Device-resident ``(x, y, mask)`` stream: a background thread
+        assembles host batches and starts their copy to the context's
+        device, keeping up to ``prefetch_depth or 2``
+        batches in flight, so host decode and the copy overlap device
+        compute. Consumer wait time feeds ``zoo_data_wait_seconds`` /
+        ``zoo_data_starvation_ratio``.
+
+        On a CUDA device each array is staged in pinned host memory (a
+        copy: the pipeline's own buffer is never aliased) and copied with
+        ``non_blocking=True`` on a side stream; the consumer's stream
+        waits on that copy's event before it sees the batch, and each
+        tensor is ``record_stream``-ed on it, so the allocator never hands
+        the memory out while the consumer's kernels may still read it. On
+        the CPU the copy is :func:`host_to_device`'s. Arrays arrive as
+        ``host_to_device`` makes them: float64 as float32, integers as
+        they are. One process drives one device, so the JAX package's
+        data-axis sharded placement (``shard_batch``) is the identity
+        here."""
+        from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+
+        dev = get_nncontext().device
+        transfer = (_CudaTransfer(dev) if dev.type == "cuda"
+                    else _HostTransfer(dev))
+        host_iter = self.train_batches(batch_size, shuffle=shuffle,
+                                       seed=seed, start_step=start_step)
+        for item in self._prefetched(host_iter, transfer,
+                                     self.prefetch_depth or 2):
+            yield transfer.ready(item)
 
     def _prefetched(self, host_iter, transfer: Callable, depth: int):
-        """The async double-buffer behind :meth:`host_batches`,
-        instrumented: queue depth gauge + high-water mark, per-batch
-        consumer wait, starvation ratio."""
+        """The async double-buffer behind :meth:`host_batches` and
+        :meth:`device_batches`, instrumented: queue depth gauge +
+        high-water mark, per-batch consumer wait, starvation ratio."""
         metrics = self._metrics or data_metrics()
         self._metrics = metrics
         q: queue_lib.Queue = queue_lib.Queue(maxsize=depth)

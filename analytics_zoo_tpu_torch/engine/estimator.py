@@ -36,6 +36,13 @@ stream), so that ``train(..., auto_resume=True)`` replays the epoch order,
 skips the batches already taken and continues bitwise. A flagged
 preemption saves, then raises ``PreemptedError``.
 
+A streaming :class:`~analytics_zoo_tpu_torch.data.pipeline.Pipeline` is
+taken directly: its batches come from ``device_batches`` (the infeed
+thread is its ``.prefetch(k)`` depth, consumer waits feed the
+``zoo_data_*`` gauges), a resumed epoch starts the stream at its O(1)
+position (``start_step``, no skipped batch is assembled), and every
+checkpoint carries the stream position (``metadata["pipeline"]``).
+
 Observability: each drain feeds the training metric families
 (``zoo_train_steps_total``, ``zoo_train_step_seconds``,
 ``zoo_train_items_per_sec``). ``set_profile`` traces a window of steps of
@@ -114,6 +121,16 @@ def _uses_loss(trigger) -> bool:
     return not isinstance(trigger, (trig.MaxEpoch, trig.MaxIteration,
                                     trig.EveryEpoch, trig.SeveralIteration,
                                     trig.MaxScore))
+
+
+def _closing(stream, batches):
+    """Iterate ``batches`` and close ``stream`` however the loop ends (a
+    trigger's break, a raise): a pipeline's prefetch thread and worker
+    pool stop at once instead of at garbage collection."""
+    try:
+        yield from batches
+    finally:
+        stream.close()
 
 
 def _not_ported(what: str):
@@ -378,6 +395,11 @@ class Estimator:
         self._ckpt_async = True
         self._ckpt_manager = None  # lazy ft.manager.CheckpointManager
         self._preemption = None    # armed ft.preemption.PreemptionHandler
+        # streaming-pipeline state: the Pipeline train() is consuming (its
+        # stream position rides along in checkpoint metadata), and a
+        # restored position waiting for the next train() to validate
+        self._active_train_set = None
+        self._restored_data_state = None
         self.train_summary: Optional[TrainSummary] = None
         self.val_summary: Optional[ValidationSummary] = None
         self.tstate: Optional[TrainState] = None
@@ -628,6 +650,11 @@ class Estimator:
                 logger.warning("checkpoint %s: the step generator's position "
                                "was saved on another device type (%s); the "
                                "dropout stream restarts", path, e)
+        # a streamed run's checkpoint carries the pipeline's stream
+        # position, held until the next train() has the Pipeline object to
+        # validate it against (load_state_dict rejects a stream-shape
+        # mismatch)
+        self._restored_data_state = meta.get("pipeline")
         return self
 
     def _cast_for_compute(self, tree):
@@ -753,8 +780,14 @@ class Estimator:
         """Device (x, y, mask) batches: training order for ``epoch``, or
         dataset order when ``epoch`` is None, without the first ``skip``
         (a resumed epoch's batches already taken). A device-cached set
-        gathers on the device from the host's index vector."""
+        gathers on the device from the host's index vector; a streaming
+        pipeline's training epoch comes from its ``device_batches``,
+        started at the stream position ``skip``."""
         dev = self.ctx.device
+        if epoch is not None and hasattr(data, "device_batches"):
+            yield from data.device_batches(batch_size, shuffle=True,
+                                           seed=epoch, start_step=skip)
+            return
         gather = getattr(data, "gather", None)
         if gather is not None:
             index_batches = (data.eval_index_batches(batch_size)
@@ -803,20 +836,36 @@ class Estimator:
         there is none, or when this estimator has already trained), so a
         restarted process continues bitwise where the last one stopped.
         A streaming :class:`~analytics_zoo_tpu_torch.data.pipeline.Pipeline`
-        is not accepted yet (ROADMAP A6): it raises
-        ``NotImplementedError``."""
+        is accepted directly: the infeed adopts its ``.prefetch(k)`` depth,
+        consumer waits feed the ``zoo_data_*`` gauges, and checkpoints
+        carry its resumable stream position."""
         from analytics_zoo_tpu_torch.data.pipeline import Pipeline
 
-        if isinstance(train_set, Pipeline):
-            raise NotImplementedError(
-                "Estimator.train over a streaming Pipeline (with its stream "
-                "position in the checkpoints) is not ported yet (ROADMAP "
-                "A6): train over a FeatureSet")
         rs = self.run_state
         if (auto_resume and self._checkpoint_path is not None
                 and rs.iteration == 0):
             self.resume_from_checkpoint()
         self._ensure_state()
+        restored, self._restored_data_state = self._restored_data_state, None
+        if restored is not None:
+            if int(restored.get("position_batches", 0)) == 0:
+                # an epoch-boundary position has no offset to restore and
+                # the next epoch's order is a pure function of rs.epoch:
+                # a DIFFERENT stream here is a warm start on new data
+                # (the flywheel's incremental retrain), not a bad resume
+                pass
+            elif isinstance(train_set, Pipeline):
+                # raises on a stream-shape mismatch: a saved position must
+                # never silently index into a different stream
+                train_set.load_state_dict(restored)
+            else:
+                logger.warning(
+                    "checkpoint carries a streaming-pipeline position but "
+                    "this train_set (%s) is not a Pipeline — the position "
+                    "is ignored (epoch_step still resumes the batch "
+                    "offset)", type(train_set).__name__)
+        self._active_train_set = (train_set if isinstance(train_set, Pipeline)
+                                  else None)
         end_trigger = end_trigger or trig.MaxEpoch(rs.epoch + 1)
         checkpoint_trigger = checkpoint_trigger or trig.EveryEpoch()
         mid_epoch_ckpt = not isinstance(checkpoint_trigger, trig.EveryEpoch)
@@ -846,11 +895,10 @@ class Estimator:
                 losses = []  # device scalars, read once at the epoch's end
                 # > 0 only right after a mid-epoch resume: the batches of
                 # this epoch (order fixed by seed=epoch) already taken
-                batches = self._batches(train_set, batch_size, rs.epoch,
-                                        rs.epoch_step)
-                if self.time_steps:
-                    batches = self._timed(batches)
-                for xs, y, mask in batches:
+                stream = self._batches(train_set, batch_size, rs.epoch,
+                                       rs.epoch_step)
+                batches = self._timed(stream) if self.time_steps else stream
+                for xs, y, mask in _closing(stream, batches):
                     if profile is not None:
                         profile.tick(steps_this_call)
                     self.tstate, loss = step(self.tstate, xs, y, mask)
@@ -956,6 +1004,14 @@ class Estimator:
                     "gradient_accumulation": self.gradient_accumulation,
                     "step_generator": _generator_state(
                         self.ctx.step_generator)}
+        ds = self._active_train_set
+        if ds is not None:
+            # the resumable stream position under the ESTIMATOR's counters:
+            # the prefetch thread may sit a few batches ahead of the step
+            # this checkpoint captures, and rs.epoch / rs.epoch_step are
+            # what a resume replays with
+            metadata["pipeline"] = ds.state_dict(epoch_seed=rs.epoch,
+                                                 position=rs.epoch_step)
         return self._checkpoint_manager().save(rs.iteration, self.tstate,
                                                metadata=metadata)
 

@@ -28,10 +28,12 @@ points' hard-death semantics, placed inside the shard commit protocol of
 resumed job's output must be bitwise that of an uninterrupted run. The
 front door's worker kill site (:data:`FRONTDOOR_POINTS`) is armed in a
 worker's environment; the fleet fabric's forward drop
-(:data:`FLEET_POINTS`) is in-process, armed like the serving points.
+(:data:`FLEET_POINTS`) is in-process, armed like the serving points. The
+online-learning flywheel's kill sites (:data:`FLYWHEEL_POINTS`) have the
+hard-death semantics and environment arming of the batch points.
 
-The JAX package's distributed, flywheel and pipeline points belong to
-tiers the port does not have yet (ROADMAP A7, A8).
+The JAX package's distributed and pipeline-parallel points belong to
+tiers the port does not have yet (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ import time
 from typing import Dict, Optional
 
 __all__ = ["FAILURE_POINTS", "BATCH_POINTS", "FRONTDOOR_POINTS",
-           "FLEET_POINTS", "EXIT_CODE", "active_point", "should_fail",
-           "fail", "maybe_fail", "reset",
+           "FLYWHEEL_POINTS", "FLEET_POINTS", "EXIT_CODE", "active_point",
+           "should_fail", "fail", "maybe_fail", "reset",
            "SERVING_POINTS", "ChaosPredictError", "ChaosForwardError",
            "FlushThreadDeath",
            "arm_serving", "disarm_serving", "serving_chaos", "serving_hits"]
@@ -85,6 +87,24 @@ BATCH_POINTS = ("batch_writer_torn", "batch_before_manifest",
 #:   the worker, retry the request on a live worker and respawn the dead
 #:   one; the client never sees an error.
 FRONTDOOR_POINTS = ("frontdoor_worker_exit",)
+
+#: The online-learning flywheel's kill sites (same ``os._exit`` semantics
+#: and environment arming as :data:`FAILURE_POINTS`):
+#:
+#: - ``capture_writer_torn``: half a capture shard's bytes hit the staging
+#:   path, then death (the capture tap's variant of ``batch_writer_torn``:
+#:   replay never sees the torn ``.tmp``, and a restarted tap resumes the
+#:   segment cleanly).
+#: - ``flywheel_mid_retrain_kill``: death inside the incremental retrain,
+#:   at a checkpoint-trigger evaluation (after ``AZOO_FT_CHAOS_SKIP``
+#:   survivals). The resumed cycle must commit a candidate checkpoint
+#:   bitwise that of an uninterrupted run.
+#: - ``label_writer_torn``: half a label shard's bytes hit the staging
+#:   path, then death (the outcome plane's variant: the label joiner never
+#:   sees the torn ``.tmp``, and a restarted label store resumes the
+#:   segment cleanly).
+FLYWHEEL_POINTS = ("capture_writer_torn", "flywheel_mid_retrain_kill",
+                   "label_writer_torn")
 
 #: Exit status of a chaos kill, distinguishable from a real crash.
 EXIT_CODE = 43
@@ -249,7 +269,8 @@ def serving_chaos(point: str, tag: Optional[str] = None) -> None:
 def active_point() -> Optional[str]:
     """The failure point armed via ``AZOO_FT_CHAOS`` (None = chaos off)."""
     point = os.environ.get("AZOO_FT_CHAOS")
-    known = FAILURE_POINTS + BATCH_POINTS + FRONTDOOR_POINTS
+    known = (FAILURE_POINTS + BATCH_POINTS + FRONTDOOR_POINTS
+             + FLYWHEEL_POINTS)
     if point and point not in known:
         raise ValueError(f"AZOO_FT_CHAOS={point!r} is not a failure point; "
                          f"known: {known}")

@@ -311,7 +311,31 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    ``BatchJobRunner`` bitwise across runs, depths 0/2/4 and ``do_predict``,
    killed in children at each ``BATCH_POINTS`` site and by SIGKILL and
    resumed bitwise, and ``scripts/torch_batch_predict.py`` on NeuralCF
-   killed and resumed bitwise.
+   killed and resumed bitwise;
+13. the online-learning flywheel (``flywheel_phase``; alone:
+   ``scripts/torch_flywheel_phase.py``): BERT-base (bench.py's
+   configuration: 128 tokens, bf16 compute, 2 classes, weights from the
+   seed) trained 2 steps as the incumbent and served over HTTP (buckets 1,
+   8, 32) behind a 2-rung rollout ladder with a drift gate, a
+   ``CaptureTap``, a ``LabelStore`` and a ``PredictionTracker``; requests/s
+   and p50/p90 at 4 clients with the tap off and on; 13a: 96 captured
+   requests, their seeded ground truth POSTed to ``:outcome``, the
+   labelled replay held to the requests byte for byte and
+   ``device_batches`` on the card to the host stream bitwise, then
+   ``FlywheelController.run_cycle`` (retrain through ``Estimator.train``
+   over ``Pipeline.from_labeled_capture``, register, canary) under 4
+   background clients: promoted in outcome mode with 0 client errors, the
+   retrain's dq and dk/dv launched 12 times a step (the forward at least
+   that), 12 flash nodes in each of the candidate's graphs; 13b: 13a's
+   retrain (deterministic algorithms) over a copy of its incumbent and
+   segments, killed in-process at ``flywheel_mid_retrain_kill`` after a
+   mid-epoch checkpoint and resumed by a fresh trainer, bitwise 13a's
+   candidate (every leaf, step, consumed set, mode); 13c: the candidate's
+   flush path broken by ``canary_errors``: rolled back, the cycle's
+   segments quarantined, its checkpoints deleted, the incumbent serving,
+   errors only on canary-routed requests, the next cycle ``no_data``;
+   its retrain's card-busy share traced. Each cycle's seconds split into
+   rotate, retrain, register and rollout.
    The script prints its own seconds at the end.
 
 The build phase prints each kernel's ptxas registers and spills and, for
@@ -331,6 +355,8 @@ replays (the flash records of one traced scoring pass held to its
 replays by ``check_traced``), counted in ``replay_launches``, and
 ``frontdoor_worker_launches`` its wrapper launches in phase 12's
 workers' registers (other processes: counted in neither);
+``flywheel_launches`` its wrapper launches over phase 13, counted in
+``launches``;
 ``ms`` is its device time under torch.profiler and ``event_ms`` CUDA-event
 time over back-to-back calls; ``plain_ms`` is event time; the backward
 rows add the whole backward's times and bound and each bf16 route's tiles
@@ -6838,6 +6864,701 @@ def frontdoor_batch_phase(seed):
     return out
 
 
+# -- phase 13: the online-learning flywheel ----------------------------------
+
+FLY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_flywheel"
+FLY_MODEL = "bert"
+FLY_SEQ = 128
+FLY_LADDER = (1, 8, 32)  # the served buckets of every version
+FLY_CLIENTS = 4
+FLY_WINDOW_S = 3.0  # each timed traffic window, tap off and tap on
+FLY_ROWS_PER_CLIENT = 24  # a labelled data window: 4 x 24 one-row requests
+FLY_BATCH = 16  # the retrain's batch: 96 labelled rows are 6 steps
+FLY_CKPT_EVERY = 64  # the serving lane's cadence: a cycle's epoch-end save
+FLY_KILL_CKPT_EVERY = 5  # 13b's lane: a mid-epoch save at iteration 5
+FLY_CLIENT_PAUSE_S = 0.05  # 13a's background clients, between requests
+FLY_INCUMBENT_ROWS = 32  # the incumbent's own 2 steps
+FLY_KILL_SKIP = 3  # 13b dies at the 4th trigger evaluation, after a save
+FLY_ROLLOUT = (0.5, 1.0)
+FLY_MIN_REQUESTS = 16  # per rung, and the drift gate's min_count
+FLY_LR = 0.01
+
+
+class _RetrainKill(Exception):
+    """13b's in-process stand-in for ``os._exit`` at
+    ``flywheel_mid_retrain_kill``: the disk is left as a kill leaves it."""
+
+
+class FlyRecord(collections.namedtuple(
+        "FlyRecord", "x trace status body seconds")):
+    """One HTTP predict of phase 13: the request, the trace id the
+    response carried, its status, body and seconds."""
+
+
+def fly_predict(conn, x):
+    """One BERT predict over HTTP (columnar JSON) on a kept-alive
+    connection: (status, X-Zoo-Trace-Id, body)."""
+    body = json.dumps({"inputs": [a.tolist() for a in x]}).encode()
+    conn.request("POST", f"/v1/models/{FLY_MODEL}:predict", body=body,
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    return resp.status, resp.getheader("X-Zoo-Trace-Id"), resp.read()
+
+
+def fly_clients(port, seed, per_client=None, seconds=None, stop=None,
+                pause_s=0.0):
+    """Start FLY_CLIENTS HTTP client threads, each sending one-row seeded
+    requests in turn (``pause_s`` apart) until it has sent ``per_client``,
+    ``seconds`` have passed or ``stop`` is set. Returns the run for
+    :func:`fly_join`."""
+    import http.client
+
+    out, errors = [], []
+    lock = threading.Lock()
+    t_end = None if seconds is None else time.perf_counter() + seconds
+
+    def client(ci):
+        crng = np.random.default_rng(seed * 100 + ci)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        sent = 0
+        try:
+            while True:
+                if per_client is not None and sent >= per_client:
+                    return
+                if t_end is not None and time.perf_counter() >= t_end:
+                    return
+                if stop is not None and stop.is_set():
+                    return
+                x = make_request(crng, 1, FLY_SEQ, TRAIN_BERT["vocab"])
+                t0 = time.perf_counter()
+                status, trace, body = fly_predict(conn, x)
+                rec = FlyRecord(x, trace, status, body,
+                                time.perf_counter() - t0)
+                with lock:
+                    out.append(rec)
+                sent += 1
+                if pause_s:
+                    time.sleep(pause_s)
+        except BaseException as e:  # reported after join
+            errors.append(e)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(FLY_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    return threads, out, errors, t0
+
+
+def fly_join(run):
+    """Join a :func:`fly_clients` run: ([FlyRecord], wall seconds)."""
+    threads, out, errors, t0 = run
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        fail("flywheel: an HTTP client did not finish")
+    if errors:
+        raise errors[0]
+    return out, time.perf_counter() - t0
+
+
+def fly_rate(label, recs, wall, smi):
+    ok = [r.seconds * 1e3 for r in recs if r.status == 200]
+    p50, p90 = np.percentile(ok, (50, 90)) if ok else (float("nan"),) * 2
+    print(f"flywheel: {label}: {len(recs)} requests at {FLY_CLIENTS} HTTP "
+          f"clients in {wall:.3f} s = {len(recs) / wall:.1f} requests/s, "
+          f"p50 {p50:.3f} ms, p90 {p90:.3f} ms, {len(recs) - len(ok)} "
+          f"errors ({smi})", flush=True)
+    return len(recs) / wall
+
+
+def fly_post_labels(port, truth):
+    """Labelers POST the ground truth of ``truth`` ({trace: class}) to
+    the outcome route in batches of 24, stamped now."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    items = sorted(truth.items())
+    try:
+        for i in range(0, len(items), 24):
+            now = time.time()
+            recs = [{"trace_id": t, "label": int(c), "ts": now}
+                    for t, c in items[i:i + 24]]
+            conn.request("POST", f"/v1/models/{FLY_MODEL}:outcome",
+                         body=json.dumps({"outcomes": recs}).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = resp.read()
+            if resp.status != 200 or \
+                    json.loads(body)["accepted"] != len(recs):
+                fail(f"flywheel: outcome POST answered {resp.status}: "
+                     f"{body[:300]}")
+    finally:
+        conn.close()
+
+
+@contextlib.contextmanager
+def timed_calls(targets, times):
+    """While inside, each call of ``owner.attr`` for ``(owner, attr, key)``
+    in ``targets`` adds its seconds to ``times[key]`` (a staticmethod
+    stays one)."""
+    saved = []
+    for owner, attr, key in targets:
+        raw = owner.__dict__[attr]
+        static = isinstance(raw, staticmethod)
+        fn = raw.__func__ if static else raw
+
+        def wrapper(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                times[_key] = times.get(_key, 0.0) + time.perf_counter() - t0
+
+        setattr(owner, attr, staticmethod(wrapper) if static else wrapper)
+        saved.append((owner, attr, raw))
+    try:
+        yield times
+    finally:
+        for owner, attr, raw in saved:
+            setattr(owner, attr, raw)
+
+
+def card_busy(fn):
+    """``fn()`` under torch.profiler, device activity only (a host-op
+    trace of a whole retrain takes seconds to collect): (result,
+    card-busy seconds = the union of the device records' intervals, wall
+    seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    if not spans:
+        fail("torch.profiler recorded no device activity")
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return out, busy / 1e6, wall
+
+
+def fly_check_replay(seg, labels_dir, sent, truth, seed):
+    """The labelled replay of capture segment ``seg``: every joined sample
+    is the request its trace sent, byte for byte in the captured dtypes,
+    with the posted label as its target; and ``device_batches`` on the
+    card equals the host stream bitwise."""
+    from analytics_zoo_tpu_torch.batch.writers import iter_output_rows
+    from analytics_zoo_tpu_torch.data.pipeline import Pipeline
+    from analytics_zoo_tpu_torch.flywheel.labels import LabeledSource
+
+    rows = list(iter_output_rows(seg))
+    want = []
+    for r in rows:
+        x = sent[r["t"]]
+        # the HTTP JSON route: integers as int64, floats as float32
+        if r["xd"] != ["<i8", "<i8", "<f4"] or r["yd"] != ["<f4"]:
+            fail(f"flywheel: captured dtypes {r['xd']} {r['yd']}")
+        if r["t"] in truth:
+            want.append(([np.asarray(a, np.dtype(d))[0]
+                          for a, d in zip(x, r["xd"])], truth[r["t"]]))
+    src = LabeledSource([seg], label_dirs=str(labels_dir))
+    if len(src) != len(want) or len(want) != len(truth):
+        fail(f"flywheel: {len(src)} joined rows, {len(want)} labelled "
+             f"captured rows, {len(truth)} labels posted")
+    for j, (x, y) in enumerate(want):
+        gx, gy = src.fetch(j)
+        if any(a.dtype != b.dtype or a.tobytes() != b.tobytes()
+               for a, b in zip(gx, x)) or float(gy) != float(y):
+            fail(f"flywheel: replayed sample {j} is not the captured "
+                 f"request and its posted label")
+    pipe = Pipeline.from_labeled_capture([seg], str(labels_dir), seed=seed)
+    host = list(pipe.train_batches(FLY_BATCH, shuffle=True, seed=1))
+    dev = list(pipe.device_batches(FLY_BATCH, shuffle=True, seed=1))
+    torch.cuda.synchronize()
+    for (hx, hy, hm), (dx, dy, dm) in zip(host, dev):
+        for h, d in zip(list(hx) + [hy, hm], list(dx) + [dy, dm]):
+            h = np.asarray(h)
+            h = h.astype(np.float32) if h.dtype == np.float64 else h
+            d = d.cpu().numpy()
+            if d.dtype != h.dtype or d.tobytes() != h.tobytes():
+                fail("flywheel: device_batches on the card differ from "
+                     "the host batches")
+    print(f"flywheel: {len(rows)} captured rows, {len(src)} labelled: each "
+          f"replayed sample is its request byte for byte (dtypes "
+          f"{rows[0]['xd']}) with the posted label; device_batches (pinned "
+          f"copy on a side stream) equals the host stream over "
+          f"{len(host)} batches bitwise", flush=True)
+
+
+def flywheel_phase(fa, seed):
+    """Phase 13: BERT-base (bf16 compute, 128 tokens, seeded weights)
+    served over HTTP behind a rollout ladder with a drift gate, a capture
+    tap, a label store and a prediction tracker; 13a an outcome cycle
+    (capture, labels POSTed, retrain through ``Estimator.train`` over the
+    labelled ``Pipeline``, canary promotion, the retrain under
+    deterministic algorithms); 13b the same retrain killed at
+    ``flywheel_mid_retrain_kill`` and resumed, held bitwise to 13a's
+    uninterrupted candidate; 13c a canary broken by ``canary_errors``,
+    rolled back and quarantined. Returns the flash wrappers' launches
+    over the phase."""
+    from analytics_zoo_tpu_torch.batch.writers import iter_output_rows
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.data.pipeline import Pipeline
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.flywheel import (
+        CaptureConfig,
+        CaptureTap,
+        FlywheelController,
+        FlywheelTrainer,
+        LabelStore,
+        PredictionTracker,
+        RetrainConfig,
+        committed_segments,
+        is_quarantined,
+    )
+    from analytics_zoo_tpu_torch.ft import atomic, chaos
+    from analytics_zoo_tpu_torch.ft.manager import CheckpointManager
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.interop import fill_from_flat
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.serving import (
+        BatcherConfig,
+        RolloutConfig,
+        ServingEngine,
+        serve_http,
+    )
+    from analytics_zoo_tpu_torch.serving.rollout import DriftGateConfig
+    from analytics_zoo_tpu_torch.tfpark.bert import BERTClassifierNet
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    n_block = TRAIN_BERT["n_block"]
+    shutil.rmtree(FLY_DIR, ignore_errors=True)
+    ckpt_dir, cap_root = FLY_DIR / "ckpts", FLY_DIR / "capture"
+    labels_dir = cap_root / FLY_MODEL / "labels"
+    criterion = objectives.sparse_categorical_crossentropy
+    rng = np.random.default_rng(seed)
+    launches0 = read_launches(fa)
+
+    # the retrain's model: one net, whose weights each cycle's estimator
+    # replaces with the incumbent checkpoint's
+    t0 = time.perf_counter()
+    net = BERTClassifierNet(num_classes=2, hidden_drop=0.0, attn_drop=0.0,
+                            **TRAIN_BERT)
+    net.params, net.model_state = net.init(
+        torch.Generator().manual_seed(seed))
+    estimators = []
+
+    def build_est():
+        est = Estimator(net, SGD(lr=FLY_LR, momentum=0.9))
+        estimators.append(est)
+        return est
+
+    x0 = make_request(rng, FLY_INCUMBENT_ROWS, FLY_SEQ, TRAIN_BERT["vocab"])
+    y0 = rng.integers(0, 2, FLY_INCUMBENT_ROWS).astype(np.int32)
+    est = build_est()
+    est.set_checkpoint(str(ckpt_dir), keep_last=4, asynchronous=False)
+    est.train(ArrayFeatureSet(x0, y0), criterion, batch_size=FLY_BATCH)
+    base_step = est.run_state.iteration
+    estimators.clear()
+    del est
+    print(f"flywheel: BERT-base built and the incumbent trained "
+          f"{base_step} steps and committed as ckpt_{base_step} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    versions = {}
+
+    def build_model(path):
+        m = BERTClassifierNet(num_classes=2, hidden_drop=0.0, attn_drop=0.0,
+                              **TRAIN_BERT)
+        flat, _meta = atomic.read_checkpoint(path)
+        m.params, m.model_state = fill_from_flat(m, flat, ".params",
+                                                 ".model_state")
+        im = InferenceModel().do_load_keras(m)
+        versions[Path(path).name.split("_")[-1]] = im
+        return im
+
+    # checkpoint saves, timed (the retrain's synchronous writes)
+    saves = []
+    real_save = CheckpointManager.save
+
+    def timed_save(self, step, tree, metadata=None, blocking=None):
+        t1 = time.perf_counter()
+        out = real_save(self, step, tree, metadata=metadata,
+                        blocking=blocking)
+        saves.append((self.prefix, int(step), time.perf_counter() - t1))
+        return out
+
+    CheckpointManager.save = timed_save
+    engine = ServingEngine(rollout=RolloutConfig(
+        ladder=FLY_ROLLOUT, min_requests=FLY_MIN_REQUESTS,
+        auto_evaluate=False, drift_gates=DriftGateConfig(
+            max_prediction_js=0.25, min_count=FLY_MIN_REQUESTS)))
+    tap = CaptureTap(CaptureConfig(directory=str(cap_root), fraction=1.0,
+                                   rows_per_shard=256, roll_interval_s=2.0))
+    store = LabelStore(str(cap_root), rows_per_shard=256)
+    tracker = PredictionTracker()
+    engine.set_capture(tap)
+    engine.set_label_store(store)
+    engine.set_drift(tracker)
+    trainer = FlywheelTrainer(build_est, criterion, RetrainConfig(
+        capture_dir=str(cap_root / FLY_MODEL), checkpoint_dir=str(ckpt_dir),
+        batch_size=FLY_BATCH, checkpoint_every=FLY_CKPT_EVERY, keep_last=4,
+        min_rows=FLY_BATCH, seed=seed, labels_dir=str(labels_dir)))
+    cfg = BatcherConfig(max_batch_size=max(FLY_LADDER), buckets=FLY_LADDER,
+                        max_wait_ms=2.0)
+    example = [np.zeros((1, FLY_SEQ), np.int32),
+               np.zeros((1, FLY_SEQ), np.int32),
+               np.zeros((1, FLY_SEQ), np.float32)]
+    t0 = time.perf_counter()
+    ctrl = FlywheelController(engine, FLY_MODEL, tap, trainer, build_model,
+                              example, config=cfg, keep_versions=3,
+                              fraction=1.0)
+    server, _ = serve_http(engine, port=0)
+    port = server.server_address[1]
+    print(f"flywheel: the incumbent registered (buckets {list(FLY_LADDER)} "
+          f"x {FLY_SEQ} tokens) and served over HTTP in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    Estimator.time_steps = True
+    try:
+        # -- the tap's cost: 4 HTTP clients, tap off then on ------------
+        tap.disable(FLY_MODEL)
+        recs, wall = fly_join(fly_clients(port, seed + 1,
+                                          seconds=FLY_WINDOW_S))
+        off = fly_rate("tap off", recs, wall, smi)
+        tap.enable(FLY_MODEL, fraction=1.0)
+        rows0 = tap.metrics["rows"].value
+        shards0 = tap.metrics["shards"].value
+        recs, wall = fly_join(fly_clients(port, seed + 2,
+                                          seconds=FLY_WINDOW_S))
+        on = fly_rate("tap on (fraction 1.0)", recs, wall, smi)
+        tap.flush()
+        timing_seg = tap.rotate(FLY_MODEL)
+        print(f"flywheel: the tap-on window captured "
+              f"{len(list(iter_output_rows(timing_seg)))} rows "
+              f"({tap.metrics['rows'].value - rows0:.0f} committed in "
+              f"{tap.metrics['shards'].value - shards0:.0f} shards); "
+              f"requests/s on/off {on / off:.3f}", flush=True)
+        if any(r.status != 200 for r in recs):
+            fail("flywheel: a request failed with the tap on")
+
+        # -- 13a: an outcome cycle ------------------------------------------
+        recs, _wall = fly_join(fly_clients(
+            port, seed + 3, per_client=FLY_ROWS_PER_CLIENT))
+        if any(r.status != 200 for r in recs):
+            fail("flywheel: a data-window request failed")
+        tap.flush()
+        seg_a = tap.rotate(FLY_MODEL)
+        sent = {r.trace: r.x for r in recs}
+        lrng = np.random.default_rng(seed + 4)
+        truth = {r.trace: int(lrng.integers(0, 2)) for r in recs}
+        fly_post_labels(port, truth)
+        store.rotate(FLY_MODEL)
+        fly_check_replay(seg_a, labels_dir, sent, truth, seed)
+
+        split = {}
+        real_run_once = trainer.run_once
+        real_poll = ctrl.watcher.poll_once
+        cycle_t0 = [0.0]
+        traced = [False]
+
+        def run_once():
+            split["rotate"] = time.perf_counter() - cycle_t0[0]
+            before = read_launches(fa)
+            saves.clear()
+            t1 = time.perf_counter()
+            # deterministic: 13b holds a killed and resumed retrain to
+            # this one bitwise
+            parts = {}
+            with repeatable("bert"), timed_calls(
+                    [(FlywheelTrainer, "_cycle_plan", "plan"),
+                     (Pipeline, "from_labeled_capture", "source"),
+                     (Estimator, "resume_from_checkpoint", "restore")],
+                    parts):
+                if traced[0]:
+                    step, busy, wall = card_busy(real_run_once)
+                    split["busy"] = (busy, wall)
+                else:
+                    step = real_run_once()
+            split["parts"] = {k: round(v, 3) for k, v in parts.items()}
+            torch.cuda.synchronize()
+            split["retrain"] = time.perf_counter() - t1
+            split["launches"] = [b - a for a, b in
+                                 zip(before, read_launches(fa))]
+            split["saves"] = [s for s in saves if s[0] == "ckpt"]
+            est = estimators[-1]
+            ev = est.step_events
+            split["steps"] = len(est.train_losses)
+            split["step_ms"] = [a.elapsed_time(b)
+                                for a, b in zip(ev, ev[1:])]
+            split["batch_wait"] = sum(est.batch_seconds)
+            return step
+
+        def poll_once():
+            t1 = time.perf_counter()
+            out = real_poll()
+            split["register"] = time.perf_counter() - t1
+            return out
+
+        trainer.run_once = run_once
+        ctrl.watcher.poll_once = poll_once
+
+        def cycle_report(label, report):
+            im = versions.get(str(report.candidate_step))
+            reg = ({k[0][0][0]: (round(fn.warmup_seconds, 3),
+                                 round(fn.capture_seconds, 3))
+                    for k, fn in sorted(im._compiled.items())}
+                   if im is not None else {})
+            rest = report.duration_s - sum(split.get(k, 0.0) for k in (
+                "rotate", "retrain", "register"))
+            p50 = (float(np.percentile(split["step_ms"], 50))
+                   if split.get("step_ms") else float("nan"))
+            print(f"flywheel: {label}: {report.outcome} (mode "
+                  f"{report.mode}, reason {report.rollback_reason}) in "
+                  f"{report.duration_s:.2f} s: rotate "
+                  f"{split.get('rotate', 0):.3f} s, retrain "
+                  f"{split.get('retrain', 0):.2f} s ({split.get('steps')} "
+                  f"steps, step p50 {p50:.2f} ms and the steps' sum "
+                  f"{sum(split.get('step_ms', [])):.1f} ms by CUDA events, "
+                  f"the consumer's waits for batches "
+                  f"{split.get('batch_wait', 0):.3f} s, the "
+                  f"cycle plan, the labelled source and the restore "
+                  f"{split.get('parts')} s, "
+                  f"checkpoints {[(st, round(s, 3)) for _, st, s in split.get('saves', [])]} "
+                  f"s), register {split.get('register', 0):.2f} s "
+                  f"(eager warm-up, capture by bucket {reg}), rollout "
+                  f"{rest:.2f} s ({smi})", flush=True)
+
+        stop = threading.Event()
+        background = fly_clients(port, seed + 5, stop=stop,
+                                 pause_s=FLY_CLIENT_PAUSE_S)
+        cycle_t0[0] = time.perf_counter()
+        try:
+            report = ctrl.run_cycle(traffic_fn=lambda: time.sleep(0.005),
+                                    timeout_s=300)
+        finally:
+            stop.set()
+            bg, bg_wall = fly_join(background)
+        cycle_report("13a", report)
+        errs = [r for r in bg if r.status != 200]
+        fly_rate(f"13a's clients across the cycle ({FLY_CLIENT_PAUSE_S} s "
+                 f"apart)", bg, bg_wall, smi)
+        js = engine.drift_scores(FLY_MODEL, str(report.candidate_step),
+                                 str(base_step), min_count=1)
+        print(f"flywheel: 13a retrain flash launches forward, dq, dk/dv "
+              f"{split['launches']} (want {n_block} x {split['steps']} each; "
+              f"the forward at least that)"
+              f"; drift scores candidate vs incumbent {js} (the tracker's "
+              f"scalar is a prediction's mean: 0.5 for every 2-class "
+              f"softmax row)", flush=True)
+        if report.outcome != "promoted" or report.mode != "outcome":
+            fail(f"flywheel: 13a did not promote on outcomes: {report}")
+        if engine.describe_model(FLY_MODEL)["latest"] != \
+                str(report.candidate_step):
+            fail("flywheel: 13a's candidate is not the latest version")
+        if errs:
+            fail(f"flywheel: {len(errs)} client errors in 13a: "
+                 f"{errs[0].body[:300]}")
+        want = n_block * split["steps"]
+        # dq and dk/dv: once per layer and step; the forward at least that
+        # (the incumbent's graph replays beside the retrain call no
+        # wrapper, an eager forward would)
+        fwd_n, dq_n, dkv_n = split["launches"]
+        if not split["steps"] or dq_n != want or dkv_n != want or \
+                fwd_n < want:
+            fail("flywheel: the retrain did not launch the forward, dq and "
+                 "dk/dv kernels once per layer and step")
+        check_bucket_graphs(versions[str(report.candidate_step)], n_block,
+                            "flywheel 13a candidate")
+        trainer.run_once = real_run_once
+        ctrl.watcher.poll_once = real_poll
+
+        # -- 13b: 13a's retrain killed mid-epoch, resumed bitwise ----------
+        t1 = time.perf_counter()
+        root = FLY_DIR / "13b"
+        shutil.copytree(ckpt_dir / f"ckpt_{base_step}",
+                        root / "ckpts" / f"ckpt_{base_step}")
+        for seg in report.consumed_segments:
+            shutil.copytree(seg, root / "capture" / FLY_MODEL / Path(seg).name)
+        for seg in committed_segments(str(labels_dir)):
+            shutil.copytree(seg, root / "capture" / FLY_MODEL / "labels"
+                            / Path(seg).name)
+
+        def lane():
+            return FlywheelTrainer(build_est, criterion, RetrainConfig(
+                capture_dir=str(root / "capture" / FLY_MODEL),
+                checkpoint_dir=str(root / "ckpts"), batch_size=FLY_BATCH,
+                checkpoint_every=FLY_KILL_CKPT_EVERY, keep_last=4,
+                min_rows=FLY_BATCH, seed=seed,
+                labels_dir=str(root / "capture" / FLY_MODEL / "labels")))
+
+        with repeatable("bert"):
+            killed = lane()
+            real_fail = chaos.fail
+            os.environ["AZOO_FT_CHAOS"] = "flywheel_mid_retrain_kill"
+            os.environ["AZOO_FT_CHAOS_SKIP"] = str(FLY_KILL_SKIP)
+            chaos.reset()
+
+            def die(point):
+                raise _RetrainKill(point)
+
+            chaos.fail = die
+            died = False
+            try:
+                killed.run_once()
+            except _RetrainKill:
+                died = True
+            finally:
+                chaos.fail = real_fail
+                os.environ.pop("AZOO_FT_CHAOS", None)
+                os.environ.pop("AZOO_FT_CHAOS_SKIP", None)
+                chaos.reset()
+            left = [s for s, _ in atomic.committed_checkpoints(
+                str(root / "ckpts"))]
+            hwm = killed.consumed_segments()
+            resumed = lane()
+            res_step = resumed.run_once()
+        ref_step = report.candidate_step
+        ref_flat, _ = atomic.read_checkpoint(dict(
+            atomic.committed_checkpoints(str(ckpt_dir)))[ref_step])
+        res_flat, _ = atomic.read_checkpoint(dict(
+            atomic.committed_checkpoints(str(root / "ckpts")))[res_step])
+        same = (len(ref_flat) == len(res_flat) and all(
+            ka == kb and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+            for (ka, a), (kb, b) in zip(ref_flat, res_flat)))
+        consumed = {Path(s).name for s in report.consumed_segments}
+        print(f"flywheel: 13b the retrain died {died} at trigger evaluation "
+              f"{FLY_KILL_SKIP + 1} leaving committed steps {left} and the "
+              f"high-water mark {sorted(hwm)}; a fresh trainer resumed it to "
+              f"step {res_step} (13a's uninterrupted candidate {ref_step}), "
+              f"consumed {sorted(resumed.consumed_segments())} (13a "
+              f"{sorted(consumed)}), mode {resumed.last_mode} ({report.mode})"
+              f"; {len(ref_flat)} leaves bitwise equal {same}; 13b took "
+              f"{time.perf_counter() - t1:.1f} s ({smi})", flush=True)
+        if not died or hwm or not any(base_step < s < ref_step
+                                      for s in left):
+            fail("flywheel: 13b's retrain did not die after a mid-epoch "
+                 "checkpoint, or moved the high-water mark")
+        if not (same and res_step == ref_step
+                and resumed.consumed_segments() == consumed
+                and resumed.last_mode == report.mode == "outcome"):
+            fail("flywheel: 13b's resumed candidate is not 13a's "
+                 "uninterrupted one bitwise")
+        shutil.rmtree(root, ignore_errors=True)
+
+        # -- 13c: a broken canary rolled back and quarantined ---------------
+        tap.flush()
+        tap.rotate(FLY_MODEL)  # 13a's rollout-time rows: unlabelled
+        recs, _wall = fly_join(fly_clients(
+            port, seed + 6, per_client=FLY_ROWS_PER_CLIENT))
+        if any(r.status != 200 for r in recs):
+            fail("flywheel: a 13c data-window request failed")
+        lrng = np.random.default_rng(seed + 7)
+        fly_post_labels(port, {r.trace: int(lrng.integers(0, 2))
+                               for r in recs})
+        store.rotate(FLY_MODEL)
+        incumbent = engine.describe_model(FLY_MODEL)["latest"]
+        base_c = trainer.incumbent_step()
+        armed, traffic_recs = [None], []
+        rounds = itertools.count()
+
+        def traffic():
+            if armed[0] is None:
+                desc = engine.rollout_controller().describe(FLY_MODEL)
+                if desc is not None and desc.get("canary"):
+                    chaos.arm_serving("canary_errors",
+                                      tag=f"{FLY_MODEL}@{desc['canary']}")
+                    armed[0] = desc["canary"]
+            out, _w = fly_join(fly_clients(port, seed + 100 + next(rounds),
+                                           per_client=2))
+            traffic_recs.extend(out)
+
+        trainer.run_once = run_once
+        ctrl.watcher.poll_once = poll_once
+        split.clear()
+        traced[0] = True  # 13c's retrain runs with no traffic beside it
+        cycle_t0[0] = time.perf_counter()
+        try:
+            report_c = ctrl.run_cycle(traffic_fn=traffic, timeout_s=300)
+        finally:
+            chaos.disarm_serving()
+        cycle_report("13c", report_c)
+        busy, wall = split["busy"]
+        print(f"flywheel: 13c's retrain traced: card busy {busy:.3f} of "
+              f"{wall:.3f} s = {busy / wall:.3f} (torch.profiler: the union "
+              f"of its device records; the restore and the checkpoint "
+              f"included) ({smi})", flush=True)
+        trainer.run_once = real_run_once
+        ctrl.watcher.poll_once = real_poll
+        errs = [r for r in traffic_recs if r.status != 200]
+        tags = (b"canary_errors", f"'{FLY_MODEL}@{armed[0]}'".encode())
+        stray = [r for r in errs if not any(t in r.body for t in tags)]
+        follow = ctrl.run_cycle(timeout_s=60)
+        x = make_request(rng, 1, FLY_SEQ, TRAIN_BERT["vocab"])
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            status, _t, _b = fly_predict(conn, x)
+        finally:
+            conn.close()
+        print(f"flywheel: 13c canary {armed[0]} {report_c.outcome} "
+              f"({report_c.rollback_reason}); quarantined "
+              f"{[Path(s).name for s in report_c.quarantined]}; incumbent "
+              f"step {trainer.incumbent_step()} (was {base_c}), latest "
+              f"version {engine.describe_model(FLY_MODEL)['latest']} (was "
+              f"{incumbent}); {len(errs)} of {len(traffic_recs)} client "
+              f"requests failed, {len(stray)} of them not on the canary; "
+              f"the next cycle: {follow.outcome}; a request after: "
+              f"{status}", flush=True)
+        if armed[0] is None or report_c.outcome != "rolled_back" or \
+                report_c.rollback_reason not in ("breaker_open",
+                                                 "error_rate"):
+            fail(f"flywheel: 13c did not roll the broken canary back: "
+                 f"{report_c}")
+        if not report_c.quarantined or not all(
+                is_quarantined(s) for s in report_c.quarantined):
+            fail("flywheel: 13c did not quarantine the cycle's segments")
+        if trainer.incumbent_step() != base_c or \
+                engine.describe_model(FLY_MODEL)["latest"] != incumbent:
+            fail("flywheel: 13c left the candidate's checkpoints or "
+                 "version behind")
+        if not errs or stray or follow.outcome != "no_data" or status != 200:
+            fail("flywheel: 13c's errors were not only canary-routed, or "
+                 "the next cycle found data, or the incumbent stopped "
+                 "serving")
+    finally:
+        Estimator.time_steps = False
+        CheckpointManager.save = real_save
+        server.shutdown()
+        server.server_close()
+        ctrl.close()
+        tap.close()
+        store.close()
+        engine.shutdown()
+    launches = [b - a for a, b in zip(launches0, read_launches(fa))]
+    shutil.rmtree(FLY_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"flywheel: phase 13 took {time.perf_counter() - t_phase:.1f} s; "
+          f"flash wrapper launches forward, dq, dk/dv {launches} ({smi})",
+          flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7010,6 +7731,9 @@ def main(argv=None) -> int:
     # -- 12. the front door, the fleet, batch scoring ------------------------
     fdb = frontdoor_batch_phase(args.seed + 12)
 
+    # -- 13. the online-learning flywheel -------------------------------------
+    fly = flywheel_phase(fa, args.seed + 13)
+
     bwd_src = "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu"
     bwd_pair = ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
     serve = fwd[0]
@@ -7056,7 +7780,7 @@ def main(argv=None) -> int:
         # eager warm-up and its capture)
         "launches": (launches + train_launches[0] + resume_launches[0]
                      + serve_launches + zoo_launches[0] + int8_launches[0]
-                     + fdb["launches"][0]),
+                     + fdb["launches"][0] + fly[0]),
         # the kernel's runs on the card in CUDA graph replays, which no
         # wrapper sees, in phase 3's traffic and phase 5's traced run:
         # the flash nodes of each bucket's graph (read through the driver)
@@ -7076,10 +7800,10 @@ def main(argv=None) -> int:
             for r in fwd],
     }, bwd_row("dq", 0, "analytics_zoo_tpu/ops/flash_attention.py:323",
                train_launches[1] + resume_launches[1] + zoo_launches[1]
-               + int8_launches[1] + fdb["launches"][1], dq_err),
+               + int8_launches[1] + fdb["launches"][1] + fly[1], dq_err),
         bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
                 train_launches[2] + resume_launches[2] + zoo_launches[2]
-                + int8_launches[2] + fdb["launches"][2], dkv_err)]
+                + int8_launches[2] + fdb["launches"][2] + fly[2], dkv_err)]
     for row, n, z, lib, q in zip(kernels, detection_launches, zoo_launches,
                                  layer_launches, int8_launches):
         row["detection_launches"] = n  # phase 8's: no attention there
@@ -7099,6 +7823,10 @@ def main(argv=None) -> int:
         row["frontdoor_batch_launches"] = n
     kernels[0]["frontdoor_batch_replay_launches"] = fdb["replay_launches"]
     kernels[0]["frontdoor_worker_launches"] = fdb["worker_launches"]
+    # phase 13's wrapper launches (the retrains, the versions' warm-ups and
+    # captures), counted in launches
+    for row, n in zip(kernels, fly):
+        row["flywheel_launches"] = n
     print(f"chip_smoke: the whole script took "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

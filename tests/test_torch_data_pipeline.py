@@ -9,8 +9,11 @@ loud ``state_dict`` mismatches, metrics, the ``data.epoch`` span and
 worker-pool teardown. Every stream, ``state_dict`` included, is held
 bitwise to the JAX ``Pipeline``'s for the same source, seed, worker count
 and ladder, with a case for each source of data/sources.py. The device
-paths raise: ``device_batches`` and ``Estimator.train`` over a pipeline
-(ROADMAP A6), the capture and label sources (ROADMAP A8).
+paths: ``device_batches`` (prefetch, metrics, teardown) and
+``Estimator.train`` over a pipeline, which equals training over the
+``FeatureSet`` and the JAX package's trajectory, resumes a mid-epoch kill
+bitwise from the stream position in its checkpoint, and rejects a
+mismatched pipeline.
 """
 
 import gc
@@ -310,42 +313,287 @@ def test_state_dict_mismatch_rejected():
 
 
 # ---------------------------------------------------------------------------
-# what raises
+# the device paths
 # ---------------------------------------------------------------------------
 
 
-def test_device_paths_raise_naming_their_roadmap_items():
-    x, y = _data(16)
-    p = Pipeline(ArraySource(x, y)).batch(8).prefetch(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        next(iter(p.device_batches(8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Pipeline.from_capture(["/nonexistent"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Pipeline.from_labeled_capture(["/a"], ["/b"])
-    _assert_no_pipeline_threads()
+def test_device_paths_raise_naming_their_roadmap_items(tmp_path):
+    """The paths that once raised run: ``device_batches`` yields tensors
+    on the context's device (the CPU here) equal to the host stream, and
+    ``from_capture`` / ``from_labeled_capture`` stream the flywheel's
+    segments."""
+    import torch
 
-
-def test_estimator_train_over_a_pipeline_raises_naming_a6():
     import analytics_zoo_tpu_torch as port
-    from analytics_zoo_tpu_torch.engine.estimator import Estimator
-    from analytics_zoo_tpu_torch.keras import objectives, optimizers
-    from analytics_zoo_tpu_torch.keras.engine.base import reset_name_counts
-    from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
-    from analytics_zoo_tpu_torch.keras.layers import Dense
+    from analytics_zoo_tpu_torch.flywheel import CaptureConfig, CaptureTap
+    from analytics_zoo_tpu_torch.flywheel.labels import LabelStore
 
     port.init_nncontext(device="cpu")
     try:
-        model = Sequential([Dense(3, input_shape=(4,))])
-        est = Estimator(model, optimizers.Adam(0.01))
         x, y = _data(16)
-        pipe = Pipeline(ArraySource(x, y % 3)).batch(8)
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            est.train(pipe, objectives.get(
-                "sparse_categorical_crossentropy"), batch_size=8)
+        p = Pipeline(ArraySource(x.astype(np.float64), y)).batch(8) \
+            .prefetch(2)
+        dev = list(p.device_batches(8, shuffle=True, seed=3))
+        host = list(p.train_batches(8, shuffle=True, seed=3))
+        assert len(dev) == len(host) == 2
+        for (dx, dy, dm), (hx, hy, hm) in zip(dev, host):
+            assert isinstance(dx, torch.Tensor) and dx.device.type == "cpu"
+            assert dx.dtype == torch.float32  # float64 made float32
+            assert dy.dtype == torch.int32 and dm.dtype == torch.float32
+            np.testing.assert_array_equal(dx.numpy(), hx.astype(np.float32))
+            np.testing.assert_array_equal(dy.numpy(), hy)
+            np.testing.assert_array_equal(dm.numpy(), hm)
+        tap = CaptureTap(CaptureConfig(directory=str(tmp_path), fraction=1.0,
+                                       idle_poll_s=0.01), clock=lambda: 1.0)
+        tap.enable("m")
+        from concurrent.futures import Future
+
+        for i in range(6):
+            fut = Future()
+            tap.offer("m", "1", x[i:i + 1], fut, trace=f"t{i}")
+            fut.set_result(np.full((1, 2), float(i), np.float32))
+        tap.flush()
+        tap.rotate("m")
+        tap.close()
+        store = LabelStore(str(tmp_path), clock=lambda: 2.0)
+        store.ingest("m", [{"trace_id": f"t{i}", "label": [float(-i)]}
+                           for i in range(0, 6, 2)])
+        store.rotate("m")
+        store.close()
+        cap = list(Pipeline.from_capture(str(tmp_path / "m")).batch(6)
+                   .train_batches(shuffle=False))
+        np.testing.assert_array_equal(cap[0][0], x[:6])
+        np.testing.assert_array_equal(cap[0][1][:, 0], np.arange(6.0))
+        lab = list(Pipeline.from_labeled_capture(
+            str(tmp_path / "m"), store.labels_dir("m")).batch(3)
+            .train_batches(shuffle=False))
+        np.testing.assert_array_equal(lab[0][0], x[0:6:2])
+        np.testing.assert_array_equal(lab[0][1][:, 0], [0.0, -2.0, -4.0])
     finally:
         port.stop_nncontext()
-        reset_name_counts()
+    _assert_no_pipeline_threads()
+
+
+_DIM, _CLASSES, _N, _BATCH = 8, 3, 24, 8
+F32_TOL = 1e-5  # the port's trajectory against the JAX package's
+
+
+def _est_data():
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(_N, _DIM)).astype(np.float32)
+    y = rng.integers(0, _CLASSES, _N).astype(np.int32)
+    return x, y
+
+
+def _make_estimator(ckpt_dir=None, dropout=0.4, init=None):
+    """A fresh process's estimator: new context, counters reset."""
+    import analytics_zoo_tpu_torch as port
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.interop import load_jax_params
+    from analytics_zoo_tpu_torch.keras.engine.base import reset_name_counts
+    from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
+    from analytics_zoo_tpu_torch.keras.layers import Dense, Dropout
+    from analytics_zoo_tpu_torch.keras.optimizers import Adam
+
+    port.stop_nncontext()
+    reset_name_counts()
+    port.init_nncontext(device="cpu")
+    layers = [Dense(8, activation="relu", input_shape=(_DIM,))]
+    if dropout:
+        layers.append(Dropout(dropout))
+    model = Sequential(layers + [Dense(_CLASSES)])
+    if init is not None:
+        load_jax_params(model, init)
+    est = Estimator(model, Adam(0.02))
+    if ckpt_dir is not None:
+        est.set_checkpoint(str(ckpt_dir), asynchronous=False, keep_last=5)
+    return est
+
+
+def _make_pipeline(identity=False, shuffle_seed=5):
+    x, y = _est_data()
+    p = Pipeline(ArraySource(x, y), seed=7)
+    if not identity:
+        p = p.map(_aug, num_workers=3).shuffle(16, seed=shuffle_seed)
+    return p.batch(_BATCH).prefetch(3)
+
+
+def _train(est, train_set, epochs=3, auto_resume=False):
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves
+    from analytics_zoo_tpu_torch.engine.triggers import (
+        MaxEpoch,
+        SeveralIteration,
+    )
+    from analytics_zoo_tpu_torch.keras import objectives
+
+    est.train(train_set,
+              objectives.sparse_categorical_crossentropy_from_logits,
+              end_trigger=MaxEpoch(epochs),
+              checkpoint_trigger=SeveralIteration(2),
+              batch_size=_BATCH, auto_resume=auto_resume)
+    return [t.detach().numpy().copy() for t in tree_leaves(est.tstate.params)]
+
+
+class _Boom(Exception):
+    """Stands in for os._exit in in-process chaos tests."""
+
+
+@pytest.fixture
+def chaos_raise(monkeypatch):
+    from analytics_zoo_tpu_torch.ft import chaos
+
+    def arm(point, skip=0):
+        chaos.reset()
+        monkeypatch.setenv("AZOO_FT_CHAOS", point)
+        monkeypatch.setenv("AZOO_FT_CHAOS_SKIP", str(skip))
+        monkeypatch.setattr(chaos, "fail",
+                            lambda p: (_ for _ in ()).throw(_Boom(p)))
+
+    def disarm():
+        chaos.reset()
+        monkeypatch.delenv("AZOO_FT_CHAOS")
+        monkeypatch.delenv("AZOO_FT_CHAOS_SKIP")
+
+    arm.disarm = disarm
+    yield arm
+    chaos.reset()
+
+
+@pytest.fixture
+def _port_cleanup():
+    yield
+    import analytics_zoo_tpu_torch as port
+    from analytics_zoo_tpu_torch.keras.engine.base import reset_name_counts
+
+    port.stop_nncontext()
+    reset_name_counts()
+
+
+def test_estimator_train_over_a_pipeline_raises_naming_a6(_port_cleanup):
+    """``Estimator.train`` takes a pipeline: a no-shuffle-stage identity
+    pipeline trains bitwise as the ``ArrayFeatureSet`` does (dropout
+    included), and without dropout the trajectory is the JAX package's
+    ``Estimator.train`` over its own pipeline from the same weights,
+    within F32_TOL."""
+    import jax
+
+    from analytics_zoo_tpu.engine.estimator import Estimator as JEstimator
+    from analytics_zoo_tpu.engine.triggers import MaxEpoch as JMaxEpoch
+    from analytics_zoo_tpu.keras import layers as jlayers
+    from analytics_zoo_tpu.keras import objectives as jobj
+    from analytics_zoo_tpu.keras import optimizers as jopt
+    from analytics_zoo_tpu.keras.engine import base as jbase
+    from analytics_zoo_tpu.keras.engine import topology as jtopo
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves
+    from analytics_zoo_tpu_torch.interop import load_jax_params
+
+    x, y = _est_data()
+    ref = _train(_make_estimator(), ArrayFeatureSet(x, y))
+    got = _train(_make_estimator(), _make_pipeline(identity=True))
+    assert len(ref) == len(got) == 4
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    _assert_no_pipeline_threads()
+
+    jbase.reset_name_counts()
+    jnet = jtopo.Sequential([jlayers.Dense(8, activation="relu",
+                                           input_shape=(_DIM,)),
+                             jlayers.Dense(_CLASSES)])
+    jest = JEstimator(jnet, jopt.Adam(0.02))
+    jest._ensure_state()
+    init = jax.tree_util.tree_map(np.asarray, jest.tstate.params)
+    jest.train(jax_pipeline.Pipeline(jax_sources.ArraySource(x, y), seed=7)
+               .batch(_BATCH).prefetch(3),
+               jobj.sparse_categorical_crossentropy_from_logits,
+               end_trigger=JMaxEpoch(3), batch_size=_BATCH)
+    final = jax.tree_util.tree_map(np.asarray, jest.tstate.params)
+    got = _train(_make_estimator(dropout=0, init=init),
+                 _make_pipeline(identity=True))
+    # the JAX leaves in the port's order
+    want = [t.numpy() for t in tree_leaves(load_jax_params(
+        _make_estimator(dropout=0).model, final))]
+    assert [a.shape for a in got] == [a.shape for a in want]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=F32_TOL)
+
+
+def test_mid_epoch_kill_then_resume_reproduces_stream_bitwise(
+        tmp_path, chaos_raise, _port_cleanup):
+    """A shuffled, multi-worker pipeline killed mid-epoch at a commit
+    point resumes (a) to the uninterrupted run's final params bitwise and
+    (b) to a remaining batch stream bitwise the uninterrupted epoch's
+    tail, from the stream position of the last committed checkpoint."""
+    from analytics_zoo_tpu_torch.engine import checkpoint as ck
+
+    ref_params = _train(_make_estimator(tmp_path / "ref"), _make_pipeline())
+    kill_dir = tmp_path / "kill"
+    chaos_raise("before_rename", skip=1)
+    with pytest.raises(_Boom):
+        _train(_make_estimator(kill_dir), _make_pipeline())
+    chaos_raise.disarm()
+    _assert_no_pipeline_threads()
+
+    meta = ck.peek_metadata(ck.latest_checkpoint(str(kill_dir)))
+    state = meta["pipeline"]
+    assert state["position_batches"] == meta["epoch_step"] == 2  # mid-epoch
+    assert state["epoch_seed"] == meta["epoch"]
+    assert state["num_workers"] == 3 and state["shuffle_buffer"] == 16
+    epoch_seed = state["epoch_seed"]
+    full_epoch = list(_make_pipeline().train_batches(
+        _BATCH, shuffle=True, seed=epoch_seed))
+    resumed_tail = list(_make_pipeline().load_state_dict(state)
+                        .train_batches(_BATCH, shuffle=True, seed=epoch_seed))
+    _assert_streams_equal(resumed_tail,
+                          full_epoch[state["position_batches"]:])
+
+    resumed = _train(_make_estimator(kill_dir), _make_pipeline(),
+                     auto_resume=True)
+    assert len(resumed) == len(ref_params)
+    for got, want in zip(resumed, ref_params):
+        np.testing.assert_array_equal(got, want)
+    _assert_no_pipeline_threads()
+
+
+def test_resume_with_mismatched_pipeline_is_rejected(tmp_path, chaos_raise,
+                                                     _port_cleanup):
+    chaos_raise("before_commit", skip=1)
+    with pytest.raises(_Boom):
+        _train(_make_estimator(tmp_path), _make_pipeline())
+    chaos_raise.disarm()
+    with pytest.raises(ValueError, match="shuffle_seed"):
+        _train(_make_estimator(tmp_path), _make_pipeline(shuffle_seed=99),
+               auto_resume=True)
+    _assert_no_pipeline_threads()
+
+
+def test_device_batches_prefetch_and_metrics(_port_cleanup):
+    import torch
+
+    import analytics_zoo_tpu_torch as port
+    from analytics_zoo_tpu_torch.common.observability import get_registry
+
+    port.init_nncontext(device="cpu")
+    x, y = _data(32)
+    p = (Pipeline(ArraySource(x, y), seed=0).map(_aug, num_workers=2)
+         .batch(8).prefetch(2))
+    seen = 0
+    for bx, by, mask in p.device_batches(8, shuffle=True, seed=1):
+        assert isinstance(bx, torch.Tensor) and isinstance(mask,
+                                                           torch.Tensor)
+        assert bx.shape == (8, 4)
+        seen += 1
+    assert seen == 4
+    text = get_registry().render()
+    for fam in ("zoo_data_samples_total", "zoo_data_batches_total",
+                "zoo_data_wait_seconds", "zoo_data_queue_depth",
+                "zoo_data_samples_per_sec", "zoo_data_starvation_ratio"):
+        assert fam in text, fam
+    assert p.state_dict()["prefetch_high_water"] >= 1
+    gen = p.device_batches(8, shuffle=True, seed=1)
+    next(gen)
+    assert _pipeline_threads()  # the prefetcher is running
+    gen.close()
+    _assert_no_pipeline_threads()
 
 
 # ---------------------------------------------------------------------------

@@ -261,8 +261,7 @@ def _families(text):
 
 # Families the JAX process registry may carry from tiers the port has not
 # ported (registered by whatever else ran in the same test process).
-_UNPORTED = ("zoo_dist_", "zoo_capture_", "zoo_flywheel_", "zoo_label_",
-             "zoo_drift_", "zoo_serving_aot_")
+_UNPORTED = ("zoo_dist_", "zoo_serving_aot_")
 
 
 def test_metrics_families_match_the_jax_engine_after_the_same_traffic():
@@ -275,7 +274,8 @@ def test_metrics_families_match_the_jax_engine_after_the_same_traffic():
         P = _ns(root)
         # registered on first use of either package's InferenceModel,
         # Estimator.train, CheckpointManager, sweep_stale,
-        # CheckpointWatcher, streaming Pipeline or BatchJobRunner, which
+        # CheckpointWatcher, streaming Pipeline, BatchJobRunner or the
+        # flywheel's tap, trainer, label store and drift trackers, which
         # another test in this process may or may not have made
         P.obs.inference_cache_counters()
         P.obs.training_metrics()
@@ -284,6 +284,10 @@ def test_metrics_families_match_the_jax_engine_after_the_same_traffic():
         P.obs.hot_reload_metrics()
         P.obs.data_metrics()
         P.obs.batch_metrics()
+        P.obs.capture_metrics()
+        P.obs.flywheel_metrics()
+        P.obs.label_metrics()
+        P.obs.drift_metrics()
         base, engine, srv = _start(P, {"dbl": Doubler()})
         try:
             for _ in range(3):
