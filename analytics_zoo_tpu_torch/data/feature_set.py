@@ -185,6 +185,11 @@ class ArrayFeatureSet(FeatureSet):
                           None if self.ys is None
                           else [a[indices] for a in self.ys])
 
+    @staticmethod
+    def from_ndarrays(x, y=None) -> "ArrayFeatureSet":
+        """Build from (x, y) ndarrays or lists of ndarrays."""
+        return ArrayFeatureSet(x, y)
+
     def cache_device(self) -> "DeviceCachedFeatureSet":
         """The dataset held on the context's device, batches gathered
         there: see :class:`DeviceCachedFeatureSet`."""

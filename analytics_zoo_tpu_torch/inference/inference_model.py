@@ -57,9 +57,16 @@ integer products (:mod:`analytics_zoo_tpu_torch.ops.int8`); their qleafs
 pass the compute-dtype cast whole, so a float32 scale never rounds
 through bf16.
 
-Not ported yet: sharding and stage plans (ROADMAP A7), the TF/ONNX
-loaders (A6) and the persistent AOT executable cache (A4:
-``aot_cache_dir`` and ``set_aot_cache`` raise ``NotImplementedError``).
+**Imported graphs.** :meth:`InferenceModel.do_load_onnx` serves an ONNX
+model (:mod:`analytics_zoo_tpu_torch.onnx`) like any other: its float
+initializers are the parameters (quantizable along ONNX's channel axes),
+its integer initializers stay host arrays that keep its shape chains
+static, and on the card each bucket is a CUDA graph.
+
+Not ported yet: sharding and stage plans (ROADMAP A7), the TF loader
+(``do_load_tf``: ROADMAP A6, TensorFlow importers) and the persistent AOT
+executable cache (A4: ``aot_cache_dir`` and ``set_aot_cache`` raise
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -347,6 +354,32 @@ class _GraphProgram:
                         _to_device_tree(args, self.snap.device))
 
 
+class _OnnxAdapter:
+    """The KerasNet ``apply`` protocol over an ``onnx.OnnxModel``: the
+    served parameters are its float initializers, joined at each call
+    by its integer ones (host arrays). Outputs that the graph folded on
+    the host come back as tensors."""
+
+    compute_dtype = None  # an imported graph runs as it was exported
+
+    def __init__(self, om, static):
+        self.om, self.static = om, static
+        # output-channel axis per initializer (see do_load_onnx)
+        self.quantize_axes: Dict[str, int] = {}
+
+    def apply(self, params, state, x, training=False, rng=None):
+        from analytics_zoo_tpu_torch.onnx import _t
+
+        xs = x if isinstance(x, (list, tuple)) else (x,)
+        out = self.om.apply({**self.static, **params}, *xs)
+        dev = next(t.device for t in tree_leaves(params) + list(xs)
+                   if isinstance(t, torch.Tensor))
+        consts = self.om._consts
+        if isinstance(out, tuple):
+            return tuple(_t(o, dev, consts) for o in out), state
+        return _t(out, dev, consts), state
+
+
 class InferenceModel:
     """load → (optional) warm → thread-safe predict, on the context's device
     (the CUDA card unless the context was made with ``device="cpu"``).
@@ -510,6 +543,51 @@ class InferenceModel:
             self.params = params
             self._exec_params = exec_params
             self.model_state = state
+        return self
+
+    def do_load_onnx(self, path) -> "InferenceModel":
+        """Serve an imported ONNX graph (ref doLoad* loader family; the
+        reference's ONNX story is pyzoo/zoo/pipeline/api/onnx): a path to
+        a ``.onnx`` file, or its bytes.
+
+        The float initializers become the model's parameters on the
+        context's device (real tensors: ``do_quantize`` makes them int8
+        along ONNX's output-channel axis, 0 for OIHW convolution kernels
+        and ``transB`` Gemm weights, -1 otherwise). The integer
+        initializers drive shape chains (Reshape targets, Slice bounds,
+        axes tensors) and stay host arrays, so no shape op reads the
+        device and each bucket's forward is captured whole on the card.
+        The matmuls and convolutions run in IEEE float32
+        (``onnx.OnnxModel``'s ``precision="highest"``)."""
+        from analytics_zoo_tpu_torch import onnx as zonnx
+
+        om = (zonnx.load_model(path) if isinstance(path, str)
+              else zonnx.load_model_bytes(path))
+        device = get_nncontext().device
+        static = {k: v for k, v in om.params.items()
+                  if not np.issubdtype(np.asarray(v).dtype, np.floating)}
+        params = {k: host_to_device(v, device)
+                  for k, v in om.params.items() if k not in static}
+        adapter = _OnnxAdapter(om, static)
+        for node in om.graph.nodes:
+            if node.op_type == "Conv" and len(node.inputs) > 1:
+                adapter.quantize_axes[node.inputs[1]] = 0
+            elif node.op_type == "Gemm" and len(node.inputs) > 1:
+                adapter.quantize_axes[node.inputs[1]] = \
+                    0 if node.attrs.get("transB", 0) else -1
+            elif node.op_type == "MatMul" and len(node.inputs) > 1:
+                adapter.quantize_axes[node.inputs[1]] = -1
+        with self._lock:
+            self._gen += 1
+            self._compiled.clear()
+            self._warmed.clear()
+            self._quantized = False
+            self._calibrated = False
+            self.model = adapter
+            self.device = device
+            self.params = params
+            self._exec_params = params
+            self.model_state = {}
         return self
 
     load = do_load

@@ -13,7 +13,9 @@ weights in and out (``get_weights``/``set_weights``/``set_states``,
 ``summary``. ``Sequential`` (a linear stack) and ``Model`` (a functional
 graph of ``Input`` and layer calls) thread the state of stateful layers
 through ``apply``. ``set_profile`` traces a window of the next ``fit``
-(``Estimator.set_profile``). The GraphNet surface is not ported yet.
+(``Estimator.set_profile``). ``Model`` carries the GraphNet surface
+(``node``, ``nodes``, ``freeze``, ``unfreeze``, ``freeze_up_to``,
+``new_graph``): the transfer-learning idioms over the functional graph.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from analytics_zoo_tpu_torch.autograd.variable import (
     Variable,
     execute,
     graph_layers,
+    topological_nodes,
 )
 from analytics_zoo_tpu_torch.common.nncontext import host_to_device
 from analytics_zoo_tpu_torch.common.tree import tree_map
@@ -514,3 +517,94 @@ class Model(KerasNet):
         outs, new_state = execute(self.outputs, feed, params, state=state,
                                   training=training, rng=rng)
         return (outs if self._multi_out else outs[0]), new_state
+
+    # -- the GraphNet surface (ref NetUtils.scala:221-280, GraphNet:47) ----
+    # Transfer learning on the functional graph: look nodes up by layer
+    # name, freeze or unfreeze layers, cut a new graph at interior outputs.
+
+    def _output_var_by_layer(self) -> Dict[str, Variable]:
+        """Layer name -> the Variable its node produces."""
+        by_node: Dict[int, Variable] = {}
+
+        def note(var: Variable):
+            if var.node is not None:
+                by_node.setdefault(id(var.node), var)
+
+        for v in self.outputs:
+            note(v)
+        nodes = topological_nodes(self.outputs)
+        for node in nodes:
+            for v in node.inbound:
+                note(v)
+        return {node.layer.name: by_node[id(node)] for node in nodes
+                if id(node) in by_node}
+
+    def node(self, name: str) -> Variable:
+        """The output Variable of the layer called ``name`` (ref
+        NetUtils.node)."""
+        table = self._output_var_by_layer()
+        if name not in table:
+            raise KeyError(
+                f"No layer named '{name}'. Layers: {sorted(table)}")
+        return table[name]
+
+    def nodes(self, names: Sequence[str]) -> List[Variable]:
+        """The output Variables of the named layers (ref Model.nodes)."""
+        table = self._output_var_by_layer()
+        missing = [n for n in names if n not in table]
+        if missing:
+            raise KeyError(
+                f"No layer(s) named {missing}. Layers: {sorted(table)}")
+        return [table[n] for n in names]
+
+    def _set_trainable(self, names: Optional[Sequence[str]], value: bool):
+        if names is None:
+            for layer in self._layers:
+                layer.trainable = value
+            return
+        by_name = {l.name: l for l in self._layers}
+        missing = [n for n in names if n not in by_name]
+        if missing:
+            raise KeyError(
+                f"No layer(s) named {missing}. Layers: {sorted(by_name)}")
+        for n in names:
+            by_name[n].trainable = value
+
+    def freeze(self, names: Optional[Sequence[str]] = None) -> "Model":
+        """Mark layers (all, or by name) non-trainable: the train step
+        zeroes their gradients and updates (ref GraphNet.freeze). Takes
+        effect at the next ``fit``/``train``: every ``Estimator.train``
+        call builds its step, and with it the update mask, from the
+        layers' current ``trainable`` flags."""
+        self._set_trainable(names, False)
+        return self
+
+    def unfreeze(self, names: Optional[Sequence[str]] = None) -> "Model":
+        """Train again the layers (all, or by name) that :meth:`freeze`
+        froze (ref unFreeze)."""
+        self._set_trainable(names, True)
+        return self
+
+    def freeze_up_to(self, *names: str) -> "Model":
+        """Freeze every layer from the inputs up to and including the named
+        layers: the fine-tuning idiom (ref NetUtils.freezeUpTo:241)."""
+        for node in topological_nodes(self.nodes(list(names))):
+            node.layer.trainable = False
+        return self
+
+    def new_graph(self, outputs: Union[str, Sequence[str]]) -> "Model":
+        """A new Model over the same layer objects with interior node(s) as
+        its outputs (ref NetUtils.newGraph:250). The layers it keeps keep
+        their parameters and state when this model has them, so its
+        ``predict`` is this model's interior activation."""
+        names = [outputs] if isinstance(outputs, str) else list(outputs)
+        inp = self.inputs if self._multi_in else self.inputs[0]
+        outs = self.nodes(names)
+        sub = Model(inp, outs if len(names) > 1 else outs[0],
+                    name=f"{self.name}_sub")
+        if self.params is not None:
+            keep = {l.name for l in sub.layers()}
+            sub.params = {k: v for k, v in self.params.items() if k in keep}
+            sub.model_state = {k: v for k, v in
+                               (self.model_state or {}).items() if k in keep}
+        return sub

@@ -8,8 +8,11 @@ and pooler matmuls are plain ``torch.matmul``. With ``training=True`` and a
 attention probabilities (which takes the reference path), the attention
 output projection, the FFN output and the embeddings; the masks come from
 that one generator in call order, not from ``jax.random.fold_in`` streams.
-Sequence parallelism, pipeline parallelism and rematerialization raise;
-they come with later slices.
+``remat=True`` recomputes each block's activations in the backward pass
+(``torch.utils.checkpoint``, training only) and replays the block's
+dropout draws from the generator's saved state, so loss and gradients are
+bitwise those of ``remat=False``. Sequence and pipeline parallelism raise
+(ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from analytics_zoo_tpu_torch.keras.engine.base import (
     KerasLayer,
@@ -57,6 +61,47 @@ def _not_yet(feature: str, value) -> None:
 
 def _embed(table, ids):
     return F.embedding(ids.long(), table)
+
+
+def _remat_block(blk, params, h, rng, mask):
+    """``blk`` in training mode with its activations recomputed in the
+    backward pass instead of saved (the JAX package's ``jax.checkpoint``
+    per block): activation memory drops from one set per block to the
+    block boundaries.
+
+    The dropout masks come from the explicit generator ``rng``, which
+    ``torch.utils.checkpoint``'s ``preserve_rng_state`` does not save (it
+    saves only the default generators). So the block's generator state is
+    snapshotted here before the forward; the recompute replays the same
+    draws from that snapshot and then puts the generator back where it
+    stood, which is where the whole forward left it: the next step draws
+    what it would have drawn without remat."""
+    start = None if rng is None else rng.get_state()
+    ran = []
+
+    def run(p, x):
+        if rng is None or not ran:
+            ran.append(True)
+            return blk.call(p, x, training=True, rng=rng, mask=mask)
+        after = rng.get_state()
+        rng.set_state(start)
+        try:
+            return blk.call(p, x, training=True, rng=rng, mask=mask)
+        finally:  # also when the recompute stops early
+            rng.set_state(after)
+
+    return checkpoint(run, params, h, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _run_blocks(blocks, params, h, training, rng, mask, remat):
+    for blk in blocks:
+        if training and remat:
+            h = _remat_block(blk, params[blk.name], h, rng, mask)
+        else:
+            h = blk.call(params[blk.name], h, training=training, rng=rng,
+                         mask=mask)
+    return h
 
 
 class MultiHeadAttention(KerasLayer):
@@ -241,7 +286,6 @@ class TransformerLayer(KerasLayer):
                  pipeline_parallel: bool = False,
                  input_shape=None, name=None):
         super().__init__(input_shape, name or unique_name("transformer"))
-        _not_yet("remat", remat)
         _not_yet("pipeline_parallel", pipeline_parallel)
         _not_yet("sequence_parallel", sequence_parallel)
         self.vocab = vocab
@@ -250,6 +294,7 @@ class TransformerLayer(KerasLayer):
         self.hidden_size = hidden_size
         self.n_head = n_head
         self.embedding_drop = embedding_drop
+        self.remat = remat
         self.blocks = nn.ModuleList(
             TransformerBlock(n_head, hidden_drop=hidden_drop,
                              attn_drop=attn_drop, causal=not bidirectional,
@@ -283,10 +328,8 @@ class TransformerLayer(KerasLayer):
         h = (_embed(params["word_embed"], ids)
              + params["pos_embed"][None, :ids.shape[1]])
         h = _maybe_dropout(h, self.embedding_drop, training, rng)
-        for blk in self.blocks:
-            h = blk.call(params[blk.name], h, training=training, rng=rng,
-                         mask=mask)
-        return h
+        return _run_blocks(self.blocks, params, h, training, rng, mask,
+                           self.remat)
 
 
 class BERT(KerasLayer):
@@ -300,7 +343,7 @@ class BERT(KerasLayer):
                  attn_drop: float = 0.1, type_vocab: int = 2,
                  remat: bool = False, input_shape=None, name=None):
         super().__init__(input_shape, name or unique_name("bert"))
-        _not_yet("remat", remat)
+        self.remat = remat
         self.vocab = vocab
         self.hidden_size = hidden_size
         self.seq_len = seq_len
@@ -345,10 +388,8 @@ class BERT(KerasLayer):
         h = _layer_norm(e, params["embed_ln_gamma"], params["embed_ln_beta"],
                         1e-12)
         h = _maybe_dropout(h, self.hidden_drop, training, rng)
-        for blk in self.blocks:
-            h = blk.call(params[blk.name], h, training=training, rng=rng,
-                         mask=mask)
-        return h
+        return _run_blocks(self.blocks, params, h, training, rng, mask,
+                           self.remat)
 
     def pooled(self, params, seq_output):
         """[CLS] pooler: first-token dense + tanh."""

@@ -14,9 +14,11 @@ pooling and matmuls run on PyTorch's cuDNN/cuBLAS calls (the depthwise
 convolution as a ``groups=C`` convolution); no architecture here reaches
 a hand-written kernel.
 
-Left out, each raising ``NotImplementedError``: the Keras ``.h5`` branches
-of ``load_pretrained_weights`` and ``ImageClassifier.from_pretrained`` wait
-for the foreign-model importers (ROADMAP A6). A ``-quantize`` name builds
+``load_pretrained_weights`` pours a Keras ``.h5`` weight file by layer
+name (``Net.load_keras``). Left out, raising ``NotImplementedError``:
+``ImageClassifier.from_pretrained`` with a Keras file, which needs the Keras
+architecture converter (ROADMAP A6, TensorFlow importers). A ``-quantize``
+name builds
 the float graph; it serves int8 through ``InferenceModel.do_quantize``, as
 in the JAX package.
 """
@@ -585,9 +587,10 @@ def build_model(name: str, num_classes: int = 1000, **kw):
 
 def _no_keras_h5(what: str):
     raise NotImplementedError(
-        f"{what}: Keras .h5 weights need the foreign-model importers "
-        "(net.py, keras_convert.py), which wait for ROADMAP A6; pass a "
-        "save_weights checkpoint (directory, .npz or prefix)")
+        f"{what}: a Keras model file needs the Keras architecture converter "
+        "(keras_convert.py, or tf.keras.applications), which waits for "
+        "ROADMAP A6, TensorFlow importers; pass a save_weights checkpoint "
+        "(directory, .npz or prefix)")
 
 
 def load_pretrained_weights(model, path: str):
@@ -595,11 +598,15 @@ def load_pretrained_weights(model, path: str):
     framework's own format: the atomic checkpoint directory
     ``save_weights`` writes, a legacy ``.npz`` file, or the prefix
     ``save_weights`` was called with (leaves matched by name, counter
-    names by order, so weights the JAX package wrote load too). Returns
-    the names of the layers that carry weights. A Keras ``.h5`` file
-    raises ``NotImplementedError`` (ROADMAP A6)."""
+    names by order, so weights the JAX package wrote load too); returns
+    the names of the layers that carry weights. Or a Keras HDF5 weight
+    file (classic or ``.weights.h5``), poured by layer name through
+    ``Net.load_keras`` (unmatched layers skipped, so partial backbones
+    pour too); returns the imported layer names."""
     if path.endswith((".h5", ".hdf5")):
-        _no_keras_h5("load_pretrained_weights")
+        from analytics_zoo_tpu_torch.net import Net
+
+        return Net.load_keras(path, model, by_name=True, strict=False)
     base = path[:-4] if path.endswith(".npz") else path
     if (os.path.isdir(base) or os.path.exists(path)
             or os.path.exists(path + ".npz")):
@@ -683,7 +690,8 @@ class ImageClassifier(ZooModel):
         """``model_name`` with pretrained ImageNet weights from a local
         framework checkpoint (1000 classes), preprocessing as the
         published weights expect. A Keras ``.h5``/``.keras`` file raises
-        ``NotImplementedError`` (ROADMAP A6's importers)."""
+        ``NotImplementedError`` (ROADMAP A6, TensorFlow importers: the
+        architecture comes from the Keras converter)."""
         if weights.endswith((".h5", ".hdf5", ".keras")):
             _no_keras_h5("ImageClassifier.from_pretrained")
         key = model_name.lower()

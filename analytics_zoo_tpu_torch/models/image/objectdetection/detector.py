@@ -178,8 +178,8 @@ class ObjectDetector(ZooModel):
         self._post = None
         self._served = None  # (InferenceModel, the params, compute dtype)
         if weights:
-            # local pretrained weights in the framework's own format; a
-            # Keras .h5 raises naming ROADMAP A6
+            # local pretrained weights: the framework's own format, or a
+            # Keras .h5 weight file poured by layer name
             from analytics_zoo_tpu_torch.models.image.imageclassification import (
                 load_pretrained_weights,
             )

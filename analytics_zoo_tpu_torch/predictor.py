@@ -1,10 +1,12 @@
 """Prediction facade (port of ``analytics_zoo_tpu.predictor``): ref
-pipeline/api/Predictor.scala:37 (``predict``:154, ``predictClass``:187)
-and the ``Predictable`` trait (:203).
+pipeline/api/Predictor.scala:37 (``predictImage``:119, ``predict``:154,
+``predictClass``:187) and the ``Predictable`` trait (:203).
 
-``Predictor`` predicts over arrays and FeatureSets with any KerasNet (or a
-``ZooModel`` wrapping one). The ImageSet branches (``predict_image`` and
-ImageSet input) wait for the image-data port (ROADMAP A6) and raise.
+``Predictor`` predicts with any KerasNet (or a ``ZooModel`` wrapping one)
+over arrays, FeatureSets and ImageSets (materialised through their
+transform chain), extracts classes, and writes results back into the
+ImageSet's features; ``output_layer`` cuts a functional ``Model`` at an
+interior layer through ``Model.new_graph``.
 """
 
 from __future__ import annotations
@@ -14,10 +16,10 @@ from typing import Optional
 import numpy as np
 
 
-def _no_image_sets(what: str):
-    raise NotImplementedError(
-        f"{what}: ImageSet prediction waits for the image-data port "
-        "(data/image_set.py)")
+def _as_data(data):
+    from analytics_zoo_tpu_torch.data.image_set import ImageSet
+
+    return data.to_feature_set() if isinstance(data, ImageSet) else data
 
 
 class Predictor:
@@ -31,20 +33,39 @@ class Predictor:
 
     def predict(self, data, batch_size: int = 32) -> np.ndarray:
         """Ref Predictor.predict:154: ``data`` an ndarray (or a list of
-        them) or a FeatureSet."""
-        return self.model.predict(data, batch_size=batch_size)
+        them), a FeatureSet or an ImageSet."""
+        return self.model.predict(_as_data(data), batch_size=batch_size)
 
     def predict_classes(self, data, batch_size: int = 32,
                         zero_based_label: bool = True) -> np.ndarray:
         """Ref Predictor.predictClass:187, through the model's
-        ``predict_classes``."""
-        return self.model.predict_classes(data, batch_size=batch_size,
+        ``predict_classes`` (ImageSets materialised first)."""
+        return self.model.predict_classes(_as_data(data),
+                                          batch_size=batch_size,
                                           zero_based_label=zero_based_label)
 
     def predict_image(self, image_set, output_layer: Optional[str] = None,
                       batch_size: int = 32, predict_key: str = "predict"):
-        """Ref Predictor.predictImage:119."""
-        _no_image_sets("predict_image")
+        """Ref Predictor.predictImage:119: run the model (or, with
+        ``output_layer``, the graph cut at that layer) over an ImageSet
+        and attach each row of the result to its ImageFeature under
+        ``predict_key``; returns the same ImageSet."""
+        model = self.model
+        if output_layer is not None:
+            if not hasattr(model, "new_graph"):
+                raise ValueError(
+                    "output_layer requires a functional Model (GraphNet)")
+            model = model.new_graph(output_layer)
+        preds = model.predict(image_set.to_feature_set(),
+                              batch_size=batch_size)
+        if isinstance(preds, (list, tuple)):
+            raise ValueError(
+                "predict_image expects a single-output model (got "
+                f"{len(preds)} outputs); cut the graph with output_layer "
+                "or attach outputs manually")
+        for feature, p in zip(image_set.features, preds):
+            feature[predict_key] = np.asarray(p)
+        return image_set
 
 
 class Predictable:

@@ -2,8 +2,8 @@
 pyzoo/zoo/tfpark/model.py:31): the reference's fit/evaluate/predict
 surface (model.py:84-215) over the engine, for a zoo ``KerasNet``, which
 passes through unchanged. A foreign tf.keras / Keras model needs the
-converter (``keras_convert``), which waits for the foreign-model importers
-(ROADMAP A6): it raises.
+converter (``keras_convert``), which waits for ROADMAP A6, TensorFlow
+importers: it raises.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ class KerasModel:
         if _is_foreign_keras_model(model):
             raise NotImplementedError(
                 f"KerasModel({type(model).__name__}): converting a foreign "
-                "tf.keras model waits for the foreign-model importers "
-                "(ROADMAP A6); pass a zoo KerasNet")
+                "tf.keras model waits for the Keras converter (ROADMAP A6, "
+                "TensorFlow importers); pass a zoo KerasNet")
         self.source_model = None
         self.model = model
 

@@ -4,8 +4,8 @@ over a :class:`TFDataset`.
 
 The model is a zoo net (anything with ``predict(feature_set,
 batch_size)``) or a batch function ``f(x) -> y`` over the dataset's host
-arrays. An imported TF graph (``from_tfnet``) waits for the foreign-model
-importers (ROADMAP A6) and raises.
+arrays. An imported TF graph (``from_tfnet``) waits for ROADMAP A6,
+TensorFlow importers, and raises.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class TFPredictor:
         """A predictor over an imported TF graph: not ported yet."""
         raise NotImplementedError(
             "TFPredictor.from_tfnet: imported TF graphs (TFNet, Net.load_tf) "
-            "wait for the foreign-model importers (ROADMAP A6)")
+            "wait for ROADMAP A6, TensorFlow importers (tfnet)")
 
     def predict(self) -> np.ndarray:
         """The model's outputs over the dataset, in dataset order, as a

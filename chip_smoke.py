@@ -193,7 +193,7 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    trees; SSD-VGG16-300 through ``compile``/``fit`` (Adam 2e-4, batch 32)
    over 1024 seeded 300x300 images of planted colour-coded boxes through
    ``ImageRoiNormalize`` -> random ``ImageHFlip | ImageRoiHFlip`` ->
-   ``ImageMatToFloats`` -> ``to_detection_feature_set`` for about 55 s
+   ``ImageMatToFloats`` -> ``to_detection_feature_set`` for about 40 s
    (step p50/p90, images/s, MFU, the host's batch time; the loss must fall
    to 0.7 of its start and the VOC mAP at IoU 0.4 over 256 of the images
    gain 0.2); a profiled step's device time by convolutions (the dilated
@@ -207,7 +207,7 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
 9. the tagging and ranking zoo (``text_zoo_phase``; ``python3
    scripts/torch_text_zoo_phase.py`` runs it alone): NER at the JAX
    class's defaults (``ZOO_NER``: crf_mode 'pad', 9 CoNLL-2003 tags,
-   20,000 words, 100 characters) fit with its CRF NLL for about 30 s at
+   20,000 words, 100 characters) fit with its CRF NLL for about 20 s at
    batch 128 over seeded sentences whose tags follow the words (step
    p50/p90 between step-end events, sentences/s, host batch time, the
    device busy share of a step; loss and held-out tag accuracy before
@@ -335,7 +335,33 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    segments quarantined, its checkpoints deleted, the incumbent serving,
    errors only on canary-routed requests, the next cycle ``no_data``;
    its retrain's card-busy share traced. Each cycle's seconds split into
-   rotate, retrain, register and rollout.
+   rotate, retrain, register and rollout;
+14. transfer learning and foreign models (``foreign_phase``; alone:
+   ``scripts/torch_foreign_phase.py``; run right after phase 2, while the
+   card holds only the kernels, with the context's generators put back
+   after it): 14a BERT-base (bench.py's
+   configuration, hidden dropout 0.1, attention dropout off) trained 3
+   steps through ``Estimator.train`` with and without ``remat`` from the
+   same weights under deterministic algorithms: loss, every parameter and
+   the step generator's state bitwise equal after each step, flash
+   launches 12/12/12 a step without remat and 24/12/12 with it; peak card
+   memory and step p50/p90 (CUDA events) both ways; 14b ResNet-50 written
+   as ONNX by ``keras_graph_onnx`` (NCHW, OIHW) from the port's seeded
+   weights and batch statistics, loaded by ``InferenceModel.do_load_onnx``
+   on the card: f32 logits against the port's own ResNet-50 within
+   ``ONNX_LOGIT_BOUND`` with every top-1 equal, the card against the CPU
+   within ``ONNX_CPU_BOUND``, registered at buckets 1/8/32 (a CUDA graph
+   each, served answers bitwise the eager forward) beside the native
+   ResNet-50, replay and eager p50 per bucket; after ``do_quantize`` on
+   both, the int8 graph against the port's own int8 ResNet-50 (top-1
+   agreement at least ``ONNX_INT8_AGREE_MIN``); 14c a torch CNN
+   (Conv2d, BatchNorm2d, Linear) and an LSTM living on the card poured
+   through ``Net.load_torch`` from their CUDA state dicts, and a hand-built
+   ``.caffemodel`` through ``Net.load_caffe``, each within ``POUR_BOUND``
+   of its source; 14d ResNet-50 frozen up to ``res4f_add`` and fine-tuned
+   4 steps at batch 32 (frozen leaves bitwise unchanged, trainable ones
+   moved), then ``Predictor.predict_image(output_layer=<the pooling>)``
+   over 64 images, bitwise ``new_graph(...).predict``.
    The script prints its own seconds at the end.
 
 The build phase prints each kernel's ptxas registers and spills and, for
@@ -356,7 +382,8 @@ replays by ``check_traced``), counted in ``replay_launches``, and
 ``frontdoor_worker_launches`` its wrapper launches in phase 12's
 workers' registers (other processes: counted in neither);
 ``flywheel_launches`` its wrapper launches over phase 13, counted in
-``launches``;
+``launches``; ``remat_launches`` its wrapper launches over phase 14a,
+counted in ``launches``;
 ``ms`` is its device time under torch.profiler and ``event_ms`` CUDA-event
 time over back-to-back calls; ``plain_ms`` is event time; the backward
 rows add the whole backward's times and bound and each bf16 route's tiles
@@ -450,9 +477,9 @@ BERT_BASE = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
 BUCKETS = ((8, 128), (32, 512))
 TRAIN_BERT = dict(BERT_BASE, seq_len=128)  # bench.py's BERT-base fit config
 TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_EPOCHS, FIT_EPOCHS = 64, 320, 2, 1
-TIMED_STEPS = 20  # train steps timed in phase 4, after 3 warm-up steps
+TIMED_STEPS = 10  # train steps timed in phase 4, after 3 warm-up steps
 THREADS, REQUESTS_PER_THREAD = 2, 3
-LATENCY_REQUESTS = 60  # sequential do_predict calls per bucket in phase 4
+LATENCY_REQUESTS = 30  # sequential do_predict calls per bucket in phase 4
 
 # Phase 3c: ResNet-50 as bench.py's _child and _fit_path_record train it
 # (full width and depth, 1000 classes, raw logits, bf16 compute), 2048 uint8
@@ -460,7 +487,7 @@ LATENCY_REQUESTS = 60  # sequential do_predict calls per bucket in phase 4
 RESNET_INPUT, RESNET_CLASSES = (224, 224, 3), 1000
 RESNET_IMAGES, RESNET_BATCH, RESNET_EPOCHS = 2048, 256, 2
 RESNET_BUCKETS = (1, 32)  # serving batch sizes
-RESNET_LATENCY_REQUESTS = 30  # per bucket in phase 4
+RESNET_LATENCY_REQUESTS = 15  # per bucket in phase 4
 RESNET_FWD_FLOPS = 4.09e9  # per image, bench.py; a train step is 3x
 LENET_SAMPLES, LENET_BATCH, LENET_EPOCHS = 2048, 128, 2
 # Phase 3d: NeuralCF as bench.py's _ncf_record trains it: 131072 (user,
@@ -2000,7 +2027,7 @@ SERVE_SEQ = 128
 SERVE_CLIENTS = (1, 4)
 SERVE_BERT_REQUESTS, SERVE_BERT_ROWS = 64, 8
 SERVE_RESNET_REQUESTS, SERVE_RESNET_ROWS = 32, 4
-SERVE_LATENCY_REQUESTS = 40  # graph replay vs eager, per model, sequential
+SERVE_LATENCY_REQUESTS = 20  # graph replay vs eager, per model, sequential
 SERVE_RELOAD_BERT = dict(BERT_BASE, n_block=2)  # the reload check's models
 
 
@@ -3951,10 +3978,10 @@ ROI_BOX_BOUND, ROI_TIE, IOU_TIE = 1e-4, 1e-4, 1e-5
 # another; at 1e-4, 2e-4 and 5e-4 it reached 0.93, 0.91 and 0.92 in 55 s
 # (scripts/torch_detection_phase.py --lr; PERF.md). The example
 # starts from an ImageNet VGG, which the repo cannot hold. DET_SECONDS is
-# those 55 s (it was 90: cut to keep the whole script well inside its
-# time limit).
+# 40 s (it was 90, then 55, which reached 0.93 in 800 steps on a slow
+# host: cut to keep the whole script inside its time limit).
 DET_TRAIN_MODEL = "ssd-vgg16-300x300"
-DET_IMAGES, DET_BATCH, DET_SECONDS, DET_LR = 1024, 32, 55.0, 2e-4
+DET_IMAGES, DET_BATCH, DET_SECONDS, DET_LR = 1024, 32, 40.0, 2e-4
 DET_MAX_BOXES, DET_EVAL_IMAGES, DET_EVAL_IOU = 16, 256, 0.4
 DET_LOSS_FALL, DET_MAP_GAIN = 0.7, 0.2
 DET_COLOURS = ((220, 40, 40), (40, 220, 40), (50, 90, 230), (230, 220, 40))
@@ -4521,9 +4548,10 @@ def detection_phase(fa, seed):
 # of 5-30 words whose tags follow the words (ZOO_NER_ENTITY_WORDS of the
 # vocabulary are entities, 17% of the tokens as in CoNLL-2003, and their
 # first character marks the tag); fit with the CRF NLL and Adam(1e-2) at
-# batch 128 for ZOO_NER_SECONDS (at nlp-architect's 1e-3, the 96-192
-# steps that fit in 30 s on an H100 machine left held-out entity tokens at
-# 0.0-0.36 accuracy);
+# batch 128 for ZOO_NER_SECONDS, 20 s (30 until the script neared its
+# time limit; the gate asks only that loss and accuracy improve; at
+# nlp-architect's 1e-3, the 96-192 steps that fit in 30 s on an H100
+# machine left held-out entity tokens at 0.0-0.36 accuracy);
 # served at buckets 1, 8 and 32.
 ZOO_NER = dict(num_entities=9, word_vocab_size=20000, char_vocab_size=100,
                sequence_length=30, word_length=12, word_emb_dim=100,
@@ -4531,7 +4559,7 @@ ZOO_NER = dict(num_entities=9, word_vocab_size=20000, char_vocab_size=100,
                crf_mode="pad")
 ZOO_NER_ENTITY_WORDS = 3400
 ZOO_NER_ROWS, ZOO_NER_EVAL_ROWS, ZOO_NER_BATCH = 4096, 512, 128
-ZOO_NER_LR, ZOO_NER_SECONDS = 1e-2, 30.0
+ZOO_NER_LR, ZOO_NER_SECONDS = 1e-2, 20.0
 ZOO_NER_SERVE = (1, 8, 32)
 ZOO_CHECK_ROWS = 32  # rows of each card-vs-CPU check
 # 9b: KNRM at the qaranker recipe's shapes: questions of 10 and answers of
@@ -6019,7 +6047,7 @@ def layer_library_phase(fa, seed):
 INT8_LADDER = (1, 2, 4, 8, 16, 32)
 INT8_SEQ = 128
 INT8_TIMED = (8, 32)  # replay p50 at (rows, INT8_SEQ), int8 against float
-INT8_LATENCY_REPLAYS = 30
+INT8_LATENCY_REPLAYS = 15
 INT8_AGREE_REQUESTS, INT8_AGREE_MIN = 512, 0.99
 INT8_CAL_BATCHES, INT8_CAL_BATCH = 4, 32
 INT8_RESNET_BUCKETS = (1, 32)
@@ -7559,6 +7587,648 @@ def flywheel_phase(fa, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: transfer learning and foreign models
+# ---------------------------------------------------------------------------
+
+# 14a: BERT-base as bench.py trains it (TRAIN_BERT: 128 tokens, bf16, 2
+# classes) with hidden dropout on and attention-probability dropout off
+# (which would take the reference path, not the flash kernels), built with
+# and without remat from one set of weights; REMAT_STEPS gated steps, then
+# REMAT_TIMED steps timed by CUDA events after REMAT_WARMUP.
+REMAT_BERT = TRAIN_BERT
+REMAT_BATCH, REMAT_STEPS, REMAT_WARMUP, REMAT_TIMED = 64, 3, 2, 10
+REMAT_DROP = 0.1
+# 14b: ResNet-50 exported to ONNX as PyTorch lays it out (NCHW, OIHW
+# kernels), from the port's seeded ResNet-50 with raw logits and its batch
+# norm statistics taken from one training-mode pass over ONNX_CAL_IMAGES
+# seeded images (momentum 0: the statistics of that batch), so the logits
+# are O(1) as a trained net's are.
+ONNX_INPUT = RESNET_INPUT
+ONNX_CAL_IMAGES, ONNX_BATCH, ONNX_LADDER = 32, 8, (1, 8, 32)
+ONNX_LATENCY_REQUESTS = 15  # per route and bucket, in turns
+ONNX_INT8_IMAGES = 64
+# Bounds, relative to the largest |logit| of the reference: both routes run
+# IEEE float32 (TF32 off) through about 160 layers, and cuDNN's NCHW and
+# channels-last algorithms and the two batch-norm forms ((x - m) * s + b
+# against x * s' + b') round differently at every layer. On the CPU
+# (oneDNN both ways) the two differ by 1.2e-5 at 224x224 and 2.3e-5 at
+# 64x64; the card's algorithms (Winograd, FFT) may round more; 1e-3 is 80x
+# the CPU's, and every top-1 must agree too.
+ONNX_LOGIT_BOUND = 1e-3
+ONNX_CPU_BOUND = 1e-3  # the same graph, the card's kernels against the CPU's
+# do_quantize's weight-only int8 per output channel (axis 0 of an OIHW
+# kernel or a transB Gemm weight) must quantize each weight exactly as the
+# port's own ResNet-50 quantizes it along its (in, out) axis: the two int8
+# models' logits within ONNX_LOGIT_BOUND and every top-1 equal. The top-1
+# agreement of either with its float model is printed, not gated: this net
+# is random, its top-1 margin 0.08 of the logits' spread at 1000 classes,
+# and the int8 weights move its logits by 0.16 of their largest (a CPU run
+# at 224x224: 0.56 agreement), as any untrained net's would.
+ONNX_INT8_AGREE_MIN = 1.0
+# 14c: a torch module on the card poured into a zoo model; bound as
+# tests/test_foreign_import.py's against the source framework.
+POUR_BOUND = 1e-4
+POUR_SIDE, POUR_CHANNELS, POUR_CLASSES = 32, 16, 10
+POUR_STEPS, POUR_FEATURES, POUR_UNITS = 20, 32, 64
+# 14d: ResNet-50 with a 10-class head, frozen up to the end of its third
+# stage (res4f), fine-tuned FT_STEPS steps at FT_BATCH; then the pooled
+# features of FT_IMAGES images through Predictor.predict_image.
+FT_CLASSES, FT_BATCH, FT_STEPS, FT_IMAGES = 10, 32, 4, 64
+FT_FREEZE_UP_TO = "res4f_add"
+
+
+def keras_graph_onnx(net, params, state):
+    """ONNX bytes of a port ``Model`` of Convolution2D, BatchNormalization,
+    Activation("relu"), MaxPooling2D, Merge(sum), GlobalAveragePooling2D
+    and Dense layers, laid out as a PyTorch export lays it out: one NCHW
+    input, OIHW kernels, SAME padding as explicit ONNX pads, Gemm weights
+    (out, in) with transB. ``params`` and ``state`` are host arrays by
+    layer name. A test helper: the port itself has no exporter."""
+    from analytics_zoo_tpu_torch.autograd.variable import topological_nodes
+    from analytics_zoo_tpu_torch.keras.layers.convolutional import _same_pads
+    from analytics_zoo_tpu_torch.onnx import proto as P
+
+    nodes, inits, names = [], {}, {}
+    probe = torch.linspace(-2.0, 2.0, 5)
+
+    def src(v):
+        return "input" if v.node is None else names[id(v.node)]
+
+    def linear(layer):  # the layer applies no activation
+        return torch.equal(layer.activation(probe), probe)
+
+    for i, node in enumerate(topological_nodes(net.outputs)):
+        layer, kind = node.layer, type(node.layer).__name__
+        ins = [src(v) for v in node.inbound]
+        out = names[id(node)] = f"t{i}_{layer.name}"
+        hw = tuple(node.inbound[0].shape[1:3])
+        p = params.get(layer.name, {})
+        if kind == "Convolution2D" and linear(layer):
+            w = f"{layer.name}.weight"
+            inits[w] = np.ascontiguousarray(p["kernel"].transpose(3, 2, 0, 1))
+            pads = (_same_pads(hw, layer.kernel_size, layer.subsample,
+                               layer.dilation)
+                    if layer.border_mode == "same" else [(0, 0), (0, 0)])
+            args = ins + [w]
+            if "bias" in p:
+                inits[f"{layer.name}.bias"] = p["bias"]
+                args.append(f"{layer.name}.bias")
+            nodes.append(P.encode_node(
+                "Conv", args, [out], kernel_shape=list(layer.kernel_size),
+                strides=list(layer.subsample), dilations=list(layer.dilation),
+                pads=[pads[0][0], pads[1][0], pads[0][1], pads[1][1]]))
+        elif kind == "BatchNormalization":
+            st = state[layer.name]
+            for k, v in (("scale", p["gamma"]), ("bias", p["beta"]),
+                         ("mean", st["moving_mean"]),
+                         ("var", st["moving_var"])):
+                inits[f"{layer.name}.{k}"] = v
+            nodes.append(P.encode_node(
+                "BatchNormalization",
+                ins + [f"{layer.name}.{k}" for k in ("scale", "bias", "mean",
+                                                     "var")],
+                [out], epsilon=float(layer.epsilon)))
+        elif kind == "Activation" and layer.activation_name == "relu":
+            nodes.append(P.encode_node("Relu", ins, [out]))
+        elif kind == "MaxPooling2D":
+            pads = (_same_pads(hw, layer.pool_size, layer.strides, (1, 1))
+                    if layer.border_mode == "same" else [(0, 0), (0, 0)])
+            nodes.append(P.encode_node(
+                "MaxPool", ins, [out], kernel_shape=list(layer.pool_size),
+                strides=list(layer.strides),
+                pads=[pads[0][0], pads[1][0], pads[0][1], pads[1][1]]))
+        elif kind == "Merge" and layer.mode == "sum":
+            acc = ins[0]
+            for j, other in enumerate(ins[1:]):
+                nxt = out if j == len(ins) - 2 else f"{out}_{j}"
+                nodes.append(P.encode_node("Add", [acc, other], [nxt]))
+                acc = nxt
+        elif kind == "GlobalAveragePooling2D":
+            nodes.append(P.encode_node("GlobalAveragePool", ins,
+                                       [out + "_gap"]))
+            nodes.append(P.encode_node("Flatten", [out + "_gap"], [out],
+                                       axis=1))
+        elif kind == "Dense" and linear(layer):
+            inits[f"{layer.name}.weight"] = np.ascontiguousarray(
+                p["kernel"].T)
+            inits[f"{layer.name}.bias"] = p["bias"]
+            nodes.append(P.encode_node(
+                "Gemm", ins + [f"{layer.name}.weight", f"{layer.name}.bias"],
+                [out], transB=1))
+        else:
+            raise ValueError(f"keras_graph_onnx: no export of {kind} "
+                             f"'{layer.name}'")
+    shape = net.inputs[0].shape
+    return P.encode_model(
+        nodes, inits, [("input", (None, shape[3], shape[1], shape[2]))],
+        [names[id(net.outputs[0].node)]], graph_name=net.name)
+
+
+def caffemodel_bytes(layers, packed_dims=True):
+    """A ``.caffemodel`` (NetParameter) encoded by hand, as caffe writes
+    it: ``layers`` = [(name, type, [float arrays])]; ``packed_dims``
+    writes BlobShape.dim packed, as caffe does (unpacked: the legacy
+    form). The format is fixed and there is no caffe runtime here."""
+    from analytics_zoo_tpu_torch.onnx import proto as P
+
+    out = b""
+    for name, ltype, blobs in layers:
+        layer = P.emit(1, 2, name.encode()) + P.emit(2, 2, ltype.encode())
+        for b in blobs:
+            if packed_dims:
+                shape = P.emit(1, 2, b"".join(P._write_varint(d)
+                                              for d in b.shape))
+            else:
+                shape = b"".join(P.emit(1, 0, d) for d in b.shape)
+            blob = P.emit(7, 2, shape) + P.emit(
+                5, 2, np.ascontiguousarray(b, np.float32).tobytes())
+            layer += P.emit(7, 2, blob)
+        out += P.emit(100, 2, layer)
+    return out
+
+
+def remat_phase(fa, seed):
+    """14a: BERT-base trained through ``Estimator.train`` with and without
+    remat from the same weights and the same step generator, under
+    deterministic algorithms: the loss, every parameter and the step
+    generator's state after each step bitwise equal; the flash launches
+    per step (remat: the forward twice a block); then peak card memory and
+    step p50/p90 (CUDA events) both ways. Returns the phase's flash
+    launches."""
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.engine.triggers import MaxIteration
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.tfpark.bert import BERTClassifierNet
+
+    t_phase = time.perf_counter()
+    n_block, seq = REMAT_BERT["n_block"], REMAT_BERT["seq_len"]
+    rng = np.random.default_rng(seed)
+    rows = REMAT_BATCH * REMAT_STEPS
+    x = make_request(rng, rows, seq, REMAT_BERT["vocab"])
+    y = rng.integers(0, 2, rows).astype(np.int32)
+    data = ArrayFeatureSet(x, y).cache_device()
+    criterion = objectives.sparse_categorical_crossentropy
+    gen = get_nncontext().step_generator
+    gen.manual_seed(seed)
+    gen0 = gen.get_state()
+    init = None
+    runs, nets = {}, {}
+    launches0 = read_launches(fa)
+    with repeatable("bert"):
+        for remat in (False, True):
+            net = BERTClassifierNet(num_classes=2, hidden_drop=REMAT_DROP,
+                                    attn_drop=0.0, remat=remat,
+                                    name="bert_remat", **REMAT_BERT)
+            if init is None:
+                init = net.init(torch.Generator().manual_seed(seed))
+            net.params, net.model_state = tree_map(torch.clone, init[0]), {}
+            gen.set_state(gen0)
+            est = Estimator(net, SGD(lr=0.01, momentum=0.9))
+            steps = []
+            for k in range(1, REMAT_STEPS + 1):
+                before = read_launches(fa)
+                est.train(data, criterion, end_trigger=MaxIteration(k),
+                          batch_size=REMAT_BATCH)
+                per = [b - a for a, b in zip(before, read_launches(fa))]
+                steps.append((est.train_losses[-1],
+                              [t.clone() for t in tree_leaves(
+                                  est.tstate.params)],
+                              gen.get_state(), per))
+            runs[remat], nets[remat] = steps, est
+    for k, (a, b) in enumerate(zip(runs[False], runs[True])):
+        same_params = all(torch.equal(p, q) for p, q in zip(a[1], b[1],
+                                                             strict=True))
+        print(f"remat: step {k + 1}: loss {a[0]!r} / {b[0]!r} (remat off / "
+              f"on), every parameter bitwise {same_params}, step generator "
+              f"bitwise {torch.equal(a[2], b[2])}; flash launches forward, "
+              f"dq, dk/dv {a[3]} / {b[3]} (want {[n_block] * 3} / "
+              f"{[2 * n_block, n_block, n_block]})", flush=True)
+        if a[0] != b[0] or not same_params or not torch.equal(a[2], b[2]):
+            fail(f"remat: step {k + 1} differs from the run without remat")
+        if a[3] != [n_block] * 3 or b[3] != [2 * n_block, n_block, n_block]:
+            fail("remat: a step's flash launches are not 12/12/12 without "
+                 "remat and 24/12/12 with it")
+
+    # peak card memory and step time, each way, on the same batches
+    batches = list(nets[False]._batches(data, REMAT_BATCH, 0))
+    for remat in (False, True):
+        est = nets[remat]
+        step = est._make_train_step(criterion)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i in range(REMAT_WARMUP + REMAT_TIMED):
+            xs, yb, mask = batches[i % len(batches)]
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            est.tstate, _ = step(est.tstate, xs, yb, mask)
+            t1.record()
+            torch.cuda.synchronize()
+            if i >= REMAT_WARMUP:
+                ms.append(t0.elapsed_time(t1))
+        peak = torch.cuda.max_memory_allocated()
+        p50, p90 = np.percentile(ms, (50, 90))
+        print(f"remat: BERT-base train step ({REMAT_BATCH}, {seq}) bf16, "
+              f"remat {'on' if remat else 'off'}: p50 {p50:.3f} ms, p90 "
+              f"{p90:.3f} ms over {len(ms)} steps (CUDA events); peak card "
+              f"memory {peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} "
+              f"GiB above the {base / 2**30:.3f} GiB held before the steps "
+              f"({smi_line()})", flush=True)
+    launches = [b - a for a, b in zip(launches0, read_launches(fa))]
+    del nets, runs, data, est, step, batches
+    torch.cuda.empty_cache()
+    print(f"remat: 14a took {time.perf_counter() - t_phase:.1f} s; flash "
+          f"wrapper launches forward, dq, dk/dv {launches}", flush=True)
+    return launches
+
+
+def onnx_resnet_phase(seed):
+    """14b: ResNet-50 encoded as ONNX (``keras_graph_onnx``), loaded with
+    ``InferenceModel().do_load_onnx`` on the card: f32 logits against the
+    port's own ResNet-50 ``InferenceModel`` and against the same graph on
+    the CPU; registered in a ``ServingEngine`` at ONNX_LADDER (a CUDA
+    graph per bucket, replays bitwise the eager forward) beside the
+    native ResNet-50; replay and eager p50 per bucket; ``do_quantize``'s
+    top-1 agreement with the port's own int8 ResNet-50."""
+    from analytics_zoo_tpu_torch import onnx as zonnx
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.common.tree import tree_map
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        _GraphProgram,
+    )
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        resnet_50,
+    )
+    from analytics_zoo_tpu_torch.serving import BatcherConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    # a capture allocates only from its graph's own pool: hand the blocks
+    # that earlier phases left cached back to the device first
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    dev = get_nncontext().device
+    net = resnet_50(num_classes=RESNET_CLASSES, input_shape=ONNX_INPUT,
+                    classifier_activation=None, bn_momentum=0.0)
+    net.compute_dtype = None  # float32: the ONNX graph's own precision
+    params, state = net.init(torch.Generator().manual_seed(seed))
+
+    def images(n):
+        return ((rng.integers(0, 256, (n,) + ONNX_INPUT).astype(np.float32)
+                 - 127.5) / 127.5)
+
+    with torch.no_grad():  # the batch statistics of ONNX_CAL_IMAGES images
+        _, state = net.apply(tree_map(lambda t: t.to(dev), params),
+                             tree_map(lambda t: t.to(dev), state),
+                             torch.tensor(images(ONNX_CAL_IMAGES),
+                                          device=dev), training=True)
+    net.params, net.model_state = params, tree_map(lambda t: t.cpu(), state)
+    t0 = time.perf_counter()
+    host = lambda tree: tree_map(  # noqa: E731
+        lambda t: t.detach().cpu().numpy(), tree)
+    buf = keras_graph_onnx(net, host(net.params), host(net.model_state))
+    graph = zonnx.proto.parse_model(buf)
+    print(f"onnx: ResNet-50 encoded in {time.perf_counter() - t0:.2f} s: "
+          f"{len(buf)} bytes, {len(graph.nodes)} nodes, "
+          f"{len(graph.initializers)} initializers, ops "
+          f"{sorted({n.op_type for n in graph.nodes})}", flush=True)
+    oim = InferenceModel().do_load_onnx(buf)
+    rim = InferenceModel().do_load_keras(net)
+    if oim.device.type != dev.type or any(
+            t.device.type != dev.type for t in oim.params.values()):
+        fail("onnx: do_load_onnx did not place the graph on the card")
+
+    def nchw(a):
+        return np.ascontiguousarray(a.transpose(0, 3, 1, 2))
+
+    x = images(ONNX_BATCH)
+    got, want = oim.do_predict(nchw(x)), rim.do_predict(x)
+    scale = float(np.abs(want).max())
+    rel = float(np.abs(got - want).max()) / scale
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    om = zonnx.load_model_bytes(buf)
+    with torch.inference_mode():
+        cpu = om.apply(om.device_params("cpu"),
+                       torch.tensor(nchw(x))).numpy()
+    rel_cpu = float(np.abs(got - cpu).max()) / float(np.abs(cpu).max())
+    print(f"onnx: batch {ONNX_BATCH} f32 logits (max |logit| {scale:.3f}): "
+          f"max |onnx - native| / max |native| {rel:.3e} (bound "
+          f"{ONNX_LOGIT_BOUND:g}), top-1 agreement {agree:.4f}; card "
+          f"against the CPU {rel_cpu:.3e} (bound {ONNX_CPU_BOUND:g})",
+          flush=True)
+    if not (np.isfinite(got).all() and got.shape == want.shape):
+        fail("onnx: the imported ResNet-50's logits are not finite or of "
+             "the wrong shape")
+    if not rel <= ONNX_LOGIT_BOUND or agree != 1.0:
+        fail("onnx: the imported ResNet-50 disagrees with the port's own")
+    if not rel_cpu <= ONNX_CPU_BOUND:
+        fail("onnx: the imported graph's card output disagrees with its CPU "
+             "output")
+
+    engine = ServingEngine()
+    cfg = BatcherConfig(max_batch_size=max(ONNX_LADDER), buckets=ONNX_LADDER,
+                        max_wait_ms=2.0)
+    del om
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        engine.register("resnet-onnx", oim,
+                        np.zeros((1,) + nchw(x[:1]).shape[1:], np.float32),
+                        config=cfg)
+        reg_s = time.perf_counter() - t0
+        engine.register("resnet-native", rim,
+                        np.zeros((1,) + ONNX_INPUT, np.float32), config=cfg)
+        graphs = {k[0][0][0]: fn for k, fn in oim._compiled.items()}
+        if sorted(graphs) != sorted(ONNX_LADDER) or not all(
+                isinstance(fn, _GraphProgram) and fn.graph is not None
+                for fn in graphs.values()):
+            fail(f"onnx: the buckets {sorted(graphs)} are not one captured "
+                 f"CUDA graph each")
+        print(f"onnx: registered at buckets {list(ONNX_LADDER)} in "
+              f"{reg_s:.2f} s, one CUDA graph each (eager warm-up, capture "
+              f"s: { {b: (round(fn.warmup_seconds, 3), round(fn.capture_seconds, 3)) for b, fn in sorted(graphs.items())} })",
+              flush=True)
+        for b in ONNX_LADDER:
+            xb = images(b)
+            served = engine.predict("resnet-onnx", nchw(xb))
+            eager = oim.do_fetch(oim._eager(nchw(xb)))
+            if not np.array_equal(served, eager):
+                fail(f"onnx: bucket {b}'s served answer differs from its "
+                     f"eager forward")
+            lat = {"onnx replay": [], "onnx eager": [], "native replay": []}
+            for i in range(ONNX_LATENCY_REQUESTS):
+                xb = images(b)
+                calls = [("onnx replay", lambda: oim.do_predict(nchw(xb))),
+                         ("onnx eager",
+                          lambda: oim.do_fetch(oim._eager(nchw(xb)))),
+                         ("native replay", lambda: rim.do_predict(xb))]
+                for name, fn in (calls if i % 2 == 0 else calls[::-1]):
+                    t0 = time.perf_counter()
+                    fn()
+                    lat[name].append((time.perf_counter() - t0) * 1e3)
+            print(f"onnx: bucket {(b,) + ONNX_INPUT} over "
+                  f"{ONNX_LATENCY_REQUESTS} requests each, in turns: " +
+                  "; ".join(f"{k} p50 {np.percentile(v, 50):.3f} ms p90 "
+                            f"{np.percentile(v, 90):.3f} ms"
+                            for k, v in lat.items()) + f" ({smi_line()})",
+                  flush=True)
+    finally:
+        engine.shutdown()
+
+    imgs = images(ONNX_INT8_IMAGES)
+
+    def logits(im, layout):
+        return np.concatenate([im.do_predict(layout(imgs[i:i + 32]))
+                               for i in range(0, len(imgs), 32)])
+
+    floats = logits(oim, nchw)
+    oim.do_quantize()
+    rim.do_quantize()
+    torch.cuda.empty_cache()  # the float graphs' blocks, before the captures
+    q = [v for v in oim.params.values() if isinstance(v, dict)]
+    ints, native = logits(oim, nchw), logits(rim, lambda a: a)
+    rel = float(np.abs(ints - native).max()) / float(np.abs(native).max())
+    agree = float(np.mean(ints.argmax(-1) == native.argmax(-1)))
+    drift = float(np.mean(ints.argmax(-1) == floats.argmax(-1)))
+    print(f"onnx: do_quantize made {len(q)} int8 leaves (ONNX channel "
+          f"axes); on {ONNX_INT8_IMAGES} images the int8 graph against the "
+          f"port's own int8 ResNet-50: max |onnx - native| / max |native| "
+          f"{rel:.3e} (bound {ONNX_LOGIT_BOUND:g}), top-1 agreement "
+          f"{agree:.4f} (bound {ONNX_INT8_AGREE_MIN}); against its own float "
+          f"graph: top-1 agreement {drift:.4f} (not gated: a random net)",
+          flush=True)
+    if agree < ONNX_INT8_AGREE_MIN or not rel <= ONNX_LOGIT_BOUND or \
+            len(q) != 54:
+        fail("onnx: the quantized ResNet-50 is not the port's own int8 "
+             "ResNet-50, or did not quantize its 53 convolutions and its "
+             "Gemm")
+    del oim, rim
+    torch.cuda.empty_cache()
+    print(f"onnx: 14b took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def pour_phase(seed):
+    """14c: a seeded torch module living on the card (Conv2d, ReLU,
+    BatchNorm2d(eps=1e-5), Linear; and a one-layer LSTM) poured into zoo
+    models through ``Net.load_torch`` from its CUDA ``state_dict``, and a
+    hand-built ``.caffemodel`` through ``Net.load_caffe``: outputs on the
+    card against the source's own within POUR_BOUND."""
+    import torch.nn as tnn
+
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
+    from analytics_zoo_tpu_torch.keras.layers import (
+        LSTM,
+        BatchNormalization,
+        Convolution2D,
+        Dense,
+        Flatten,
+        Permute,
+    )
+    from analytics_zoo_tpu_torch.net import Net
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    dev = get_nncontext().device
+    torch.manual_seed(seed)
+    s, c, k = POUR_SIDE, POUR_CHANNELS, POUR_CLASSES
+
+    def cnn(last):
+        m = Sequential()
+        m.add(Convolution2D(c, 3, 3, border_mode="same", activation="relu",
+                            dim_ordering="tf", input_shape=(s, s, 3),
+                            name="c1"))
+        m.add(BatchNormalization(epsilon=1e-5, dim_ordering="tf",
+                                 name="bn1"))
+        m.add(Permute((3, 1, 2), name="to_chw"))  # NCHW flatten order
+        m.add(Flatten(name="fl"))
+        m.add(Dense(k, name=last))
+        return m
+
+    def report(what, got, want):
+        err = float(np.abs(got - want).max())
+        print(f"pour: {what}: max |zoo - source| {err:.3e} (bound "
+              f"{POUR_BOUND:g}) over {got.shape}", flush=True)
+        if not err <= POUR_BOUND:
+            fail(f"pour: {what} disagrees with its source")
+
+    tm = tnn.Sequential()
+    tm.add_module("c1", tnn.Conv2d(3, c, 3, padding=1))
+    tm.add_module("r1", tnn.ReLU())
+    tm.add_module("bn1", tnn.BatchNorm2d(c, eps=1e-5))
+    tm.add_module("fl", tnn.Flatten())
+    tm.add_module("d1", tnn.Linear(c * s * s, k))
+    tm = tm.to(dev).train()
+    with torch.no_grad():  # non-trivial batch norm statistics
+        for _ in range(3):
+            tm(torch.randn(16, 3, s, s, device=dev) * 2 + 1)
+    tm.eval()
+    sd = tm.state_dict()
+    zm = cnn("d1")
+    if Net.load_torch(sd, zm, strict=False) != ["c1", "bn1", "d1"]:
+        fail("pour: load_torch did not import c1, bn1 and d1")
+    x = rng.normal(1.0, 2.0, (8, s, s, 3)).astype(np.float32)
+    with torch.no_grad():
+        want = tm(torch.tensor(x, device=dev).permute(0, 3, 1, 2)).cpu()
+    report(f"torch CNN state_dict on {sd['c1.weight'].device}",
+           zm.predict(x, batch_size=8), want.numpy())
+
+    lstm = tnn.LSTM(POUR_FEATURES, POUR_UNITS, batch_first=True).to(dev)
+    zl = Sequential()
+    zl.add(LSTM(POUR_UNITS, inner_activation="sigmoid",
+                return_sequences=True,
+                input_shape=(POUR_STEPS, POUR_FEATURES), name="l1"))
+    Net.load_torch({f"l1.{n}": v for n, v in lstm.state_dict().items()}, zl)
+    xs = rng.normal(size=(8, POUR_STEPS, POUR_FEATURES)).astype(np.float32)
+    with torch.no_grad():
+        want, _ = lstm(torch.tensor(xs, device=dev))
+    report("torch LSTM state_dict", zl.predict(xs, batch_size=8),
+           want.cpu().numpy())
+
+    f32 = np.float32
+    conv_w = rng.normal(0, 0.3, (c, 3, 3, 3)).astype(f32)
+    conv_b = rng.normal(0, 0.1, c).astype(f32)
+    mean, var = rng.normal(0, 0.5, c).astype(f32), rng.uniform(
+        0.5, 2.0, c).astype(f32)
+    gamma, beta = rng.uniform(0.8, 1.2, c).astype(f32), rng.normal(
+        0, 0.1, c).astype(f32)
+    ip_w = rng.normal(0, 0.02, (k, c * s * s)).astype(f32)
+    ip_b = rng.normal(0, 0.1, k).astype(f32)
+    blob = caffemodel_bytes([
+        ("c1", "Convolution", [conv_w, conv_b]),
+        ("bn1", "BatchNorm", [mean * 2, var * 2, np.array([2.0], f32)]),
+        ("scale1", "Scale", [gamma, beta]),
+        ("fc1", "InnerProduct", [ip_w, ip_b])])
+    zc = cnn("fc1")
+    if sorted(Net.load_caffe(blob, zc, name_map={"scale1": "bn1"})) != [
+            "bn1", "c1", "fc1"]:
+        fail("pour: load_caffe did not import c1, bn1 and fc1")
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    with torch.no_grad():  # caffe's forward by torch functions on the card
+        h = torch.relu(F.conv2d(t(x).permute(0, 3, 1, 2), t(conv_w),
+                                t(conv_b), padding=1))
+        h = F.batch_norm(h, t(mean), t(var), t(gamma), t(beta), eps=1e-5)
+        want = F.linear(h.flatten(1), t(ip_w), t(ip_b)).cpu().numpy()
+    report(".caffemodel", zc.predict(x, batch_size=8), want)
+    print(f"pour: 14c took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def transfer_phase(seed):
+    """14d: ResNet-50 (10 classes, bf16) frozen up to FT_FREEZE_UP_TO and
+    fine-tuned FT_STEPS steps at FT_BATCH through ``fit``: every frozen
+    leaf bitwise unchanged, every trainable one moved; then
+    ``Predictor.predict_image(output_layer=<the pooling layer>)`` over a
+    seeded FT_IMAGES-image ImageSet, each feature's vector equal to
+    ``new_graph(...).predict`` on the same rows."""
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves
+    from analytics_zoo_tpu_torch.data.image_set import (
+        ImageChannelNormalize,
+        ImageSet,
+    )
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        resnet_50,
+    )
+    from analytics_zoo_tpu_torch.predictor import Predictor
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    net = resnet_50(num_classes=FT_CLASSES, input_shape=RESNET_INPUT)
+    net.params, net.model_state = net.init(
+        torch.Generator().manual_seed(seed))
+    net.freeze_up_to(FT_FREEZE_UP_TO)
+    frozen = {l.name for l in net.layers() if not l.trainable}
+    net.compile(optimizer=SGD(lr=0.01, momentum=0.9),
+                loss="sparse_categorical_crossentropy")
+    before = net.get_weights()
+    rows = FT_BATCH * FT_STEPS
+    x = ((rng.integers(0, 256, (rows,) + RESNET_INPUT).astype(np.float32)
+          - 127.5) / 127.5)
+    y = rng.integers(0, FT_CLASSES, rows).astype(np.int32)
+    t0 = time.perf_counter()
+    net.fit(x, y, batch_size=FT_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    after = net.get_weights()
+    still = moved = 0
+    for lname, leaves in before.items():
+        for k, v in leaves.items():
+            same = np.array_equal(v, after[lname][k])
+            if lname in frozen and not same:
+                fail(f"transfer: frozen leaf {lname}.{k} changed")
+            if lname not in frozen and same:
+                fail(f"transfer: trainable leaf {lname}.{k} did not move")
+            still += lname in frozen
+            moved += lname not in frozen
+    losses = net._estimator.train_losses
+    print(f"transfer: ResNet-50 frozen up to {FT_FREEZE_UP_TO} "
+          f"({len(frozen)} of {len(net.layers())} layers), {len(losses)} "
+          f"fit steps at batch {FT_BATCH} in {fit_s:.1f} s (losses "
+          f"{[round(v, 4) for v in losses]}): {still} frozen leaves bitwise "
+          f"unchanged, {moved} trainable leaves moved", flush=True)
+    if len(losses) != FT_STEPS or not all(np.isfinite(losses)):
+        fail("transfer: the fine-tune ran the wrong number of steps or a "
+             "loss is not finite")
+
+    pool = [l.name for l in net.layers()
+            if type(l).__name__ == "GlobalAveragePooling2D"][0]
+    imgs = rng.integers(0, 256, (FT_IMAGES,) + RESNET_INPUT).astype(np.uint8)
+
+    def image_set():
+        return ImageSet.from_arrays(imgs).transform(ImageChannelNormalize(
+            127.5, 127.5, 127.5, 127.5, 127.5, 127.5))
+
+    t0 = time.perf_counter()
+    s = Predictor(net).predict_image(image_set(), output_layer=pool,
+                                     batch_size=FT_BATCH)
+    feats = np.stack([f["predict"] for f in s.features])
+    pred_s = time.perf_counter() - t0
+    want = net.new_graph(pool).predict(image_set().to_feature_set(),
+                                       batch_size=FT_BATCH)
+    same = np.array_equal(feats, want)
+    print(f"transfer: predict_image(output_layer={pool!r}) over "
+          f"{FT_IMAGES} images in {pred_s:.2f} s: features {feats.shape}, "
+          f"finite {bool(np.isfinite(feats).all())}, bitwise "
+          f"new_graph(...).predict {same}", flush=True)
+    if feats.shape != (FT_IMAGES, 2048) or not same or not np.isfinite(
+            feats).all():
+        fail("transfer: predict_image's features are not new_graph's")
+    if len(tree_leaves(net.params)) != len(tree_leaves(
+            net.new_graph(pool).params)) + 2:
+        fail("transfer: new_graph did not keep every layer's weights but "
+             "the head's")
+    torch.cuda.empty_cache()
+    print(f"transfer: 14d took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def foreign_phase(fa, seed):
+    """Phase 14: 14a remat training, 14b an ONNX ResNet-50 served, 14c
+    pouring on the card, 14d transfer learning. Returns 14a's flash
+    launches (14b-14d launch none)."""
+    t_phase = time.perf_counter()
+    launches = remat_phase(fa, seed)
+    before = read_launches(fa)
+    onnx_resnet_phase(seed + 1)
+    pour_phase(seed + 2)
+    transfer_phase(seed + 3)
+    extra = [b - a for a, b in zip(before, read_launches(fa))]
+    if any(extra):
+        fail(f"phase 14b-14d launched flash kernels {extra}: none of their "
+             f"models has attention")
+    print(f"foreign: phase 14 took {time.perf_counter() - t_phase:.1f} s "
+          f"({smi_line()})", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7607,6 +8277,17 @@ def main(argv=None) -> int:
     serve_err = check_kernels(fa, device, gen, FWD_CASES)
     dq_err, dkv_err = check_backward_kernels(fa, device, gen)
     check_kernels(fa, device, gen, FWD_CASES_AFTER_BWD)
+
+    # -- 14. remat, ONNX and foreign weights, transfer learning ---------------
+    # Run here, on a card that holds only the kernels: after phase 13 the
+    # process keeps about 54 GiB cached in segments that live tensors pin,
+    # which no capture's pool can use. The context's generators are put
+    # back after it, so phases 3-13 draw what they drew without it.
+    draws = (ctx.generator.get_state(), ctx.step_generator.get_state())
+    remat = foreign_phase(fa, args.seed + 14)
+    ctx.generator.set_state(draws[0])
+    ctx.step_generator.set_state(draws[1])
+    torch.cuda.empty_cache()
 
     # -- 3. the slice: BERT-base served through InferenceModel -------------
     t0 = time.perf_counter()
@@ -7780,7 +8461,7 @@ def main(argv=None) -> int:
         # eager warm-up and its capture)
         "launches": (launches + train_launches[0] + resume_launches[0]
                      + serve_launches + zoo_launches[0] + int8_launches[0]
-                     + fdb["launches"][0] + fly[0]),
+                     + fdb["launches"][0] + fly[0] + remat[0]),
         # the kernel's runs on the card in CUDA graph replays, which no
         # wrapper sees, in phase 3's traffic and phase 5's traced run:
         # the flash nodes of each bucket's graph (read through the driver)
@@ -7800,10 +8481,12 @@ def main(argv=None) -> int:
             for r in fwd],
     }, bwd_row("dq", 0, "analytics_zoo_tpu/ops/flash_attention.py:323",
                train_launches[1] + resume_launches[1] + zoo_launches[1]
-               + int8_launches[1] + fdb["launches"][1] + fly[1], dq_err),
+               + int8_launches[1] + fdb["launches"][1] + fly[1] + remat[1],
+               dq_err),
         bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
                 train_launches[2] + resume_launches[2] + zoo_launches[2]
-                + int8_launches[2] + fdb["launches"][2] + fly[2], dkv_err)]
+                + int8_launches[2] + fdb["launches"][2] + fly[2] + remat[2],
+                dkv_err)]
     for row, n, z, lib, q in zip(kernels, detection_launches, zoo_launches,
                                  layer_launches, int8_launches):
         row["detection_launches"] = n  # phase 8's: no attention there
@@ -7827,6 +8510,10 @@ def main(argv=None) -> int:
     # captures), counted in launches
     for row, n in zip(kernels, fly):
         row["flywheel_launches"] = n
+    # phase 14a's (BERT-base trained with and without remat; with remat the
+    # forward runs twice a block), counted in launches
+    for row, n in zip(kernels, remat):
+        row["remat_launches"] = n
     print(f"chip_smoke: the whole script took "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

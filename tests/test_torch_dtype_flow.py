@@ -25,6 +25,10 @@ operands as ``jnp`` promotes (the carry stays float32, the recurrence
 runs in float32), so those graphs are held against the JAX package with
 ``lax.conv_general_dilated`` promoting its operands likewise.
 
+Also BERT-base with ``remat=True`` as a training forward (each encoder
+block, which runs inside its checkpoint, recorded as a layer of its own)
+and ResNet-50 cut at its global average pooling by ``Model.new_graph``.
+
 The recurrent layers' float32 carry (JAX's ``initial_carry`` is float32
 whatever the compute dtype) is also held by value: bf16 forwards of
 recurrent models against the JAX package's bf16 forwards within
@@ -59,6 +63,7 @@ from analytics_zoo_tpu.models import textclassification as jtc
 from analytics_zoo_tpu.models import textmatching as jtm
 from analytics_zoo_tpu.models.image import imageclassification as jic
 from analytics_zoo_tpu.models.image.objectdetection import detector as jdet
+from analytics_zoo_tpu.tfpark import bert as jbert
 from analytics_zoo_tpu.tfpark import text as jtext
 from analytics_zoo_tpu_torch.keras.engine.base import (
     WeightSpec,
@@ -74,6 +79,7 @@ from analytics_zoo_tpu_torch.models.image import imageclassification as tic
 from analytics_zoo_tpu_torch.models.image.objectdetection import (
     detector as tdet,
 )
+from analytics_zoo_tpu_torch.tfpark import bert as tbert
 from analytics_zoo_tpu_torch.tfpark import text as ttext
 
 BATCH = 2
@@ -114,7 +120,7 @@ def _record(layers, log):
         layer.call = call
 
 
-def _jax_flow(net, inputs):
+def _jax_flow(net, inputs, training=False):
     log = []
     _record(net.layers(), log)
     params, state = jax.eval_shape(net.init, jax.random.PRNGKey(0))
@@ -123,7 +129,8 @@ def _jax_flow(net, inputs):
         if a.dtype == jnp.float32 else a, params)
     xs = [jax.ShapeDtypeStruct((BATCH,) + s, jnp.bfloat16 if k == FLOAT
                                else jnp.int32) for s, k in inputs]
-    jax.eval_shape(lambda p, st, x: net.apply(p, st, x, training=False)[0],
+    jax.eval_shape(lambda p, st, x: net.apply(p, st, x,
+                                              training=training)[0],
                    params, state, xs if len(xs) > 1 else xs[0])
     return log
 
@@ -136,7 +143,7 @@ def _meta(spec):
     return torch.empty(spec.shape, dtype=dt, device="meta")
 
 
-def _port_flow(net, inputs):
+def _port_flow(net, inputs, training=False):
     log = []
     _record(net.layers(), log)
     params = _meta(net.param_specs())
@@ -147,7 +154,7 @@ def _port_flow(net, inputs):
           for s, k in inputs]
     with torch.no_grad():
         net.apply(params, state, xs if len(xs) > 1 else xs[0],
-                  training=False)
+                  training=training)
     return log
 
 
@@ -163,6 +170,28 @@ def _classifier(name):
     inputs = CATALOG.get(name, _image(224))
     return (lambda m: (m.build_model(name, 1000 if name != "lenet" else 10)),
             inputs, (jic, tic))
+
+
+def _pool_subgraph(m):
+    """ResNet-50 cut at its global average pooling (``new_graph``)."""
+    net = m.build_model("resnet-50", 1000)
+    pool = [l.name for l in net.layers()
+            if type(l).__name__ == "GlobalAveragePooling2D"]
+    return net.new_graph(pool[0])
+
+
+class _WithBlocks:
+    """A BERT classifier whose encoder blocks are recorded as layers of
+    their own (under remat, each runs inside its checkpoint)."""
+
+    def __init__(self, net):
+        self.net = net
+
+    def layers(self):
+        return list(self.net.bert.blocks) + self.net.layers()
+
+    def __getattr__(self, name):
+        return getattr(self.net, name)
 
 
 def _detector(name):
@@ -208,7 +237,14 @@ GRAPHS = {
             (JLIB, TLIB)),
     "keras2-cnn": (lambda m: cs.keras2_cnn(m.k2), [((16, 16, 3), FLOAT)],
                    (JLIB, TLIB)),
+    "image:resnet-50-new-graph": (_pool_subgraph, _image(224), (jic, tic)),
+    "bert-base-remat": (
+        lambda m: _WithBlocks(m.BERTClassifierNet(
+            2, hidden_drop=0.0, attn_drop=0.0, remat=True)),
+        [((128,), INT), ((128,), INT), ((128,), FLOAT)], (jbert, tbert)),
 }
+# graphs run as a training forward: remat engages only in training
+TRAINING = {"bert-base-remat"}
 # graphs whose JAX run needs lax.conv_general_dilated to promote (see the
 # module docstring)
 PROMOTING = {"convlstm-next-frame"}
@@ -232,8 +268,9 @@ def test_layer_output_dtypes_match_jax_under_bf16(graph, monkeypatch):
     jbase.reset_name_counts()
     reset_name_counts()
     jnet, tnet = build(jmod), build(tmod)
-    want = _jax_flow(jnet, inputs)
-    got = _port_flow(tnet, inputs)
+    training = graph in TRAINING
+    want = _jax_flow(jnet, inputs, training)
+    got = _port_flow(tnet, inputs, training)
     assert len(got) == len(want) > 0
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, (i, g, w)

@@ -490,8 +490,10 @@ def test_image_classifier_save_load_and_labels(tmp_path):
         == [l.name for l in again.model.layers() if l.weight_specs]
     with pytest.raises(ValueError, match="unrecognized weights path"):
         tic.load_pretrained_weights(again.model, str(tmp_path / "none"))
-    for fn in (lambda: tic.load_pretrained_weights(again.model, "w.h5"),
-               lambda: tic.ImageClassifier.from_pretrained("resnet-50",
-                                                           "w.h5")):
-        with pytest.raises(NotImplementedError, match="A6"):
-            fn()
+    # a Keras .h5 weight file pours by name (tests/test_torch_foreign_
+    # import.py); a missing one is reported as such, and from_pretrained
+    # with a Keras file still needs the architecture converter
+    with pytest.raises(OSError):
+        tic.load_pretrained_weights(again.model, str(tmp_path / "w.h5"))
+    with pytest.raises(NotImplementedError, match="A6"):
+        tic.ImageClassifier.from_pretrained("resnet-50", "w.h5")

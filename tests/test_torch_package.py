@@ -90,6 +90,13 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import analytics_zoo_tpu_torch.serving.frontdoor\n"
             "import analytics_zoo_tpu_torch.serving.worker\n"
             "import analytics_zoo_tpu_torch.serving.fabric\n"
+            "import analytics_zoo_tpu_torch.net\n"
+            "import analytics_zoo_tpu_torch.onnx\n"
+            "import analytics_zoo_tpu_torch.keras_import\n"
+            "import analytics_zoo_tpu_torch.torch_import\n"
+            "import analytics_zoo_tpu_torch.caffe_import\n"
+            "import analytics_zoo_tpu_torch.keras.datasets\n"
+            "import analytics_zoo_tpu_torch.data.image3d\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'analytics_zoo_tpu.'))]\n"
             "assert not bad and 'analytics_zoo_tpu' not in sys.modules, bad\n")
