@@ -63,9 +63,14 @@ initializers are the parameters (quantizable along ONNX's channel axes),
 its integer initializers stay host arrays that keep its shape chains
 static, and on the card each bucket is a CUDA graph.
 
-Not ported yet: sharding and stage plans (ROADMAP A7), the TF loader
-(``do_load_tf``: ROADMAP A6, TensorFlow importers) and the persistent AOT
-executable cache (A4: ``aot_cache_dir`` and ``set_aot_cache`` raise
+:meth:`InferenceModel.do_load_tf` serves a frozen TF graph
+(:mod:`analytics_zoo_tpu_torch.tfnet`): its constants are baked into the
+graph function (placed on the device once, at the first warm-up), so the
+model has no parameters and ``do_quantize`` is a no-op, as in the JAX
+package; on the card each bucket is a CUDA graph.
+
+Not ported yet: sharding and stage plans (ROADMAP A7) and the persistent
+AOT executable cache (A4: ``aot_cache_dir`` and ``set_aot_cache`` raise
 ``NotImplementedError``).
 """
 
@@ -354,6 +359,15 @@ class _GraphProgram:
                         _to_device_tree(args, self.snap.device))
 
 
+def _on_device(out, device, cache):
+    """An imported graph's output(s) as tensors on ``device``: a value the
+    graph folded on the host is placed once through the model's
+    constant cache."""
+    if isinstance(out, tuple):
+        return tuple(_on_device(o, device, cache) for o in out)
+    return out if isinstance(out, torch.Tensor) else cache.place(out, device)
+
+
 class _OnnxAdapter:
     """The KerasNet ``apply`` protocol over an ``onnx.OnnxModel``: the
     served parameters are its float initializers, joined at each call
@@ -368,16 +382,29 @@ class _OnnxAdapter:
         self.quantize_axes: Dict[str, int] = {}
 
     def apply(self, params, state, x, training=False, rng=None):
-        from analytics_zoo_tpu_torch.onnx import _t
-
         xs = x if isinstance(x, (list, tuple)) else (x,)
         out = self.om.apply({**self.static, **params}, *xs)
         dev = next(t.device for t in tree_leaves(params) + list(xs)
                    if isinstance(t, torch.Tensor))
-        consts = self.om._consts
-        if isinstance(out, tuple):
-            return tuple(_t(o, dev, consts) for o in out), state
-        return _t(out, dev, consts), state
+        return _on_device(out, dev, self.om._consts), state
+
+
+class _TFAdapter:
+    """The KerasNet ``apply`` protocol over a frozen
+    :class:`~analytics_zoo_tpu_torch.tfnet.GraphFunction` (its weights
+    are constants: params and state empty). Outputs that the graph folded
+    on the host come back as tensors on the input's device."""
+
+    compute_dtype = None  # a frozen graph runs as it was exported
+    quantize_axes: Dict[str, int] = {}  # nothing quantizable
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def apply(self, params, state, x, training=False, rng=None):
+        xs = x if isinstance(x, (list, tuple)) else (x,)
+        out = self.fn.apply(*xs)  # a single-output graph: unwrapped
+        return _on_device(out, self.fn.device_of(xs), self.fn.cache), state
 
 
 class InferenceModel:
@@ -587,6 +614,43 @@ class InferenceModel:
             self.device = device
             self.params = params
             self._exec_params = params
+            self.model_state = {}
+        return self
+
+    def do_load_tf(self, path: str, input_names=None,
+                   output_names=None) -> "InferenceModel":
+        """Serve a frozen TF model (ref doLoadTF overload family,
+        InferenceModel.scala:100-230): a SavedModel directory, a frozen
+        ``.pb`` GraphDef (needs ``input_names``/``output_names``) or a
+        Keras ``.h5``/``.keras`` file. The graph is interpreted once into
+        a function of PyTorch ops (:mod:`analytics_zoo_tpu_torch.tfnet`)
+        whose weights are constants, placed on the context's device at
+        the first warm-up; multi-input graphs predict with a list of
+        arrays; ``do_quantize`` is a no-op for these models (no
+        parameters to quantize). A ``.pb`` loads without TensorFlow; a
+        SavedModel or a Keras file imports it to freeze the variables."""
+        import os as _os
+
+        from analytics_zoo_tpu_torch import tfnet as _tfnet
+
+        if (_os.path.isdir(path) or path.endswith(_tfnet.KERAS_FILES)) and (
+                input_names is not None or output_names is not None):
+            raise ValueError(
+                "do_load_tf: input_names/output_names only apply to frozen "
+                ".pb graphs; SavedModel/keras files serve their "
+                "serving-default tensors")
+        fn = _tfnet.load(path, input_names, output_names, caller="do_load_tf")
+        device = get_nncontext().device
+        with self._lock:
+            self._gen += 1
+            self._compiled.clear()
+            self._warmed.clear()
+            self._quantized = False
+            self._calibrated = False
+            self.model = _TFAdapter(fn)
+            self.device = device
+            self.params = {}
+            self._exec_params = {}
             self.model_state = {}
         return self
 

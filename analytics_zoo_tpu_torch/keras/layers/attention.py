@@ -94,6 +94,37 @@ def _remat_block(blk, params, h, rng, mask):
                       preserve_rng_state=False)
 
 
+def _fully_masked_rows(q, k, v, causal: bool):
+    """The attention output (B, H, S, d) of queries whose every key is
+    masked, as tf.keras's query mask makes a padded query's row: -1e9
+    swamps its logits, so its softmax p is uniform over the keys it may
+    see (every key, or the causal prefix) and its value is their mean of
+    v. Its gradient is the softmax's at that row, ds = p (dp - delta),
+    which reaches q and k too (as in the JAX package's (B,1,S,S) bias
+    route): added as a term whose value is 0, sum_j p_j (u_j - mean_p u)
+    v_j with u = scale q k^T - its detached value."""
+    s_q, s_k = q.shape[2], k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad)
+    vd = v.detach()
+    if not causal:  # p = 1/S: the term is q (k^T (v - mean v)) scale / S
+        out = v.mean(dim=2, keepdim=True)
+        if grad:
+            c = vd - vd.mean(dim=2, keepdim=True)
+            t = q @ (k.transpose(-1, -2) @ c) * (scale / s_k)
+            out = out + (t - t.detach())
+        return out
+    seen = torch.ones(s_q, s_k, dtype=torch.bool, device=q.device).tril(
+        s_k - s_q)
+    p = seen.to(v.dtype) / seen.sum(-1, keepdim=True).to(v.dtype)
+    out = p @ v
+    if grad:
+        u = (q @ k.transpose(-1, -2)) * scale
+        u = u - u.detach()
+        out = out + (p * (u - (p * u).sum(-1, keepdim=True))) @ vd
+    return out
+
+
 def _run_blocks(blocks, params, h, training, rng, mask, remat):
     for blk in blocks:
         if training and remat:
@@ -207,19 +238,27 @@ class MultiHeadAttention(KerasLayer):
         h = self.hidden_size
         qkv = x @ params["qkv_kernel"] + params["qkv_bias"]
         q, k, v = qkv.chunk(3, dim=-1)
+        q, k, v = self._heads(q, s), self._heads(k, s), self._heads(v, s)
+        # tf.keras auto-mask semantics combine the query AND key masks
+        # (B, 1, S, S). Without probability dropout (which takes the
+        # reference path) a valid query sees only the key-padding bias
+        # (B, 1, 1, S), the layout the flash kernels take, and a padded
+        # query's row is _fully_masked_rows'.
+        keras = mask is not None and getattr(self, "_keras_mask_mode", False)
+        rows = keras and not (training and self.attn_dropout > 0
+                              and rng is not None)
         bias = None
         if mask is not None:
             m = mask.float()
-            if getattr(self, "_keras_mask_mode", False):
-                # tf.keras auto-mask semantics: query AND key masks combine
-                mm = m[:, None, :, None] * m[:, None, None, :]  # (B,1,S,S)
-                bias = (1.0 - mm) * -1e9
-            else:
-                # standard padding-mask form: exclude pad KEYS (B, 1, 1, S)
-                bias = (1.0 - m[:, None, None, :]) * -1e9
-            bias = bias.to(x.dtype)
-        out = self._attend(self._heads(q, s), self._heads(k, s),
-                           self._heads(v, s), bias, training, rng)
+            mm = m[:, None, None, :]  # the padding-mask form: pad KEYS
+            if keras and not rows:
+                mm = m[:, None, :, None] * mm
+            bias = ((1.0 - mm) * -1e9).to(x.dtype)
+        out = self._attend(q, k, v, bias, training, rng)
+        if rows:
+            out = torch.where(m[:, None, :, None] > 0, out,
+                              _fully_masked_rows(q, k, v, self.causal)
+                              .to(out.dtype))
         out = out.transpose(1, 2).reshape(b, s, h)
         return self._project(params, out, training, rng)
 

@@ -15,12 +15,12 @@ convolution as a ``groups=C`` convolution); no architecture here reaches
 a hand-written kernel.
 
 ``load_pretrained_weights`` pours a Keras ``.h5`` weight file by layer
-name (``Net.load_keras``). Left out, raising ``NotImplementedError``:
-``ImageClassifier.from_pretrained`` with a Keras file, which needs the Keras
-architecture converter (ROADMAP A6, TensorFlow importers). A ``-quantize``
-name builds
-the float graph; it serves int8 through ``InferenceModel.do_quantize``, as
-in the JAX package.
+name (``Net.load_keras``). ``ImageClassifier.from_pretrained`` with a
+Keras file converts the architecture (``keras_convert``): a whole-model
+HDF5 needs h5py, a weights-only one also TensorFlow (the matching
+``tf.keras.applications`` architecture is built locally), at call time. A
+``-quantize`` name builds the float graph; it serves int8 through
+``InferenceModel.do_quantize``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -585,14 +585,6 @@ def build_model(name: str, num_classes: int = 1000, **kw):
     return _CATALOG[key](num_classes=num_classes, **kw)
 
 
-def _no_keras_h5(what: str):
-    raise NotImplementedError(
-        f"{what}: a Keras model file needs the Keras architecture converter "
-        "(keras_convert.py, or tf.keras.applications), which waits for "
-        "ROADMAP A6, TensorFlow importers; pass a save_weights checkpoint "
-        "(directory, .npz or prefix)")
-
-
 def load_pretrained_weights(model, path: str):
     """Load local pretrained weights into a catalog model from the
     framework's own format: the atomic checkpoint directory
@@ -637,6 +629,20 @@ class LabelOutput:
 # ImageNet weights were trained with: "caffe" = RGB->BGR + mean
 # subtraction, "tf" = scale to [-1, 1] ("torch" = /255 + ImageNet mean/std
 # is the third mode imagenet_preprocess knows)
+# the tf.keras.applications architecture and preprocessing of published
+# Keras weights, by catalog name (a weights-only .h5 is poured into it)
+_KERAS_APPS = {
+    "resnet-50": ("ResNet50", "caffe"),
+    "vgg-16": ("VGG16", "caffe"),
+    "vgg-19": ("VGG19", "caffe"),
+    "inception-v3": ("InceptionV3", "tf"),
+    "mobilenet-v1": ("MobileNet", "tf"),
+    "mobilenet-v2": ("MobileNetV2", "tf"),
+    "densenet-121": ("DenseNet121", "torch"),
+    "xception": ("Xception", "tf"),
+    "efficientnet-b0": ("EfficientNetB0", None),
+}
+
 _PREPROCESS = {
     "resnet-50": "caffe",
     "vgg-16": "caffe",
@@ -687,22 +693,62 @@ class ImageClassifier(ZooModel):
     @classmethod
     def from_pretrained(cls, model_name: str, weights: str,
                         input_shape=None) -> "ImageClassifier":
-        """``model_name`` with pretrained ImageNet weights from a local
-        framework checkpoint (1000 classes), preprocessing as the
-        published weights expect. A Keras ``.h5``/``.keras`` file raises
-        ``NotImplementedError`` (ROADMAP A6, TensorFlow importers: the
-        architecture comes from the Keras converter)."""
-        if weights.endswith((".h5", ".hdf5", ".keras")):
-            _no_keras_h5("ImageClassifier.from_pretrained")
+        """``model_name`` with pretrained ImageNet weights from a local file
+        (1000 classes), preprocessing as the published weights expect.
+        Accepted files:
+
+        - a WHOLE-model Keras ``.h5`` (from ``model.save``): architecture
+          and weights both come from the file via the Keras converter
+          (h5py at call time);
+        - a weights-only Keras ``.h5`` (``save_weights`` / the official
+          keras-applications release files): the matching
+          ``tf.keras.applications`` architecture is built locally (no
+          download; TensorFlow at call time), the weights poured in, and
+          the model converted;
+        - a framework checkpoint (directory, ``.npz`` or prefix): poured
+          into the catalog architecture.
+        """
         key = model_name.lower()
         self = cls.__new__(cls)
         ZooModel.__init__(self)
         self.model_name = key
         self.num_classes = 1000
         self._build_kw = {}
-        self.preprocess_mode = _PREPROCESS.get(key)
-        self.model = build_model(key)
-        load_pretrained_weights(self.model, weights)
+        self.preprocess_mode = (_KERAS_APPS[key][1]
+                                if key in _KERAS_APPS else None)
+        if weights.endswith((".h5", ".hdf5", ".keras")):
+            import h5py
+
+            from analytics_zoo_tpu_torch.keras_convert import (
+                convert_keras_model,
+            )
+
+            with h5py.File(weights, "r") as f:
+                whole_model = "model_config" in f.attrs
+            if whole_model:
+                from analytics_zoo_tpu_torch.net import Net
+
+                self.model = Net.load_keras(weights)
+            else:
+                if key not in _KERAS_APPS:
+                    raise ValueError(
+                        f"no tf.keras.applications architecture mapped for "
+                        f"'{model_name}' — supply a whole-model .h5 "
+                        f"(known: {sorted(_KERAS_APPS)})")
+                from analytics_zoo_tpu_torch.tfnet import _tensorflow
+
+                tf = _tensorflow("build the tf.keras.applications "
+                                 "architecture of a weights-only .h5")
+                factory = getattr(tf.keras.applications, _KERAS_APPS[key][0])
+                kw = {"weights": None}
+                if input_shape is not None:
+                    kw["input_shape"] = tuple(input_shape)
+                km = factory(**kw)
+                km.load_weights(weights)
+                self.model = convert_keras_model(km)
+        else:
+            self.model = build_model(key)
+            load_pretrained_weights(self.model, weights)
         return self
 
     def predict_labels(self, images, top_k: int = 5, batch_size: int = 32,

@@ -2,20 +2,20 @@
 pipeline/api/net/NetUtils.scala:142-212 and pyzoo ``Net.load*`` family
 (net_load.py:70-160: bigdl/torch/caffe/keras/TF).
 
-The loaders here need neither TensorFlow nor h5py to import: ONNX graphs
+The loaders here need neither TensorFlow nor h5py to import. These forms
+need neither at call time either: ONNX graphs
 (:mod:`analytics_zoo_tpu_torch.onnx`), this framework's own saved models
-and weights, and weight files poured into a built zoo model (a Keras
-HDF5 file through :mod:`~analytics_zoo_tpu_torch.keras_import`, h5py read
-at call time; a torch ``state_dict``; a ``.caffemodel``). The GraphNet
+and weights, a frozen TF ``.pb`` (:mod:`analytics_zoo_tpu_torch.tfnet`,
+parsed by the in-repo GraphDef reader), a Keras ``to_json()``
+architecture (:mod:`analytics_zoo_tpu_torch.keras_convert`), a torch
+``state_dict`` and a ``.caffemodel``. These import a package at call
+time and raise its ``ImportError`` without it: a SavedModel directory or
+a Keras model file through ``load_tf`` (TensorFlow, to freeze it), and a
+Keras HDF5 file (h5py), whole-model or weights. The GraphNet
 transfer-learning surface (freeze/freeze_up_to/new_graph,
 NetUtils.scala:221-280) lives on
 :class:`analytics_zoo_tpu_torch.keras.engine.topology.Model` itself,
 re-exported here as ``GraphNet``.
-
-Not ported yet (ROADMAP A6, TensorFlow importers: keras_convert, tfnet):
-``Net.load_tf`` and the two architecture forms of ``Net.load_keras`` (a
-``to_json()`` file, or a whole-model HDF5), which raise
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,8 +24,6 @@ import os
 from typing import Any
 
 from analytics_zoo_tpu_torch.keras.engine.topology import Model as GraphNet  # noqa: F401 (re-export)
-
-_TF_IMPORTERS = "ROADMAP A6, TensorFlow importers (keras_convert, tfnet)"
 
 
 class Net:
@@ -61,44 +59,92 @@ class Net:
 
     @staticmethod
     def load_tf(path: str, input_names=None, output_names=None):
-        """Run someone else's trained TF model (ref TFNet.scala:52,
-        net_load.py:120-160). Not ported: raises ``NotImplementedError``
-        (``FileNotFoundError`` for a path that does not exist, as the JAX
-        package checks it first)."""
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"load_tf: no such path '{path}'")
-        raise NotImplementedError(
-            f"Net.load_tf is not ported yet ({_TF_IMPORTERS}); export the "
-            "model to ONNX and use Net.load_onnx")
+        """Run someone else's trained TF model natively (ref TFNet.scala:52,
+        net_load.py:120-160). Accepts a SavedModel directory, a frozen
+        ``.pb`` GraphDef (requires ``input_names``/``output_names``), or a
+        Keras ``.h5``/``.keras`` model file. The graph is interpreted once
+        into a function of PyTorch ops (weights frozen as constants) and
+        returned as a :class:`analytics_zoo_tpu_torch.tfnet.TFNet` layer —
+        stack a head on it for transfer learning. A ``.pb`` is read
+        without TensorFlow; a SavedModel or a Keras file needs it at load
+        time (to freeze the variables) and raises its ``ImportError``
+        without it."""
+        from analytics_zoo_tpu_torch import tfnet
+
+        return tfnet.TFNet(tfnet.load(path, input_names, output_names,
+                                      caller="load_tf"))
 
     @staticmethod
     def load_keras(path: str, model=None, by_name: bool = True,
                    strict: bool = True):
-        """Load pre-trained Keras weights (ref Net.load_keras,
-        net_load.py:153-164).
+        """Load a pre-trained Keras model (ref Net.load_keras,
+        net_load.py:153-164). Two forms:
 
+        - ``load_keras(json_path, hdf5_path)`` — the reference signature:
+          the architecture comes from a ``model.to_json()`` file (parsed by
+          :mod:`analytics_zoo_tpu_torch.keras_convert` into zoo layers;
+          no TensorFlow, and no h5py without a weights file), weights from
+          the optional HDF5 file. Returns the built zoo model.
+        - ``load_keras(hdf5_path)`` — a lone whole-model HDF5 (from
+          ``model.save``): the architecture is read from the file's
+          ``model_config`` attribute, weights from the same file — the
+          reference's architecture-in-h5 form (net_load.py:153).
         - ``load_keras(weights_path, model)`` — pour an HDF5 *weight* file
           into an already-built zoo model, by layer name with per-type
           layout converters. Returns the imported layer names.
-        - ``load_keras(json_path, hdf5_path)`` and ``load_keras(hdf5_path)``
-          — the architecture forms (a ``model.to_json()`` file, a
-          whole-model HDF5) need the Keras architecture converter and raise
-          ``NotImplementedError`` (ROADMAP A6, TensorFlow importers).
 
         Note: ``by_name`` defaults to ``True`` here (the reference defaults
-        to ``False``). Zoo layer names are kept 1:1 with the published
-        names, so name matching is the robust default; pass
-        ``by_name=False`` for positional matching of a rebuilt
-        architecture.
+        to ``False``). Zoo layer names are preserved 1:1 by the converter,
+        so name matching is the robust default; pass ``by_name=False`` for
+        positional matching of a rebuilt architecture.
         """
         from analytics_zoo_tpu_torch.keras_import import load_keras_weights
 
         if model is None or isinstance(model, str):
-            raise NotImplementedError(
-                "Net.load_keras with an architecture (a to_json() file or a "
-                f"whole-model HDF5) is not ported yet ({_TF_IMPORTERS}); "
-                "build the zoo model and call load_keras(weights_path, "
-                "model)")
+            import json as jsonlib
+
+            from analytics_zoo_tpu_torch.keras_convert import (
+                convert_keras_architecture)
+
+            with open(path, "rb") as f:
+                magic = f.read(8)
+            if magic[:4] == b"PK\x03\x04":
+                raise NotImplementedError(
+                    f"load_keras: '{path}' is a Keras-3 native .keras zip "
+                    "archive, which this loader does not parse — save the "
+                    "source model as legacy HDF5 (model.save('m.h5')) or "
+                    "pass its to_json() architecture plus a weights file")
+            if magic == b"\x89HDF\r\n\x1a\n":
+                # whole-model HDF5 as the FIRST argument (reference's
+                # hdf5-alone form) — architecture rides in model_config
+                if model is not None:
+                    raise ValueError(
+                        "load_keras: first argument is an HDF5 file — for "
+                        "the (json_path, hdf5_path) form the architecture "
+                        "json must come first")
+                import h5py
+
+                with h5py.File(path, "r") as hf:
+                    raw = hf.attrs.get("model_config")
+                if raw is None:
+                    raise ValueError(
+                        f"load_keras: '{path}' is an HDF5 weight file with "
+                        "no model_config attribute — pass the to_json() "
+                        "architecture file first: load_keras(json_path, "
+                        f"'{path}')")
+                spec = jsonlib.loads(
+                    raw.decode() if isinstance(raw, bytes) else raw)
+                weights_path = path
+            else:
+                with open(path) as f:
+                    spec = jsonlib.load(f)
+                weights_path = model  # hdf5_path (may be None)
+            zmodel = convert_keras_architecture(
+                spec.get("config", spec), spec.get("class_name"))
+            if weights_path:
+                load_keras_weights(zmodel, weights_path, by_name=by_name,
+                                   strict=strict)
+            return zmodel
         return load_keras_weights(model, path, by_name=by_name,
                                   strict=strict)
 

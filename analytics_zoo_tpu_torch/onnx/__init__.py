@@ -18,8 +18,9 @@ from tensor shapes. Those ops fold static inputs in numpy and read a
 tensor's ``shape`` only, never its values, so no shape op synchronises
 with the card and a bucket's forward can be captured in a CUDA graph.
 A static value that meets a tensor in device arithmetic becomes a device
-tensor once per model, device and value (:func:`_t`, cached on the
-model; the first, eager call of a bucket creates it before the capture).
+tensor once per model, device and value (:func:`_t`, through the model's
+:class:`~analytics_zoo_tpu_torch.common.consts.ConstCache`; the first,
+eager call of a bucket creates it before the capture).
 
 **Precision.** ``precision="highest"`` (the default) means IEEE float32
 in the imported graph's matmuls and convolutions, as the JAX package's
@@ -47,13 +48,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from analytics_zoo_tpu_torch.common.consts import (
+    ConstCache,
+    as_tensor,
+    running,
+)
 from analytics_zoo_tpu_torch.onnx.proto import DTYPES, Graph, parse_model
 
 _OPS: Dict[str, Callable] = {}
 
-# the running forward's device and constant cache (per thread: two
-# threads may run two models at once)
-_ACTIVE = threading.local()
 _TF32_LOCK = threading.RLock()
 
 
@@ -80,32 +83,7 @@ def _np(x):
     return np.asarray(x)
 
 
-def _t(x, device=None, cache=None):
-    """``x`` as a tensor: tensors as they are; a static value as a tensor
-    on the running forward's device (float64 made float32, as the JAX
-    package's x64-off arrays are), created once per value and device and
-    kept in the model's constant cache (``cache``, or the running
-    forward's), outside inference mode so that a
-    fine-tuning forward may save it for backward."""
-    if isinstance(x, torch.Tensor):
-        return x
-    arr = np.asarray(x)
-    if arr.dtype == np.float64:
-        arr = arr.astype(np.float32)
-    dev = device if device is not None else getattr(
-        _ACTIVE, "device", torch.device("cpu"))
-    if cache is None:
-        cache = getattr(_ACTIVE, "consts", None)
-    key = (str(dev), arr.dtype.str, arr.shape, arr.tobytes())
-    if cache is not None:
-        hit = cache.get(key)
-        if hit is not None:
-            return hit
-    with torch.inference_mode(False):
-        out = torch.tensor(arr, device=dev)
-    if cache is not None:
-        cache[key] = out
-    return out
+_t = as_tensor  # a static value on the running forward's device, once
 
 
 def _pair(a, b):
@@ -768,7 +746,7 @@ class OnnxModel:
         self.input_names = [name for name, _ in graph.inputs
                             if name not in graph.initializers]
         self.output_names = list(graph.outputs)
-        self._consts: Dict = {}  # static values placed on a device
+        self._consts = ConstCache()  # static values placed on a device
         self._placed: Dict[str, Dict[str, Any]] = {}  # device -> params
 
     def _device_of(self, params, inputs) -> torch.device:
@@ -782,25 +760,20 @@ class OnnxModel:
         outputs``. ``params`` maps initializer names to tensors (trained
         or served) or host arrays (static)."""
         device = self._device_of(params, inputs)
-        prev = (getattr(_ACTIVE, "device", None),
-                getattr(_ACTIVE, "consts", None))
-        _ACTIVE.device, _ACTIVE.consts = device, self._consts
-        try:
-            with (_ieee_f32(device) if self.precision == "highest"
-                  else contextlib.nullcontext()):
-                values: Dict[str, Any] = dict(params)
-                for name, x in zip(self.input_names, inputs):
-                    values[name] = x
-                for node in self.graph.nodes:
-                    ins = [values[i] if i else None for i in node.inputs]
-                    out = _OPS[node.op_type](node, ins)
-                    outs = out if isinstance(out, tuple) else (out,)
-                    for name, val in zip(node.outputs, outs):
-                        if name:
-                            values[name] = val
-                res = tuple(values[o] for o in self.output_names)
-        finally:
-            _ACTIVE.device, _ACTIVE.consts = prev
+        with running(device, self._consts), (
+                _ieee_f32(device) if self.precision == "highest"
+                else contextlib.nullcontext()):
+            values: Dict[str, Any] = dict(params)
+            for name, x in zip(self.input_names, inputs):
+                values[name] = x
+            for node in self.graph.nodes:
+                ins = [values[i] if i else None for i in node.inputs]
+                out = _OPS[node.op_type](node, ins)
+                outs = out if isinstance(out, tuple) else (out,)
+                for name, val in zip(node.outputs, outs):
+                    if name:
+                        values[name] = val
+            res = tuple(values[o] for o in self.output_names)
         return res if len(res) > 1 else res[0]
 
     def device_params(self, device) -> Dict[str, Any]:

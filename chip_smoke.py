@@ -361,7 +361,34 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    of its source; 14d ResNet-50 frozen up to ``res4f_add`` and fine-tuned
    4 steps at batch 32 (frozen leaves bitwise unchanged, trainable ones
    moved), then ``Predictor.predict_image(output_layer=<the pooling>)``
-   over 64 images, bitwise ``new_graph(...).predict``.
+   over 64 images, bitwise ``new_graph(...).predict``;
+15. the TensorFlow importers (``tf_phase``; alone
+   ``scripts/torch_tf_phase.py``; run right after phase 14): 15a a Keras
+   transformer encoder at BERT-base widths (12 blocks of
+   MultiHeadAttention, LayerNormalization and a gelu FFN over mask_zero
+   token and position embeddings, a masked average pool and a 2-class
+   softmax) written as a classic-dialect ``to_json()`` file and converted
+   by ``Net.load_keras`` (no TensorFlow, no h5py), seeded: three f32 SGD
+   steps at batch 2 on the card and the CPU within ``KENC_CPU_BOUND``;
+   ``compile`` and ``Estimator.train`` in bf16 at (64, 128), each step
+   launching the forward, dq and dk/dv kernels 12 times, then timed steps
+   (CUDA events); served by ``InferenceModel.do_load_keras`` at buckets
+   1/8/32 (a CUDA graph each holding 12 flash forward nodes, served
+   bitwise the eager forward, two rows against the CPU's f32 forward
+   within ``PROB_BOUND``), replay and eager p50; 15b 14b's seeded
+   ResNet-50 written as a frozen TF GraphDef by ``keras_graph_pb``
+   (Placeholder, Conv2D + BiasAdd, FusedBatchNormV3, Relu, Pad, MaxPool,
+   AddV2, Mean, MatMul + BiasAdd, Softmax) and served by
+   ``InferenceModel.do_load_tf``: probabilities against the native f32
+   model's within ``ONNX_LOGIT_BOUND`` (every top-1 equal), the card
+   against the CPU within ``ONNX_CPU_BOUND``, buckets 1/8/32 one CUDA
+   graph each (bitwise the eager forward), replay and eager p50 beside
+   the native model's and 14b's ONNX; ``Net.load_tf`` as a TFNet under a
+   Dense head fitted 4 steps at batch 32 (its card constants bitwise a
+   fresh upload, the head moved), ``TFPredictor.from_tfnet`` over a
+   ``TFDataset`` bitwise the served probabilities; 15c
+   ``Net.load_tf(<SavedModel dir>)`` and ``Net.load_keras(<.h5>)`` raise
+   the ImportError of the package the card's machine lacks.
    The script prints its own seconds at the end.
 
 The build phase prints each kernel's ptxas registers and spills and, for
@@ -383,7 +410,8 @@ replays by ``check_traced``), counted in ``replay_launches``, and
 workers' registers (other processes: counted in neither);
 ``flywheel_launches`` its wrapper launches over phase 13, counted in
 ``launches``; ``remat_launches`` its wrapper launches over phase 14a,
-counted in ``launches``;
+counted in ``launches``; ``keras_encoder_launches`` its wrapper launches
+over phase 15a, counted in ``launches``;
 ``ms`` is its device time under torch.profiler and ``event_ms`` CUDA-event
 time over back-to-back calls; ``plain_ms`` is event time; the backward
 rows add the whole backward's times and bound and each bf16 route's tiles
@@ -479,7 +507,7 @@ TRAIN_BERT = dict(BERT_BASE, seq_len=128)  # bench.py's BERT-base fit config
 TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_EPOCHS, FIT_EPOCHS = 64, 320, 2, 1
 TIMED_STEPS = 10  # train steps timed in phase 4, after 3 warm-up steps
 THREADS, REQUESTS_PER_THREAD = 2, 3
-LATENCY_REQUESTS = 30  # sequential do_predict calls per bucket in phase 4
+LATENCY_REQUESTS = 15  # sequential do_predict calls per bucket in phase 4
 
 # Phase 3c: ResNet-50 as bench.py's _child and _fit_path_record train it
 # (full width and depth, 1000 classes, raw logits, bf16 compute), 2048 uint8
@@ -1082,23 +1110,33 @@ def check_step_routes(fa, net, cached):
         fail("kernel route and plain route disagree on a train step")
 
 
+PROFILE_ATTEMPTS = 3  # traces taken before device_ms fails on an empty one
+
+
 def device_ms(fn, calls: int = 20):
     """Device time of one ``fn()``: the summed durations of the kernels and
     memsets that ``calls`` back-to-back calls run on the card (under
     torch.profiler), over ``calls``; and their names. Unlike ``cuda_ms`` it
-    leaves out the gaps in which the card waits on the host."""
+    leaves out the gaps in which the card waits on the host. A trace that
+    holds no device record at all (torch.profiler drops one now and then,
+    PERF.md §7) is taken again, up to PROFILE_ATTEMPTS traces."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        print(f"device_ms: torch.profiler recorded no device record in "
+              f"trace {attempt} of {PROFILE_ATTEMPTS}", flush=True)
+    else:
         fail("torch.profiler recorded no device time")
     us = sum(e.self_device_time_total for e in events)
     return us / calls / 1e3, sorted(e.key for e in events)
@@ -2027,7 +2065,7 @@ SERVE_SEQ = 128
 SERVE_CLIENTS = (1, 4)
 SERVE_BERT_REQUESTS, SERVE_BERT_ROWS = 64, 8
 SERVE_RESNET_REQUESTS, SERVE_RESNET_ROWS = 32, 4
-SERVE_LATENCY_REQUESTS = 20  # graph replay vs eager, per model, sequential
+SERVE_LATENCY_REQUESTS = 10  # graph replay vs eager, per model, sequential
 SERVE_RELOAD_BERT = dict(BERT_BASE, n_block=2)  # the reload check's models
 
 
@@ -2592,7 +2630,7 @@ def time_replay_vs_eager(models, rng):
 TEXT_CFG = dict(class_num=20, embedding=200, sequence_length=500,
                 encoder_output_dim=256, vocab_size=20000)
 TEXT_ROWS, TEXT_BATCH, TEXT_EPOCHS = 2048, 128, 1
-TEXT_TIMED_STEPS = 10  # Estimator steps timed after the fit
+TEXT_TIMED_STEPS = 5  # Estimator steps timed after the fit
 # Seq2seq at scripts/seq_serving_bench.py's FULL_SIZE, LSTM, bridge pass,
 # trained 2 epochs on a copy task (Adam at SEQ_LR: at 0.01 the loss stays
 # at ln 64), served with the bench's full SequenceConfig.
@@ -3382,7 +3420,7 @@ LENET_ACCURACY = 0.9
 # (e) serving: two ImageClassifiers behind one engine, buckets 1-8
 IMAGE_SERVE_LADDER = (1, 2, 4, 8)
 IMAGE_SERVE_MODELS = ("inception-v1", "mobilenet-v2")
-IMAGE_LATENCY_REQUESTS = 20  # replay vs eager per bucket, in turns
+IMAGE_LATENCY_REQUESTS = 10  # replay vs eager per bucket, in turns
 IMAGE_PROFILE_STEPS = 3  # train steps traced for the kernel-class shares
 
 
@@ -3969,7 +4007,7 @@ ROI_BOX_BOUND, ROI_TIE, IOU_TIE = 1e-4, 1e-4, 1e-5
 # (examples/objectdetection/train.py: Adam, MultiBoxLoss) at the SSD
 # paper's batch 32, on DET_IMAGES seeded 300x300 images of 1-3 planted
 # rectangles of four colour-coded classes on dark noise, through the roi
-# chain, for about DET_SECONDS; the mean of the last 4 losses at most
+# chain, for DET_EPOCHS epochs; the mean of the last 4 losses at most
 # DET_LOSS_FALL of the first 4's, and mAP at IoU DET_EVAL_IOU over
 # DET_EVAL_IMAGES of them at least DET_MAP_GAIN above the untrained model's.
 # The recipe's lr 2e-3 blows up from random weights at full width: on an
@@ -3977,11 +4015,13 @@ ROI_BOX_BOUND, ROI_TIE, IOU_TIE = 1e-4, 1e-4, 1e-5
 # steps, and mAP reached 0.013 after 120 s in one run, 0.54 after 55 s in
 # another; at 1e-4, 2e-4 and 5e-4 it reached 0.93, 0.91 and 0.92 in 55 s
 # (scripts/torch_detection_phase.py --lr; PERF.md). The example
-# starts from an ImageNet VGG, which the repo cannot hold. DET_SECONDS is
-# 40 s (it was 90, then 55, which reached 0.93 in 800 steps on a slow
-# host: cut to keep the whole script inside its time limit).
+# starts from an ImageNet VGG, which the repo cannot hold. The fit ran
+# for a fixed time (90 s, then 55, which reached 0.93 in 800 steps on a
+# slow host, then 40, 0.91-0.92 in 832-928 steps, then 22, 0.908 and
+# 0.915 in 384 and 416 steps); it is now DET_EPOCHS epochs, 384 steps,
+# so that a slower host takes longer instead of training less.
 DET_TRAIN_MODEL = "ssd-vgg16-300x300"
-DET_IMAGES, DET_BATCH, DET_SECONDS, DET_LR = 1024, 32, 40.0, 2e-4
+DET_IMAGES, DET_BATCH, DET_EPOCHS, DET_LR = 1024, 32, 12, 2e-4
 DET_MAX_BOXES, DET_EVAL_IMAGES, DET_EVAL_IOU = 16, 256, 0.4
 DET_LOSS_FALL, DET_MAP_GAIN = 0.7, 0.2
 DET_COLOURS = ((220, 40, 40), (40, 220, 40), (50, 90, 230), (230, 220, 40))
@@ -4251,10 +4291,8 @@ def detection_training(rng):
     flops = model_flops(net)
     with step_timing():
         t0 = time.perf_counter()
-        epochs = 0
-        while time.perf_counter() - t0 < DET_SECONDS:
+        for epochs in range(1, DET_EPOCHS + 1):
             net.fit(fs, batch_size=DET_BATCH, nb_epoch=1)
-            epochs += 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     est = net._estimator
@@ -4548,8 +4586,10 @@ def detection_phase(fa, seed):
 # of 5-30 words whose tags follow the words (ZOO_NER_ENTITY_WORDS of the
 # vocabulary are entities, 17% of the tokens as in CoNLL-2003, and their
 # first character marks the tag); fit with the CRF NLL and Adam(1e-2) at
-# batch 128 for ZOO_NER_SECONDS, 20 s (30 until the script neared its
-# time limit; the gate asks only that loss and accuracy improve; at
+# batch 128 for ZOO_NER_EPOCHS epochs, 64 steps (it was a fixed time: 30,
+# 20, then 10 s, which ran 64 steps to a held-out tag accuracy of 0.848,
+# against 0.850 after 128 steps in 30 s; the gate asks only that loss and
+# accuracy improve; at
 # nlp-architect's 1e-3, the 96-192 steps that fit in 30 s on an H100
 # machine left held-out entity tokens at 0.0-0.36 accuracy);
 # served at buckets 1, 8 and 32.
@@ -4559,7 +4599,7 @@ ZOO_NER = dict(num_entities=9, word_vocab_size=20000, char_vocab_size=100,
                crf_mode="pad")
 ZOO_NER_ENTITY_WORDS = 3400
 ZOO_NER_ROWS, ZOO_NER_EVAL_ROWS, ZOO_NER_BATCH = 4096, 512, 128
-ZOO_NER_LR, ZOO_NER_SECONDS = 1e-2, 20.0
+ZOO_NER_LR, ZOO_NER_EPOCHS = 1e-2, 2
 ZOO_NER_SERVE = (1, 8, 32)
 ZOO_CHECK_ROWS = 32  # rows of each card-vs-CPU check
 # 9b: KNRM at the qaranker recipe's shapes: questions of 10 and answers of
@@ -4801,7 +4841,8 @@ def ner_slice(rng):
 
     ner.compile(optimizer=Adam(lr=ZOO_NER_LR), loss=ner.default_loss())
     acc0 = accuracy()
-    est, wall, epochs = timed_fit(ner, x, y, ZOO_NER_BATCH, ZOO_NER_SECONDS)
+    est, wall, epochs = timed_fit(ner, x, y, ZOO_NER_BATCH,
+                                  epochs=ZOO_NER_EPOCHS)
     p50 = zoo_rate("zoo: NER fit", est, ZOO_NER_BATCH, wall, "sentences")
     first, last = losses_report(f"zoo: NER fit, {epochs} epochs of "
                                 f"{ZOO_NER_ROWS}", est.train_losses)
@@ -6899,7 +6940,7 @@ FLY_MODEL = "bert"
 FLY_SEQ = 128
 FLY_LADDER = (1, 8, 32)  # the served buckets of every version
 FLY_CLIENTS = 4
-FLY_WINDOW_S = 3.0  # each timed traffic window, tap off and tap on
+FLY_WINDOW_S = 2.0  # each timed traffic window, tap off and tap on
 FLY_ROWS_PER_CLIENT = 24  # a labelled data window: 4 x 24 one-row requests
 FLY_BATCH = 16  # the retrain's batch: 96 labelled rows are 6 steps
 FLY_CKPT_EVERY = 64  # the serving lane's cadence: a cycle's epoch-end save
@@ -7607,6 +7648,7 @@ REMAT_DROP = 0.1
 ONNX_INPUT = RESNET_INPUT
 ONNX_CAL_IMAGES, ONNX_BATCH, ONNX_LADDER = 32, 8, (1, 8, 32)
 ONNX_LATENCY_REQUESTS = 15  # per route and bucket, in turns
+ONNX_REPLAY_P50 = {}  # 14b's replay p50 ms by bucket, printed beside 15b's
 ONNX_INT8_IMAGES = 64
 # Bounds, relative to the largest |logit| of the reference: both routes run
 # IEEE float32 (TF32 off) through about 160 layers, and cuDNN's NCHW and
@@ -7848,6 +7890,38 @@ def remat_phase(fa, seed):
     return launches
 
 
+def calibrated_resnet(seed):
+    """14b's (and 15b's) model: the port's seeded ResNet-50 at ONNX_INPUT
+    with raw logits in float32, its batch norm statistics those of one
+    training-mode pass over ONNX_CAL_IMAGES seeded images (momentum 0).
+    Returns the net (host params and state) and ``images(n)``, which draws
+    n more seeded images, normalized, from the same generator."""
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.common.tree import tree_map
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        resnet_50,
+    )
+
+    rng = np.random.default_rng(seed)
+    dev = get_nncontext().device
+    net = resnet_50(num_classes=RESNET_CLASSES, input_shape=ONNX_INPUT,
+                    classifier_activation=None, bn_momentum=0.0)
+    net.compute_dtype = None  # float32: the imported graphs' own precision
+    params, state = net.init(torch.Generator().manual_seed(seed))
+
+    def images(n):
+        return ((rng.integers(0, 256, (n,) + ONNX_INPUT).astype(np.float32)
+                 - 127.5) / 127.5)
+
+    with torch.no_grad():  # the batch statistics of ONNX_CAL_IMAGES images
+        _, state = net.apply(tree_map(lambda t: t.to(dev), params),
+                             tree_map(lambda t: t.to(dev), state),
+                             torch.tensor(images(ONNX_CAL_IMAGES),
+                                          device=dev), training=True)
+    net.params, net.model_state = params, tree_map(lambda t: t.cpu(), state)
+    return net, images
+
+
 def onnx_resnet_phase(seed):
     """14b: ResNet-50 encoded as ONNX (``keras_graph_onnx``), loaded with
     ``InferenceModel().do_load_onnx`` on the card: f32 logits against the
@@ -7863,32 +7937,14 @@ def onnx_resnet_phase(seed):
     from analytics_zoo_tpu_torch.inference.inference_model import (
         _GraphProgram,
     )
-    from analytics_zoo_tpu_torch.models.image.imageclassification import (
-        resnet_50,
-    )
     from analytics_zoo_tpu_torch.serving import BatcherConfig, ServingEngine
 
     t_phase = time.perf_counter()
     # a capture allocates only from its graph's own pool: hand the blocks
     # that earlier phases left cached back to the device first
     torch.cuda.empty_cache()
-    rng = np.random.default_rng(seed)
     dev = get_nncontext().device
-    net = resnet_50(num_classes=RESNET_CLASSES, input_shape=ONNX_INPUT,
-                    classifier_activation=None, bn_momentum=0.0)
-    net.compute_dtype = None  # float32: the ONNX graph's own precision
-    params, state = net.init(torch.Generator().manual_seed(seed))
-
-    def images(n):
-        return ((rng.integers(0, 256, (n,) + ONNX_INPUT).astype(np.float32)
-                 - 127.5) / 127.5)
-
-    with torch.no_grad():  # the batch statistics of ONNX_CAL_IMAGES images
-        _, state = net.apply(tree_map(lambda t: t.to(dev), params),
-                             tree_map(lambda t: t.to(dev), state),
-                             torch.tensor(images(ONNX_CAL_IMAGES),
-                                          device=dev), training=True)
-    net.params, net.model_state = params, tree_map(lambda t: t.cpu(), state)
+    net, images = calibrated_resnet(seed)
     t0 = time.perf_counter()
     host = lambda tree: tree_map(  # noqa: E731
         lambda t: t.detach().cpu().numpy(), tree)
@@ -7972,6 +8028,8 @@ def onnx_resnet_phase(seed):
                     t0 = time.perf_counter()
                     fn()
                     lat[name].append((time.perf_counter() - t0) * 1e3)
+            ONNX_REPLAY_P50[b] = float(np.percentile(lat["onnx replay"],
+                                                     50))
             print(f"onnx: bucket {(b,) + ONNX_INPUT} over "
                   f"{ONNX_LATENCY_REQUESTS} requests each, in turns: " +
                   "; ".join(f"{k} p50 {np.percentile(v, 50):.3f} ms p90 "
@@ -8229,6 +8287,710 @@ def foreign_phase(fa, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the TensorFlow importers on the card
+# ---------------------------------------------------------------------------
+
+# 15a: a Keras transformer encoder at BERT-base widths, its architecture a
+# to_json() file in the classic tf.keras dialect written here from
+# keras_encoder_config (the card's machine has neither TensorFlow nor
+# h5py): token and position ids of KENC["seq"] tokens, both embeddings
+# mask_zero (Keras drops a mask at an Add with an unmasked operand, which
+# would leave the attention without its padding bias, so the position ids
+# are 1-based and 0 at padding: Embedding(seq + 1, width)), 12 blocks of
+# MultiHeadAttention(12 heads, key_dim 64, dropout 0: probability dropout
+# takes the reference path) -> Add -> LayerNormalization -> Dense(3072,
+# gelu) -> Dense(768) -> Add -> LayerNormalization, a masked
+# GlobalAveragePooling1D and Dense(2, softmax). Seeded initialisation.
+KENC = dict(seq=128, vocab=30522, width=768, heads=12, blocks=12, ffn=3072)
+KENC_BATCH, KENC_STEPS, KENC_WARMUP, KENC_TIMED = 64, 3, 2, 6
+KENC_LADDER = (1, 8, 32)
+# SGD's rate: at 0.01 one step moves the 2-class head's logits by about 7
+# (768 unit-variance pooled features), which saturates the softmax
+KENC_LR = 1e-3
+KENC_LATENCY_REQUESTS = 10  # per route and bucket, in turns
+# Three SGD steps in f32 at batch 2 from the same weights, on the card
+# (the flash kernels' f32 route, cuBLAS in IEEE f32) and on the CPU (the
+# reference attention): each step's loss relative to the CPU's, and the
+# parameters after the three steps as |card - cpu|_2 / |update|_2. Both
+# are f32 rounding noise through 12 blocks (no batch norm: the noise of
+# phase 3c's batch-2 statistics does not arise here), expected near 1e-6
+# and 1e-4; a wrong mask, head split or gradient is off by 1e-2 or more.
+KENC_CPU_BOUND = {"loss": 1e-4, "params": 1e-2}
+KENC_CPU_ROWS = 2  # rows of a served bucket-8 request held to the CPU
+# 15b: 14b's seeded ResNet-50 (calibrated_resnet) written as a frozen TF
+# GraphDef (keras_graph_pb), served by do_load_tf at KENC_LADDER's
+# buckets; probabilities against the native f32 model's softmax and the
+# card against the CPU, bounded as 14b's logits (ONNX_LOGIT_BOUND,
+# ONNX_CPU_BOUND, of the largest probability); then as a TFNet under a
+# TF_FT_CLASSES-way Dense head, TF_FT_STEPS fit steps at TF_FT_BATCH.
+TF_LATENCY_REQUESTS = 10
+TF_FT_CLASSES, TF_FT_BATCH, TF_FT_STEPS = 10, 32, 4
+TF_PREDICT_IMAGES = 64  # TFPredictor.from_tfnet over a TFDataset
+TF_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tf"
+
+
+def keras_encoder_config(seq, vocab, width, heads, blocks, ffn):
+    """The ``to_json()`` of phase 15a's Keras encoder, as tf.keras 2
+    writes a functional model (the classic dialect: ``batch_input_shape``,
+    inbound nodes ``[[name, node, tensor, kwargs]]``, MultiHeadAttention's
+    value operand in its call kwargs). The same graph at the same widths
+    as ``tests/test_torch_keras_convert.py``'s ``_keras_encoder``."""
+    layers = []
+
+    def add(cls, name, inbound, **config):
+        node = [[[src, 0, 0, kw] for src, kw in inbound]] if inbound else []
+        layers.append({"class_name": cls, "name": name,
+                       "config": {"name": name, "trainable": True,
+                                  "dtype": "float32", **config},
+                       "inbound_nodes": node})
+
+    for name in ("ids", "pos"):
+        add("InputLayer", name, [], batch_input_shape=[None, seq],
+            dtype="int32", sparse=False, ragged=False)
+    add("Embedding", "tok_emb", [("ids", {})], input_dim=vocab,
+        output_dim=width, mask_zero=True, input_length=None)
+    add("Embedding", "pos_emb", [("pos", {})], input_dim=seq + 1,
+        output_dim=width, mask_zero=True, input_length=None)
+    add("Add", "emb_add", [("tok_emb", {}), ("pos_emb", {})])
+    x = "emb_add"
+    for i in range(blocks):
+        add("MultiHeadAttention", f"b{i}_mha",
+            [(x, {"value": [x, 0, 0]})], num_heads=heads,
+            key_dim=width // heads, value_dim=width // heads, dropout=0.0,
+            use_bias=True, output_shape=None, attention_axes=None)
+        add("Add", f"b{i}_res1", [(x, {}), (f"b{i}_mha", {})])
+        add("LayerNormalization", f"b{i}_ln1", [(f"b{i}_res1", {})],
+            axis=[2], epsilon=0.001, center=True, scale=True)
+        add("Dense", f"b{i}_ff1", [(f"b{i}_ln1", {})], units=ffn,
+            activation="gelu", use_bias=True)
+        add("Dense", f"b{i}_ff2", [(f"b{i}_ff1", {})], units=width,
+            activation="linear", use_bias=True)
+        add("Add", f"b{i}_res2", [(f"b{i}_ln1", {}), (f"b{i}_ff2", {})])
+        add("LayerNormalization", f"b{i}_ln2", [(f"b{i}_res2", {})],
+            axis=[2], epsilon=0.001, center=True, scale=True)
+        x = f"b{i}_ln2"
+    add("GlobalAveragePooling1D", "gap", [(x, {})],
+        data_format="channels_last", keepdims=False)
+    add("Dense", "head", [("gap", {})], units=2, activation="softmax",
+        use_bias=True)
+    return {"class_name": "Functional", "keras_version": "2.15.0",
+            "backend": "tensorflow",
+            "config": {"name": "keras_encoder", "layers": layers,
+                       "input_layers": [["ids", 0, 0], ["pos", 0, 0]],
+                       "output_layers": [["head", 0, 0]]}}
+
+
+def encoder_request(rng, batch, seq, vocab):
+    """[token ids, 1-based position ids], both 0 at the padding, with
+    make_request's per-row lengths."""
+    ids, _, mask = make_request(rng, batch, seq, vocab)
+    pos = (np.arange(1, seq + 1)[None, :] * mask).astype(np.int32)
+    return [ids, pos]
+
+
+def _tf_attr(kind, value):
+    """One AttrValue's bytes (tensorflow/core/framework/attr_value.proto)."""
+    import struct
+
+    from analytics_zoo_tpu_torch.onnx import proto as P
+
+    def shape(dims):  # TensorShapeProto: dim 2 (Dim.size 1)
+        return b"".join(P.emit(2, 2, P.emit(1, 0, int(d))) for d in dims)
+
+    if kind == "type":
+        return P.emit(6, 0, value)
+    if kind == "s":
+        return P.emit(2, 2, value)
+    if kind == "i":
+        return P.emit(3, 0, value)
+    if kind == "f":
+        return P.emit(4, 5, struct.pack("<f", value))
+    if kind == "b":
+        return P.emit(5, 0, int(value))
+    if kind == "ints":  # ListValue.i, packed
+        return P.emit(1, 2, P.emit(3, 2, b"".join(
+            P._write_varint(v & ((1 << 64) - 1)) for v in value)))
+    if kind == "shape":
+        return P.emit(7, 2, shape(value))
+    if kind == "tensor":  # TensorProto: dtype 1, shape 2, content 4
+        arr = np.ascontiguousarray(value)
+        code = {np.dtype(np.float32): 1, np.dtype(np.int32): 3}[arr.dtype]
+        return P.emit(8, 2, P.emit(1, 0, code) + P.emit(2, 2, shape(
+            arr.shape)) + P.emit(4, 2, arr.astype(arr.dtype.newbyteorder(
+                "<")).tobytes()))
+    raise ValueError(kind)
+
+
+def _tf_node(name, op, inputs, **attrs):
+    """One NodeDef's bytes: name 1, op 2, input 3, attr 5 (map entries:
+    key 1, value 2); ``attrs`` maps an attr name to (kind, value)."""
+    from analytics_zoo_tpu_torch.onnx import proto as P
+
+    out = P.emit(1, 2, name.encode()) + P.emit(2, 2, op.encode())
+    out += b"".join(P.emit(3, 2, i.encode()) for i in inputs)
+    for key, (kind, value) in sorted(attrs.items()):
+        out += P.emit(5, 2, P.emit(1, 2, key.encode())
+                      + P.emit(2, 2, _tf_attr(kind, value)))
+    return out
+
+
+def keras_graph_pb(net, params, state):
+    """A frozen TF ``GraphDef`` (bytes) of a port ``Model`` of
+    Convolution2D, BatchNormalization, Activation("relu"), MaxPooling2D,
+    Merge(sum), GlobalAveragePooling2D and Dense layers, laid out as TF's
+    freeze of a Keras model lays it out: a ``Placeholder`` "input" (NHWC
+    float32, batch -1); ``Conv2D`` (HWIO ``Const``) + ``BiasAdd`` (a zero
+    bias where the layer has none, as Keras's conv with use_bias);
+    ``FusedBatchNormV3`` (is_training false); ``Relu``; a SAME convolution
+    whose padding is asymmetric as an explicit ``Pad`` + VALID ``Conv2D``
+    (Keras's ZeroPadding2D + VALID stem); ``MaxPool``; ``AddV2``; ``Mean``
+    over H and W (named "pool"); ``MatMul`` + ``BiasAdd`` (named
+    "logits"); and ``Softmax`` (named "probs").
+    ``params`` and ``state`` are host arrays by layer name. A test helper:
+    the port itself has no exporter."""
+    from analytics_zoo_tpu_torch.autograd.variable import topological_nodes
+    from analytics_zoo_tpu_torch.keras.layers.convolutional import _same_pads
+
+    F32, I32 = ("type", 1), ("type", 3)
+    nodes, names = [], {}
+    probe = torch.linspace(-2.0, 2.0, 5)
+
+    def const(name, arr):
+        arr = np.asarray(arr)
+        nodes.append(_tf_node(name, "Const", [], dtype=F32 if arr.dtype ==
+                              np.float32 else I32, value=("tensor", arr)))
+        return name
+
+    def src(v):
+        return "input" if v.node is None else names[id(v.node)]
+
+    def linear(layer):  # the layer applies no activation
+        return torch.equal(layer.activation(probe), probe)
+
+    shape = net.inputs[0].shape
+    nodes.append(_tf_node("input", "Placeholder", [], dtype=F32, shape=(
+        "shape", [-1] + [int(d) for d in shape[1:]])))
+    for i, node in enumerate(topological_nodes(net.outputs)):
+        layer, kind = node.layer, type(node.layer).__name__
+        ins = [src(v) for v in node.inbound]
+        out = names[id(node)] = f"{layer.name}"
+        hw = tuple(node.inbound[0].shape[1:3])
+        p = params.get(layer.name, {})
+        if kind == "Convolution2D" and linear(layer):
+            pads = (_same_pads(hw, layer.kernel_size, layer.subsample,
+                               layer.dilation)
+                    if layer.border_mode == "same" else [(0, 0), (0, 0)])
+            padding, x = b"VALID", ins[0]
+            if any(lo != hi for lo, hi in pads):
+                x = f"{out}/pad"
+                nodes.append(_tf_node(x, "Pad", [ins[0], const(
+                    f"{out}/paddings", np.asarray(
+                        [(0, 0), *pads, (0, 0)], np.int32))],
+                    T=F32, Tpaddings=I32))
+            elif layer.border_mode == "same":
+                padding = b"SAME"
+            conv = f"{out}/Conv2D"
+            nodes.append(_tf_node(
+                conv, "Conv2D", [x, const(f"{out}/kernel", p["kernel"])],
+                T=F32, strides=("ints", [1, *layer.subsample, 1]),
+                dilations=("ints", [1, *layer.dilation, 1]),
+                padding=("s", padding), data_format=("s", b"NHWC")))
+            bias = p.get("bias", np.zeros(p["kernel"].shape[-1], np.float32))
+            nodes.append(_tf_node(out, "BiasAdd", [conv, const(
+                f"{out}/bias", bias)], T=F32, data_format=("s", b"NHWC")))
+        elif kind == "BatchNormalization":
+            st = state[layer.name]
+            args = [const(f"{out}/{k}", v) for k, v in (
+                ("gamma", p["gamma"]), ("beta", p["beta"]),
+                ("moving_mean", st["moving_mean"]),
+                ("moving_variance", st["moving_var"]))]
+            nodes.append(_tf_node(
+                out, "FusedBatchNormV3", ins + args, T=F32, U=F32,
+                epsilon=("f", float(layer.epsilon)),
+                is_training=("b", False), data_format=("s", b"NHWC")))
+        elif kind == "Activation" and layer.activation_name == "relu":
+            nodes.append(_tf_node(out, "Relu", ins, T=F32))
+        elif kind == "MaxPooling2D":
+            nodes.append(_tf_node(
+                out, "MaxPool", ins, T=F32,
+                ksize=("ints", [1, *layer.pool_size, 1]),
+                strides=("ints", [1, *layer.strides, 1]),
+                padding=("s", layer.border_mode.upper().encode()),
+                data_format=("s", b"NHWC")))
+        elif kind == "Merge" and layer.mode == "sum":
+            acc = ins[0]
+            for j, other in enumerate(ins[1:]):
+                nxt = out if j == len(ins) - 2 else f"{out}_{j}"
+                nodes.append(_tf_node(nxt, "AddV2", [acc, other], T=F32))
+                acc = nxt
+        elif kind == "GlobalAveragePooling2D":
+            names[id(node)] = "pool"
+            nodes.append(_tf_node("pool", "Mean", ins + [const(
+                "pool/reduction_indices", np.asarray([1, 2], np.int32))],
+                T=F32, Tidx=I32, keep_dims=("b", False)))
+        elif kind == "Dense" and linear(layer):
+            names[id(node)] = "logits"
+            mm = f"{out}/MatMul"
+            nodes.append(_tf_node(mm, "MatMul", ins + [const(
+                f"{out}/kernel", p["kernel"])], T=F32,
+                transpose_a=("b", False), transpose_b=("b", False)))
+            nodes.append(_tf_node("logits", "BiasAdd", [mm, const(
+                f"{out}/bias", p["bias"])], T=F32,
+                data_format=("s", b"NHWC")))
+        else:
+            raise ValueError(f"keras_graph_pb: no export of {kind} "
+                             f"'{layer.name}'")
+    nodes.append(_tf_node("probs", "Softmax", ["logits"], T=F32))
+    from analytics_zoo_tpu_torch.onnx import proto as P
+
+    # GraphDef: node 1; versions 4 (VersionDef.producer 1)
+    return b"".join(P.emit(1, 2, n) for n in nodes) + P.emit(
+        4, 2, P.emit(1, 0, 1087))
+
+
+def kenc_card_against_cpu(net, init, rng):
+    """15a (3): three SGD steps in f32 at batch 2 from ``init`` on the card
+    and on the CPU; each step's loss and the final parameters held within
+    KENC_CPU_BOUND. Returns the errors."""
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+    from analytics_zoo_tpu_torch.engine.estimator import (
+        Estimator,
+        TrainState,
+    )
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+
+    compute_dtype, net.compute_dtype = net.compute_dtype, None
+    try:
+        est = Estimator(net, SGD(lr=KENC_LR))
+        est._ensure_state()
+        step = est._make_train_step(
+            objectives.sparse_categorical_crossentropy)
+        x = encoder_request(rng, CPU_CHECK_BATCH, KENC["seq"],
+                            KENC["vocab"])
+        y = rng.integers(0, 2, CPU_CHECK_BATCH).astype(np.int32)
+        runs = {}
+        for name, dev in (("card", est.ctx.device), ("cpu", "cpu")):
+            params = tree_map(lambda t: t.to(dev, torch.float32, copy=True),
+                              init)
+            ts = TrainState(params, {}, est._tx().init(params), 0)
+            xs = [torch.tensor(a, device=dev) for a in x]
+            ys = torch.tensor(y, device=dev)
+            t0 = time.perf_counter()
+            losses = []
+            for _ in range(3):
+                ts, loss = step(ts, xs, ys, None)
+                losses.append(loss.item())
+            runs[name] = (losses, [t.detach().cpu().double()
+                                   for t in tree_leaves(ts.params)])
+            print(f"keras-encoder: 3 f32 steps at batch {CPU_CHECK_BATCH} "
+                  f"on the {name} in {time.perf_counter() - t0:.1f} s, "
+                  f"losses {losses}", flush=True)
+    finally:
+        net.compute_dtype = compute_dtype
+    start = [t.detach().cpu().double() for t in tree_leaves(init)]
+
+    def norm(ts):
+        return math.sqrt(sum(float((t ** 2).sum()) for t in ts))
+
+    (lc, pc), (lu, pu) = runs["card"], runs["cpu"]
+    errs = {"loss": max(abs(a - b) / abs(b) for a, b in zip(lc, lu)),
+            "params": norm([a - b for a, b in zip(pc, pu)])
+            / norm([b - s for b, s in zip(pu, start)])}
+    print(f"keras-encoder: card against the CPU over 3 f32 steps: loss "
+          f"{errs['loss']:.3e} (relative, the worst step), parameters "
+          f"{errs['params']:.3e} (|card - cpu|_2 / |update|_2); bounds "
+          f"{KENC_CPU_BOUND}", flush=True)
+    if not all(errs[k] <= KENC_CPU_BOUND[k] for k in KENC_CPU_BOUND):
+        fail("keras-encoder: the converted encoder's f32 steps on the card "
+             "disagree with the CPU's")
+    return errs
+
+
+def keras_encoder_phase(fa, seed):
+    """15a: the Keras encoder converted from its to_json() file by
+    ``Net.load_keras`` (no TensorFlow, no h5py), seeded; three f32 steps
+    card against CPU (``kenc_card_against_cpu``); ``compile`` and
+    ``Estimator.train`` in bf16 at (KENC_BATCH, seq): KENC_STEPS gated
+    steps, each launching the forward, dq and dk/dv kernels once a block,
+    then KENC_TIMED steps timed by CUDA events; then
+    ``InferenceModel.do_load_keras`` at buckets KENC_LADDER, one CUDA graph
+    each holding 12 flash forward nodes (read through the driver), served
+    bitwise the eager forward, the CPU's f32 forward within PROB_BOUND,
+    replay and eager p50 per bucket. Returns the phase's flash launches."""
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.engine.triggers import MaxIteration
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        _GraphProgram,
+    )
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.net import Net
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    n_block, seq = KENC["blocks"], KENC["seq"]
+    TF_DIR.mkdir(parents=True, exist_ok=True)
+    path = TF_DIR / "keras_encoder.json"
+    path.write_text(json.dumps(keras_encoder_config(**KENC)))
+    launches0 = read_launches(fa)
+    t0 = time.perf_counter()
+    net = Net.load_keras(str(path))
+    conv_s = time.perf_counter() - t0
+    kinds = collections.Counter(type(l).__name__ for l in net.layers())
+    net.params, net.model_state = net.init(
+        torch.Generator().manual_seed(seed))
+    init = tree_map(torch.clone, net.params)
+    n_params = sum(t.numel() for t in tree_leaves(init))
+    print(f"keras-encoder: Net.load_keras of a {path.stat().st_size}-byte "
+          f"to_json() file in {conv_s:.2f} s: {dict(kinds)}, "
+          f"{n_params} parameters", flush=True)
+    if kinds["MultiHeadAttention"] != n_block:
+        fail("keras-encoder: the converted graph lacks its attention layers")
+    kenc_card_against_cpu(net, init, rng)
+
+    rows = KENC_BATCH * KENC_STEPS
+    x = encoder_request(rng, rows, seq, KENC["vocab"])
+    y = rng.integers(0, 2, rows).astype(np.int32)
+    data = ArrayFeatureSet(x, y).cache_device()
+    net.compute_dtype = "bfloat16"
+    net.compile(optimizer=SGD(lr=KENC_LR, momentum=0.9),
+                loss="sparse_categorical_crossentropy", metrics=["accuracy"])
+    est = Estimator(net, net.optim_method)
+    steps = []
+    for k in range(1, KENC_STEPS + 1):
+        before = read_launches(fa)
+        est.train(data, net.criterion, end_trigger=MaxIteration(k),
+                  batch_size=KENC_BATCH)
+        steps.append((est.train_losses[-1],
+                      [b - a for a, b in zip(before, read_launches(fa))]))
+    print(f"keras-encoder: bf16 Estimator.train at ({KENC_BATCH}, {seq}): "
+          f"losses {[round(v, 5) for v, _ in steps]}, flash launches "
+          f"forward, dq, dk/dv a step {[n for _, n in steps]} (want "
+          f"{[n_block] * 3})", flush=True)
+    if any(n != [n_block] * 3 for _, n in steps) or not all(
+            np.isfinite(v) for v, _ in steps):
+        fail("keras-encoder: a train step did not launch each flash kernel "
+             "once a block, or a loss is not finite")
+    step = est._make_train_step(net.criterion)
+    batches = list(est._batches(data, KENC_BATCH, 0))
+    ms = []
+    for i in range(KENC_WARMUP + KENC_TIMED):
+        xs, yb, mask = batches[i % len(batches)]
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        est.tstate, _ = step(est.tstate, xs, yb, mask)
+        t1.record()
+        torch.cuda.synchronize()
+        if i >= KENC_WARMUP:
+            ms.append(t0.elapsed_time(t1))
+    est._write_back()
+    p50, p90 = np.percentile(ms, (50, 90))
+    print(f"keras-encoder: train step ({KENC_BATCH}, {seq}) bf16: p50 "
+          f"{p50:.3f} ms, p90 {p90:.3f} ms over {len(ms)} steps (CUDA "
+          f"events), {KENC_BATCH * seq / p50 * 1e3:.0f} tokens/s "
+          f"({smi_line()})", flush=True)
+    del data, batches, step
+    torch.cuda.empty_cache()
+
+    im = InferenceModel().do_load_keras(net)
+    reg = {}
+    for b in KENC_LADDER:
+        t0 = time.perf_counter()
+        im.do_optimize(encoder_request(rng, b, seq, KENC["vocab"]))
+        reg[b] = time.perf_counter() - t0
+    graphs = {k[0][0][0]: fn for k, fn in im._compiled.items()}
+    if sorted(graphs) != sorted(KENC_LADDER) or not all(
+            isinstance(fn, _GraphProgram) and fn.graph is not None
+            for fn in graphs.values()):
+        fail(f"keras-encoder: the buckets {sorted(graphs)} are not one "
+             f"captured CUDA graph each")
+    print(f"keras-encoder: buckets {list(KENC_LADDER)} registered in "
+          f"{ {b: round(s, 3) for b, s in reg.items()} } s (eager warm-up, "
+          f"capture s: { {b: (round(fn.warmup_seconds, 3), round(fn.capture_seconds, 3)) for b, fn in sorted(graphs.items())} })",
+          flush=True)
+    check_bucket_graphs(im, n_block, "keras-encoder")
+    for b in KENC_LADDER:
+        req = encoder_request(rng, b, seq, KENC["vocab"])
+        served = im.do_predict(req)
+        eager = im.do_fetch(im._eager(req))
+        # the bf16 head's probabilities: each rounded to 8 bits
+        if not (served.shape == (b, 2) and np.isfinite(served).all()
+                and np.allclose(served.sum(-1), 1.0, atol=1e-2)
+                and np.array_equal(served, eager)):
+            fail(f"keras-encoder: bucket {b}'s served answer is malformed "
+                 f"or differs from its eager forward")
+        if b == 8:
+            cpu_req = [a[:KENC_CPU_ROWS] for a in req]
+            compute_dtype, net.compute_dtype = net.compute_dtype, None
+            try:
+                with torch.inference_mode():
+                    cpu, _ = net.apply(
+                        tree_map(lambda t: t.detach().cpu().float(),
+                                 net.params), {},
+                        [torch.tensor(a) for a in cpu_req])
+            finally:
+                net.compute_dtype = compute_dtype
+            err = float(np.abs(served[:KENC_CPU_ROWS] - cpu.numpy()).max())
+            print(f"keras-encoder: bucket 8's first {KENC_CPU_ROWS} rows "
+                  f"served (bf16, the flash kernels) against the CPU's f32 "
+                  f"forward: max |p| error {err:.3e} (bound "
+                  f"{PROB_BOUND:g})", flush=True)
+            if not err <= PROB_BOUND:
+                fail("keras-encoder: the served probabilities disagree with "
+                     "the CPU's")
+        lat = {"replay": [], "eager": []}
+        for i in range(KENC_LATENCY_REQUESTS):
+            req = encoder_request(rng, b, seq, KENC["vocab"])
+            calls = [("replay", lambda: im.do_predict(req)),
+                     ("eager", lambda: im.do_fetch(im._eager(req)))]
+            for name, fn in (calls if i % 2 == 0 else calls[::-1]):
+                t0 = time.perf_counter()
+                fn()
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+        print(f"keras-encoder: bucket ({b}, {seq}) over "
+              f"{KENC_LATENCY_REQUESTS} requests each, in turns: " +
+              "; ".join(f"{k} p50 {np.percentile(v, 50):.3f} ms p90 "
+                        f"{np.percentile(v, 90):.3f} ms"
+                        for k, v in lat.items()) + f" ({smi_line()})",
+              flush=True)
+    launches = [b - a for a, b in zip(launches0, read_launches(fa))]
+    del im, est, net
+    torch.cuda.empty_cache()
+    print(f"keras-encoder: 15a took {time.perf_counter() - t_phase:.1f} s; "
+          f"flash wrapper launches forward, dq, dk/dv {launches}", flush=True)
+    return launches
+
+
+def tf_resnet_phase(seed):
+    """15b: 14b's seeded ResNet-50 written as a frozen GraphDef
+    (``keras_graph_pb``) and served by ``InferenceModel.do_load_tf``: its
+    probabilities against the native f32 model's softmax (ONNX_LOGIT_BOUND
+    of the largest, every top-1 equal) and the card against the CPU
+    (ONNX_CPU_BOUND); buckets KENC_LADDER one CUDA graph each, served
+    bitwise the eager forward; replay and eager p50 beside the native
+    model's (and 14b's ONNX replay, when 14b ran); then ``Net.load_tf`` as
+    a TFNet under a Dense head fitted TF_FT_STEPS steps (its constants
+    unchanged, the head moved) and ``TFPredictor.from_tfnet`` over a
+    ``TFDataset`` bitwise the served probabilities."""
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    from analytics_zoo_tpu_torch.common.tree import tree_map
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        _GraphProgram,
+    )
+    from analytics_zoo_tpu_torch.keras.engine.topology import Input, Model
+    from analytics_zoo_tpu_torch.keras.layers import Dense
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+    from analytics_zoo_tpu_torch.net import Net
+    from analytics_zoo_tpu_torch.common.consts import placed
+    from analytics_zoo_tpu_torch.tfnet import load_frozen_graph
+    from analytics_zoo_tpu_torch.tfnet.graphdef import parse_graph_def
+    from analytics_zoo_tpu_torch.tfpark import TFDataset, TFPredictor
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dev = get_nncontext().device
+    rng = np.random.default_rng(seed)
+    net, images = calibrated_resnet(seed)
+    host = lambda tree: tree_map(  # noqa: E731
+        lambda t: t.detach().cpu().numpy(), tree)
+    t0 = time.perf_counter()
+    buf = keras_graph_pb(net, host(net.params), host(net.model_state))
+    TF_DIR.mkdir(parents=True, exist_ok=True)
+    pb = TF_DIR / "resnet50_frozen.pb"
+    pb.write_bytes(buf)
+    gd = parse_graph_def(buf)
+    print(f"tfnet: ResNet-50 written as a frozen GraphDef in "
+          f"{time.perf_counter() - t0:.2f} s: {len(buf)} bytes, "
+          f"{len(gd.node)} nodes, ops {sorted({n.op for n in gd.node})}",
+          flush=True)
+    names = (["input:0"], ["probs:0"])
+    t0 = time.perf_counter()
+    im = InferenceModel().do_load_tf(str(pb), *names)
+    load_s = time.perf_counter() - t0
+    rim = InferenceModel().do_load_keras(net)
+    x = images(ONNX_BATCH)
+    got = im.do_predict(x)
+    native = torch.softmax(torch.tensor(rim.do_predict(x)), -1).numpy()
+    rel = float(np.abs(got - native).max()) / float(np.abs(native).max())
+    agree = float((got.argmax(-1) == native.argmax(-1)).mean())
+    gf = load_frozen_graph(str(pb), *names)
+    with torch.inference_mode():
+        cpu = gf.apply(torch.tensor(x)).numpy()
+    rel_cpu = float(np.abs(got - cpu).max()) / float(np.abs(cpu).max())
+    print(f"tfnet: do_load_tf in {load_s:.2f} s; batch {ONNX_BATCH} f32 "
+          f"probabilities (max {float(native.max()):.4e}): max |tf - native| "
+          f"/ max |native| {rel:.3e} (bound {ONNX_LOGIT_BOUND:g}), top-1 "
+          f"agreement {agree:.4f}; card against the CPU {rel_cpu:.3e} "
+          f"(bound {ONNX_CPU_BOUND:g})", flush=True)
+    if not (np.isfinite(got).all() and got.shape == native.shape):
+        fail("tfnet: the frozen ResNet-50's outputs are not finite or of the "
+             "wrong shape")
+    if not rel <= ONNX_LOGIT_BOUND or agree != 1.0:
+        fail("tfnet: the frozen ResNet-50 disagrees with the port's own")
+    if not rel_cpu <= ONNX_CPU_BOUND:
+        fail("tfnet: the frozen graph's card output disagrees with its CPU "
+             "output")
+    del gf
+    reg = {}
+    for b in KENC_LADDER:
+        t0 = time.perf_counter()
+        im.do_optimize(np.zeros((b,) + ONNX_INPUT, np.float32))
+        reg[b] = time.perf_counter() - t0
+    graphs = {k[0][0][0]: fn for k, fn in im._compiled.items()}
+    if sorted(graphs) != sorted(KENC_LADDER) or not all(
+            isinstance(fn, _GraphProgram) and fn.graph is not None
+            for fn in graphs.values()):
+        fail(f"tfnet: the buckets {sorted(graphs)} are not one captured "
+             f"CUDA graph each")
+    print(f"tfnet: buckets {list(KENC_LADDER)} registered in "
+          f"{ {b: round(s, 3) for b, s in reg.items()} } s (eager warm-up, "
+          f"capture s: { {b: (round(fn.warmup_seconds, 3), round(fn.capture_seconds, 3)) for b, fn in sorted(graphs.items())} }), "
+          f"{len(im.model.fn.cache)} constants on the card", flush=True)
+    for b in KENC_LADDER:
+        xb = images(b)
+        if not np.array_equal(im.do_predict(xb),
+                              im.do_fetch(im._eager(xb))):
+            fail(f"tfnet: bucket {b}'s served answer differs from its eager "
+                 f"forward")
+        lat = {"tf replay": [], "tf eager": [], "native replay": []}
+        for i in range(TF_LATENCY_REQUESTS):
+            xb = images(b)
+            calls = [("tf replay", lambda: im.do_predict(xb)),
+                     ("tf eager", lambda: im.do_fetch(im._eager(xb))),
+                     ("native replay", lambda: rim.do_predict(xb))]
+            for name, fn in (calls if i % 2 == 0 else calls[::-1]):
+                t0 = time.perf_counter()
+                fn()
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+        onnx = (f"; 14b's ONNX replay p50 {ONNX_REPLAY_P50[b]:.3f} ms (this "
+                f"run)" if b in ONNX_REPLAY_P50 else "")
+        print(f"tfnet: bucket {(b,) + ONNX_INPUT} over {TF_LATENCY_REQUESTS} "
+              f"requests each, in turns: " +
+              "; ".join(f"{k} p50 {np.percentile(v, 50):.3f} ms p90 "
+                        f"{np.percentile(v, 90):.3f} ms"
+                        for k, v in lat.items()) + onnx + f" ({smi_line()})",
+              flush=True)
+
+    # a TFNet under a Dense head, fine-tuned; then TFPredictor
+    tfnet = Net.load_tf(str(pb), ["input:0"], ["pool:0"])
+    inp = Input(shape=ONNX_INPUT, name="tf_input")
+    head = Dense(TF_FT_CLASSES, name="tf_head")
+    m = Model(inp, head(tfnet(inp)), name="tfnet_transfer")
+    m.compile(optimizer=SGD(lr=0.01, momentum=0.9),
+              loss="sparse_categorical_crossentropy")
+    before = m.get_weights()
+    rows = TF_FT_BATCH * TF_FT_STEPS
+    xt = images(rows)
+    yt = rng.integers(0, TF_FT_CLASSES, rows).astype(np.int32)
+    t0 = time.perf_counter()
+    m.fit(xt, yt, batch_size=TF_FT_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    after = m.get_weights()
+    gfn = tfnet.fn
+    # every constant the fit placed on the card, against a fresh upload of
+    # the graph's host array in the same layout and format
+    on_card = [c for c in gfn.cache.named_items() if c[3].device.type ==
+               dev.type]
+    same_consts = bool(on_card) and all(
+        torch.equal(t, placed(gfn._consts[name], t.device, fn, fmt))
+        for name, fn, fmt, t in on_card)
+    fresh = load_frozen_graph(str(pb), ["input:0"], ["pool:0"])
+    host_same = all(np.array_equal(v, fresh._consts[k])
+                    for k, v in gfn._consts.items())
+    moved = all(not np.array_equal(before["tf_head"][k], after["tf_head"][k])
+                for k in before["tf_head"])
+    losses = m._estimator.train_losses
+    print(f"tfnet: TFNet (Net.load_tf, output 'pool:0') under a "
+          f"{TF_FT_CLASSES}-way Dense head, {len(losses)} fit steps at batch "
+          f"{TF_FT_BATCH} in {fit_s:.2f} s (losses "
+          f"{[round(v, 4) for v in losses]}): {len(on_card)} card constants "
+          f"unchanged {same_consts}, host constants unchanged {host_same}, "
+          f"head moved {moved}; trainable layers "
+          f"{sorted(k for k in after)}", flush=True)
+    if not (same_consts and host_same and moved and len(losses) ==
+            TF_FT_STEPS and all(np.isfinite(losses))):
+        fail("tfnet: the TFNet's constants changed, or its head did not "
+             "train")
+    xs = images(TF_PREDICT_IMAGES)
+    ds = TFDataset.from_ndarrays(xs, batch_per_thread=32)
+    preds = TFPredictor.from_tfnet(Net.load_tf(str(pb), *names), ds).predict()
+    served = np.concatenate([im.do_predict(xs[i:i + 32])
+                             for i in range(0, len(xs), 32)])
+    same = np.array_equal(preds, served)
+    print(f"tfnet: TFPredictor.from_tfnet over a TFDataset of {len(xs)} "
+          f"images (batch {ds.batch_size}): {preds.shape}, bitwise the "
+          f"served probabilities {same}", flush=True)
+    if preds.shape != served.shape or not same:
+        fail("tfnet: TFPredictor.from_tfnet disagrees with the served graph")
+    del im, rim, m, tfnet
+    torch.cuda.empty_cache()
+    print(f"tfnet: 15b took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def tf_missing_phase():
+    """15c: the forms that need a package the card's machine lacks raise
+    its ImportError: ``Net.load_tf(<a SavedModel directory>)``
+    (TensorFlow, to freeze it) and ``Net.load_keras(<an HDF5 file>)``
+    (h5py). Nothing falls back."""
+    import importlib.util
+
+    from analytics_zoo_tpu_torch.net import Net
+
+    TF_DIR.mkdir(parents=True, exist_ok=True)
+    sm = TF_DIR / "saved_model"
+    sm.mkdir(exist_ok=True)
+    (sm / "saved_model.pb").write_bytes(b"")
+    h5 = TF_DIR / "model.h5"
+    h5.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(512))
+    for what, package, call, word in (
+            ("Net.load_tf(<SavedModel dir>)", "tensorflow",
+             lambda: Net.load_tf(str(sm)), "TensorFlow"),
+            ("Net.load_keras(<.h5>)", "h5py",
+             lambda: Net.load_keras(str(h5)), "h5py")):
+        if importlib.util.find_spec(package) is not None:
+            print(f"tf-missing: {package} is installed here, so {what} "
+                  f"does not raise its ImportError: not checked", flush=True)
+            continue
+        try:
+            call()
+        except ImportError as e:
+            print(f"tf-missing: {what} raised {type(e).__name__}: "
+                  f"{str(e)[:160]}", flush=True)
+            if word not in str(e):
+                fail(f"tf-missing: {what}'s ImportError does not name "
+                     f"{package}")
+            continue
+        fail(f"tf-missing: {what} did not raise without {package}")
+
+
+def tf_phase(fa, seed):
+    """Phase 15: 15a the Keras-converted encoder trained and served on the
+    flash kernels, 15b a frozen ResNet-50 served by do_load_tf, 15c the
+    forms that need TensorFlow or h5py raise. Returns 15a's flash launches
+    (15b and 15c launch none)."""
+    t_phase = time.perf_counter()
+    launches = keras_encoder_phase(fa, seed)
+    before = read_launches(fa)
+    tf_resnet_phase(seed + 1)
+    tf_missing_phase()
+    extra = [b - a for a, b in zip(before, read_launches(fa))]
+    if any(extra):
+        fail(f"phase 15b-15c launched flash kernels {extra}: a ResNet-50 "
+             f"has no attention")
+    shutil.rmtree(TF_DIR, ignore_errors=True)
+    print(f"tf: phase 15 took {time.perf_counter() - t_phase:.1f} s "
+          f"({smi_line()})", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8285,6 +9047,9 @@ def main(argv=None) -> int:
     # back after it, so phases 3-13 draw what they drew without it.
     draws = (ctx.generator.get_state(), ctx.step_generator.get_state())
     remat = foreign_phase(fa, args.seed + 14)
+    # -- 15. the TensorFlow importers: a Keras encoder, a frozen graph ---------
+    # (also on the nearly empty card, for the same reason)
+    kenc = tf_phase(fa, args.seed + 15)
     ctx.generator.set_state(draws[0])
     ctx.step_generator.set_state(draws[1])
     torch.cuda.empty_cache()
@@ -8461,7 +9226,7 @@ def main(argv=None) -> int:
         # eager warm-up and its capture)
         "launches": (launches + train_launches[0] + resume_launches[0]
                      + serve_launches + zoo_launches[0] + int8_launches[0]
-                     + fdb["launches"][0] + fly[0] + remat[0]),
+                     + fdb["launches"][0] + fly[0] + remat[0] + kenc[0]),
         # the kernel's runs on the card in CUDA graph replays, which no
         # wrapper sees, in phase 3's traffic and phase 5's traced run:
         # the flash nodes of each bucket's graph (read through the driver)
@@ -8481,11 +9246,13 @@ def main(argv=None) -> int:
             for r in fwd],
     }, bwd_row("dq", 0, "analytics_zoo_tpu/ops/flash_attention.py:323",
                train_launches[1] + resume_launches[1] + zoo_launches[1]
-               + int8_launches[1] + fdb["launches"][1] + fly[1] + remat[1],
+               + int8_launches[1] + fdb["launches"][1] + fly[1] + remat[1]
+               + kenc[1],
                dq_err),
         bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
                 train_launches[2] + resume_launches[2] + zoo_launches[2]
-                + int8_launches[2] + fdb["launches"][2] + fly[2] + remat[2],
+                + int8_launches[2] + fdb["launches"][2] + fly[2] + remat[2]
+                + kenc[2],
                 dkv_err)]
     for row, n, z, lib, q in zip(kernels, detection_launches, zoo_launches,
                                  layer_launches, int8_launches):
@@ -8514,6 +9281,11 @@ def main(argv=None) -> int:
     # forward runs twice a block), counted in launches
     for row, n in zip(kernels, remat):
         row["remat_launches"] = n
+    # phase 15a's (the Keras-converted encoder: its train steps, the
+    # buckets' warm-ups and captures and the eager forwards), counted in
+    # launches
+    for row, n in zip(kernels, kenc):
+        row["keras_encoder_launches"] = n
     print(f"chip_smoke: the whole script took "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -7,12 +7,12 @@ catalog card against CPU, SSD-VGG16-300 trained through ``compile``/``fit``
 over the roi chain, a profiled train step, the trained SSD and
 frcnn-vgg16 served through ``predict_detections``; it exits 1 on a failed
 check. With ``--lr`` it runs only the training (``detection_training``)
-once per learning rate, each for ``--seconds``, prints the loss at 12
+once per learning rate, each for ``--epochs``, prints the loss at 12
 steps spread over the run beside the phase's own lines, and reports a
 failed learning gate without stopping. Needs one CUDA card:
 
     python3 scripts/torch_detection_phase.py [--seed 8]
-        [--lr 1e-4 2e-4 5e-4 --seconds 55]
+        [--lr 1e-4 2e-4 5e-4 --epochs 12]
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=8)
     ap.add_argument("--lr", type=float, nargs="*",
                     help="train only, once per learning rate")
-    ap.add_argument("--seconds", type=float, default=cs.DET_SECONDS,
-                    help="training time per run")
+    ap.add_argument("--epochs", type=int, default=cs.DET_EPOCHS,
+                    help="training epochs per run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_detection_phase: needs a CUDA card", file=sys.stderr)
@@ -46,7 +46,7 @@ def main(argv=None) -> int:
 
     print(cs.smi_line(), torch.__version__, torch.version.cuda, flush=True)
     init_nncontext(seed=0)
-    cs.DET_SECONDS = args.seconds
+    cs.DET_EPOCHS = args.epochs
     if not args.lr:
         t0 = time.perf_counter()
         cs.detection_phase(fa, args.seed)

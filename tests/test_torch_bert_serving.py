@@ -150,8 +150,10 @@ def test_causal_transformer_layer_parity(monkeypatch, route):
 def test_multi_head_attention_parity(monkeypatch, case):
     """The MHA forms BERT does not use: cross-attention (query 128 over
     256 keys, causal) on the kernel route, and the tf.keras query-and-key
-    mask, whose (B,1,S,S) bias is outside the kernel's envelope and falls
-    back to the reference on both sides."""
+    mask: the JAX package's (B,1,S,S) bias is outside the kernel's
+    envelope and falls back to the reference there; the port runs the
+    kernel route with the key-padding bias and gives each padded query
+    the mean of v, which the uniform softmax of a fully masked row is."""
     from analytics_zoo_tpu.keras.layers.attention import (
         MultiHeadAttention as JaxMHA,
     )

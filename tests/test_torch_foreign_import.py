@@ -413,3 +413,154 @@ def test_importing_the_port_needs_neither_h5py_nor_tensorflow(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "h5py-at-call-time"
+
+
+# -- TensorFlow graphs through Net.load_tf (tests/test_foreign_import.py's
+# TF cases; TensorFlow writes the models here) --------------------------
+
+
+@pytest.fixture
+def tf():
+    tf = pytest.importorskip("tensorflow")
+    tf.config.set_visible_devices([], "GPU")
+    return tf
+
+
+def _small_tf_cnn(tf, seed=0):
+    tf.keras.utils.set_random_seed(seed)
+    L = tf.keras.layers
+    return tf.keras.Sequential([
+        L.Input((16, 16, 3)), L.ZeroPadding2D(1),
+        L.Conv2D(8, 3, strides=2, activation="relu"),
+        L.BatchNormalization(), L.MaxPooling2D(2),
+        L.Conv2D(16, 3, padding="same"), L.ReLU(),
+        L.GlobalAveragePooling2D(), L.Dense(10, activation="softmax")])
+
+
+@pytest.mark.parametrize("form", ["saved_model", "frozen_pb"])
+def test_net_load_tf_roundtrip(tf, tmp_path, form):
+    """test_saved_model_roundtrip and test_frozen_pb_roundtrip: Net.load_tf
+    of a SavedModel directory and of a frozen .pb (parsed without
+    TensorFlow) returns a TFNet answering as TF and as the JAX package's."""
+    from tensorflow.python.framework.convert_to_constants import (
+        convert_variables_to_constants_v2,
+    )
+
+    from analytics_zoo_tpu.net import Net as JNet
+    from analytics_zoo_tpu_torch.tfnet import TFNet
+
+    m = _small_tf_cnn(tf, seed=1 if form == "saved_model" else 2)
+    x = np.random.default_rng(1).normal(size=(2, 16, 16, 3)).astype(
+        np.float32)
+    want = m(x, training=False).numpy()
+    if form == "saved_model":
+        args = (str(tmp_path / "sm"),)
+        tf.saved_model.save(m, args[0])
+    else:
+        frozen = convert_variables_to_constants_v2(
+            tf.function(lambda t: m(t)).get_concrete_function(
+                tf.TensorSpec((None, 16, 16, 3), tf.float32)))
+        tf.io.write_graph(frozen.graph.as_graph_def(), str(tmp_path),
+                          "frozen.pb", as_text=False)
+        args = (str(tmp_path / "frozen.pb"), [frozen.inputs[0].name],
+                [frozen.outputs[0].name])
+    net = Net.load_tf(*args)
+    assert isinstance(net, TFNet)
+    got = net.fn(x).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(JNet.load_tf(*args).fn(x)),
+                               rtol=0, atol=1e-6)
+    if form == "frozen_pb":
+        with pytest.raises(ValueError, match="input_names"):
+            Net.load_tf(args[0])
+
+
+@pytest.mark.slow
+def test_resnet50_import_matches_tf(tf):
+    from analytics_zoo_tpu_torch.tfnet import freeze_keras_model
+
+    tf.keras.utils.set_random_seed(0)
+    m = tf.keras.applications.ResNet50(weights=None, input_shape=(64, 64, 3))
+    x = np.random.default_rng(0).normal(size=(2, 64, 64, 3)).astype(
+        np.float32)
+    np.testing.assert_allclose(freeze_keras_model(m)(x).numpy(),
+                               m(x, training=False).numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_tfnet_backbone_transfer_learning(tf):
+    """A frozen imported backbone under a fresh zoo head trains (the
+    TFNet-as-first-layer pattern, ref pyzoo examples/tensorflow/tfnet):
+    the backbone's features equal the JAX package's TFNet's; from the JAX
+    head's initial weights both fits reach the JAX test's bar with the
+    same loss; the backbone's constants stay."""
+    from analytics_zoo_tpu.tfnet import TFNet as JTFNet
+    from analytics_zoo_tpu_torch.interop import load_jax_params
+    from analytics_zoo_tpu_torch.tfnet import TFNet
+
+    tf.keras.utils.set_random_seed(7)
+    backbone = tf.keras.Sequential([
+        tf.keras.layers.Input((8, 8, 1)),
+        tf.keras.layers.Conv2D(4, 3, padding="same", activation="relu"),
+        tf.keras.layers.GlobalAveragePooling2D()])
+    net = TFNet.from_keras(backbone, input_shape=(8, 8, 1))
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 0.3, size=(128, 8, 8, 1)).astype(np.float32)
+    y = (x.mean(axis=(1, 2, 3)) > 0).astype(np.int32)
+    x[y == 1] += 1.0
+    np.testing.assert_allclose(
+        net.fn(x).numpy(),
+        np.asarray(JTFNet.from_keras(backbone, input_shape=(8, 8, 1)).fn(x)),
+        rtol=0, atol=1e-6)
+    consts = {k: v.copy() for k, v in net.fn._consts.items()}
+    models = []
+    for topo, L, backbone_net in (
+            (jtopo, jlayers, JTFNet.from_keras(backbone,
+                                               input_shape=(8, 8, 1))),
+            (ttopo, tlayers, net)):
+        m = topo.Sequential()
+        m.add(backbone_net)
+        m.add(L.Dense(2, activation="softmax"))
+        m.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+        models.append(m)
+    jm, m = models
+    assert m.layers()[0].compute_output_shape((None, 8, 8, 1)) == (None, 4)
+    jest = jm._get_estimator()
+    jest._ensure_state()
+    load_jax_params(m, {k: {n: np.asarray(v) for n, v in d.items()}
+                        for k, d in jest.tstate.params.items()})
+    for each in models:
+        each.fit(x, y, batch_size=32, nb_epoch=8)
+    res, jres = (each.evaluate(x, y, batch_size=32) for each in models)
+    assert res["accuracy"] > 0.85 and jres["accuracy"] > 0.85
+    np.testing.assert_allclose(res["loss"], jres["loss"], rtol=0, atol=TOL)
+    for k, v in consts.items():
+        np.testing.assert_array_equal(net.fn._consts[k], v)
+
+
+def test_conv2d_transpose_matches_tf(tf):
+    """Conv2DBackpropInput honours the recorded output shape and TF's
+    gradient-SAME padding offsets (stride-2 SAME, odd output size)."""
+    from analytics_zoo_tpu_torch.tfnet import freeze_keras_model
+
+    tf.keras.utils.set_random_seed(5)
+    m = tf.keras.Sequential([
+        tf.keras.layers.Input((7, 7, 3)),
+        tf.keras.layers.Conv2DTranspose(5, 3, strides=2, padding="same")])
+    x = np.random.default_rng(5).normal(size=(2, 7, 7, 3)).astype(np.float32)
+    want = m(x).numpy()
+    assert want.shape == (2, 14, 14, 5)
+    np.testing.assert_allclose(freeze_keras_model(m)(x).numpy(), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_graph_function_input_shapes(tf, tmp_path):
+    km = tf.keras.Sequential([
+        tf.keras.layers.Input(shape=(12, 12, 3)),
+        tf.keras.layers.Conv2D(4, 3),
+        tf.keras.layers.GlobalAveragePooling2D()])
+    d = str(tmp_path / "sm")
+    km.export(d) if hasattr(km, "export") else tf.saved_model.save(km, d)
+    shapes = Net.load_tf(d).fn.input_shapes
+    assert len(shapes) == 1 and tuple(shapes[0][1:]) == (12, 12, 3)

@@ -491,9 +491,11 @@ def test_image_classifier_save_load_and_labels(tmp_path):
     with pytest.raises(ValueError, match="unrecognized weights path"):
         tic.load_pretrained_weights(again.model, str(tmp_path / "none"))
     # a Keras .h5 weight file pours by name (tests/test_torch_foreign_
-    # import.py); a missing one is reported as such, and from_pretrained
-    # with a Keras file still needs the architecture converter
+    # import.py); a missing one is reported as such, by load_pretrained_
+    # weights and by from_pretrained, which reads a Keras file through the
+    # architecture converter (tests/test_torch_keras_convert.py)
     with pytest.raises(OSError):
         tic.load_pretrained_weights(again.model, str(tmp_path / "w.h5"))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tic.ImageClassifier.from_pretrained("resnet-50", "w.h5")
+    with pytest.raises(OSError):
+        tic.ImageClassifier.from_pretrained("resnet-50",
+                                            str(tmp_path / "w.h5"))

@@ -106,6 +106,27 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert res.returncode == 0, res.stderr
 
 
+def test_tf_importers_load_no_jax_tensorflow_or_h5py():
+    """The TensorFlow importers (``keras_convert``, ``tfnet`` and its
+    GraphDef reader) and the modules that call them import none of jax,
+    the JAX package, TensorFlow or h5py: those load at call time only."""
+    code = ("import sys\n"
+            "import analytics_zoo_tpu_torch.keras_convert\n"
+            "import analytics_zoo_tpu_torch.tfnet\n"
+            "import analytics_zoo_tpu_torch.tfnet.graphdef\n"
+            "import analytics_zoo_tpu_torch.net\n"
+            "import analytics_zoo_tpu_torch.inference\n"
+            "import analytics_zoo_tpu_torch.tfpark\n"
+            "import analytics_zoo_tpu_torch.models.image.imageclassification\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+            "'analytics_zoo_tpu', 'tensorflow', 'h5py', 'keras')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_init_nncontext_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port.stop_nncontext()

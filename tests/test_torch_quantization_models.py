@@ -5,8 +5,10 @@ float32), and the three accuracy cases of the JAX package's
 ``tests/test_quantization_accuracy.py`` (``:34``, ``:85``, ``:141``) on the
 port, with their bars: at most one argmax flip over 512 samples, a mean
 probability error under 0.02 (weight-only) and 0.03 (calibrated), the
-int8 bytes under 1/3.2 of the float32 ones. The fourth case there needs
-``keras_convert`` (ROADMAP A6).
+int8 bytes under 1/3.2 of the float32 ones; and the fourth, int8 of a
+converted keras.applications model loaded by ``from_pretrained``
+(``:176``), with its bars (the qleaf arithmetic is held to the JAX
+package's bitwise in ``tests/test_torch_quantization.py``).
 """
 
 import numpy as np
@@ -152,3 +154,46 @@ def test_calibrated_int8_ncf_accuracy():
     flipped = int(np.sum(p_f32.argmax(-1) != p_q.argmax(-1)))
     assert flipped <= max(1, n // 1000), flipped
     assert float(np.mean(np.abs(p_q - p_f32))) < 0.03
+
+
+def test_int8_parity_on_converted_applications_model(tmp_path):
+    """The JAX package's fourth case: a keras.applications MobileNetV2
+    (96x96, head biases spread so its predictions are decisive) through
+    from_pretrained(whole-model .h5) -> do_load_keras, then (a) weight-only
+    do_quantize and (b) calibrated int8 on a fresh load, each against the float32
+    predictions with the JAX test's bars."""
+    tf = pytest.importorskip("tensorflow")
+    tf.config.set_visible_devices([], "GPU")
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        ImageClassifier,
+        imagenet_preprocess,
+    )
+
+    tf.keras.utils.set_random_seed(33)
+    km = tf.keras.applications.MobileNetV2(weights=None,
+                                           input_shape=(96, 96, 3))
+    head = km.layers[-1]
+    k, b = head.get_weights()
+    b += np.random.RandomState(5).normal(0, 3.0, b.shape).astype(b.dtype)
+    head.set_weights([k, b])
+    hp = str(tmp_path / "mnv2_full.h5")
+    km.save(hp)
+
+    clf = ImageClassifier.from_pretrained("mobilenet-v2", hp)
+    imgs = np.random.RandomState(2).randint(
+        0, 256, (16, 96, 96, 3)).astype(np.uint8)
+    x = imagenet_preprocess(imgs, clf.preprocess_mode)
+    inf = InferenceModel().do_load_keras(clf.model)
+    p_f32 = inf.do_predict(x)
+    inf.do_quantize()
+    assert len(_qleaves(inf.params)) >= 30
+    p_q = inf.do_predict(x)
+    assert int(np.sum(p_f32.argmax(-1) != p_q.argmax(-1))) == 0
+    assert float(np.mean(np.abs(p_q - p_f32))) < 0.02
+
+    inf2 = InferenceModel().do_load_keras(clf.model)
+    inf2.do_calibrate([x[:8], x[8:]])
+    assert len(_qleaves(inf2.params)) >= 30
+    p_c = inf2.do_predict(x)
+    assert int(np.sum(p_f32.argmax(-1) != p_c.argmax(-1))) == 0
+    assert float(np.mean(np.abs(p_c - p_f32))) < 0.03

@@ -209,13 +209,13 @@ def test_tf_predictor_over_dataset():
         jm, jtp.TFDataset.from_ndarrays(x, batch_per_thread=4)).predict()
     _close(preds, jpreds)
 
-    # a bare batch function over the host arrays
+    # a bare batch function over the host arrays, through the constructor
+    # and through from_tfnet (what Net.load_tf returns behaves like it)
     fn = lambda t: np.tanh(t @ np.ones((6, 2), np.float32))
-    preds2 = ttp.TFPredictor(fn, ds).predict()
-    np.testing.assert_allclose(preds2, np.tanh(x @ np.ones((6, 2))),
-                               atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A6"):
-        ttp.TFPredictor.from_tfnet(fn, ds)
+    for preds2 in (ttp.TFPredictor(fn, ds).predict(),
+                   ttp.TFPredictor.from_tfnet(fn, ds).predict()):
+        np.testing.assert_allclose(preds2, np.tanh(x @ np.ones((6, 2))),
+                                   atol=1e-5)
 
 
 def test_tfpark_keras_model_fit_predict():
@@ -243,5 +243,64 @@ def test_tfpark_keras_model_fit_predict():
         pass
 
     Foreign.__module__ = "keras.src.models.model"
-    with pytest.raises(NotImplementedError, match="A6"):
+    # a keras class with no layer graph: converted as a subclassed model
+    with pytest.raises(NotImplementedError, match="subclassed"):
         ttp.KerasModel(Foreign())
+
+
+def test_tf_predictor_with_real_tfnet():
+    """The primary TFPredictor use case: an imported foreign TF graph
+    (TFNet, ref TFNet.scala:52) predicted over a TFDataset with a masked
+    tail, as TF and the JAX package predict it."""
+    tf = pytest.importorskip("tensorflow")
+    tf.config.set_visible_devices([], "GPU")
+    from analytics_zoo_tpu.tfnet import TFNet as JTFNet
+    from analytics_zoo_tpu_torch.tfnet import TFNet
+
+    km = tf.keras.Sequential([
+        tf.keras.layers.Input(shape=(5,)),
+        tf.keras.layers.Dense(4, activation="relu"),
+        tf.keras.layers.Dense(3, activation="softmax")])
+    x = np.random.default_rng(3).normal(size=(37, 5)).astype(np.float32)
+    preds = ttp.TFPredictor.from_tfnet(
+        TFNet.from_keras(km), ttp.TFDataset.from_ndarrays(
+            x, batch_per_thread=2)).predict()
+    assert preds.shape == (37, 3)
+    np.testing.assert_allclose(preds, km.predict(x, verbose=0), atol=1e-5)
+    jpreds = jtp.TFPredictor.from_tfnet(
+        JTFNet.from_keras(km), jtp.TFDataset.from_ndarrays(
+            x, batch_per_thread=2)).predict()
+    np.testing.assert_allclose(preds, jpreds, rtol=0, atol=1e-6)
+
+
+def test_tf_predictor_multi_input_multi_output_graph():
+    """A two-input, two-output frozen graph: the dataset's feature arrays
+    feed its inputs positionally and the first head is returned, as in
+    the JAX package (tf_predictor.py:35-60)."""
+    tf = pytest.importorskip("tensorflow")
+    tf.config.set_visible_devices([], "GPU")
+    from tensorflow.python.framework.convert_to_constants import (
+        convert_variables_to_constants_v2,
+    )
+
+    from analytics_zoo_tpu import tfnet as jtfnet
+    from analytics_zoo_tpu_torch import tfnet as ttfnet
+
+    w = np.random.default_rng(4).normal(size=(4, 3)).astype(np.float32)
+    concrete = tf.function(lambda a, b: (tf.tanh(a @ w + b), a * 2)) \
+        .get_concrete_function(tf.TensorSpec((None, 4), tf.float32),
+                               tf.TensorSpec((None, 3), tf.float32))
+    frozen = convert_variables_to_constants_v2(concrete)
+    names = ([t.name for t in frozen.inputs], [t.name for t in frozen.outputs])
+    gd = frozen.graph.as_graph_def()
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(11, 4)).astype(np.float32)
+    b = rng.normal(size=(11, 3)).astype(np.float32)
+    preds = ttp.TFPredictor.from_tfnet(
+        ttfnet.GraphFunction(gd, *names),
+        ttp.TFDataset.from_ndarrays([a, b], batch_per_thread=4)).predict()
+    np.testing.assert_allclose(preds, np.tanh(a @ w + b), atol=1e-5)
+    jpreds = jtp.TFPredictor.from_tfnet(
+        jtfnet.GraphFunction(gd, *names),
+        jtp.TFDataset.from_ndarrays([a, b], batch_per_thread=4)).predict()
+    np.testing.assert_allclose(preds, jpreds, rtol=0, atol=1e-6)
