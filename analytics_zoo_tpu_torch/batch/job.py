@@ -12,8 +12,8 @@ loaded model:
   validity mask; ``.prefetch(k)`` assembles batches on a background
   thread so host decode overlaps device compute;
 - **capture cost**: on the card each bucket of the ladder is one CUDA
-  graph of the model, captured once per process (the persistent AOT
-  cache is not ported, ROADMAP A4);
+  graph of the model, captured once per process (the port keeps no
+  persistent executable cache);
 - **dispatch/fetch overlap** like the serving fast path: with
   ``pipeline_depth`` > 0 the loop keeps that many batches enqueued on
   the device (``do_dispatch``: a graph replay and the copy-out of its
@@ -86,10 +86,10 @@ class BatchPredictJob:
       prefetch: background host-batch depth (when adding the stage).
       pipeline_depth: device batches kept in flight before the loop
         blocks on the oldest fetch. 0 = fully synchronous scoring.
-      aot_cache_dir: the persistent executable cache. Not ported
-        (ROADMAP A4): anything but ``None`` raises
-        ``NotImplementedError`` (through the model's ``set_aot_cache``
-        where it has one).
+      aot_cache_dir: the JAX package's persistent executable cache. The
+        port keeps none (``inference.inference_model.NO_AOT_CACHE``):
+        anything but ``None`` raises ``NotImplementedError`` (through
+        the model's ``set_aot_cache`` where it has one).
       sharding_plan: a mesh plan partitioning every bucket. Not ported
         (ROADMAP A7): anything but ``None`` raises
         ``NotImplementedError``.
@@ -125,9 +125,12 @@ class BatchPredictJob:
         if aot_cache_dir is not None:
             if hasattr(model, "set_aot_cache"):
                 model.set_aot_cache(aot_cache_dir)
-            raise NotImplementedError(
-                "BatchPredictJob(aot_cache_dir=) is not ported (ROADMAP "
-                "A4): PyTorch cannot save a CUDA graph")
+            from analytics_zoo_tpu_torch.inference.inference_model import (
+                refuse_aot_cache,
+            )
+
+            refuse_aot_cache(f"BatchPredictJob(aot_cache_dir="
+                             f"{aot_cache_dir!r})")
         if sharding_plan is not None:
             raise NotImplementedError(
                 "BatchPredictJob(sharding_plan=) is not ported (ROADMAP "

@@ -43,9 +43,13 @@ span tracing, a global metrics registry, and compile-event accounting.
   ``LabelStore``) and :func:`drift_metrics` (``zoo_drift_*``,
   ``DriftDetector`` and ``PredictionTracker``).
 
-The JAX package's families for tiers the port does not have yet wait for
-them: distributed metrics (ROADMAP A7) and the persistent AOT cache's
-counters (A4).
+- :func:`distributed_metrics` (``zoo_dist_*``, one call per
+  ``Estimator.train_distributed``); the two-phase sharded commit also
+  counts ``zoo_checkpoint_sweeps_total{kind="orphan_shard"|"dist_abort"}``.
+
+The JAX package's persistent AOT cache counters
+(``zoo_serving_aot_cache_events_total``) have no port: the port keeps no
+persistent executable cache (``inference.inference_model.NO_AOT_CACHE``).
 """
 
 from __future__ import annotations
@@ -963,10 +967,10 @@ def checkpoint_sweep_counters() -> Dict[str, Counter]:
     counts instead of deleting silently: ``staging`` (``ckpt_N.tmp``
     directories from a crash mid-commit), ``uncommitted`` (``ckpt_N``
     husks whose COMMIT marker never landed), ``retention`` (committed
-    checkpoints removed by a ``keep_steps`` sweep). ``orphan_shard`` and
-    ``dist_abort`` belong to the multi-host layout (ROADMAP A7) and stay
-    at 0 in the port; they are kept so the family's children match the
-    JAX package's."""
+    checkpoints removed by a ``keep_steps`` sweep), ``orphan_shard``
+    (undeclared ``host_K/`` directories scrubbed from a committed sharded
+    checkpoint) and ``dist_abort`` (sharded-commit staging swept by the
+    coordinator of :mod:`analytics_zoo_tpu_torch.ft.distributed`)."""
     global _sweep_children
     if _sweep_children is None:
         fam = get_registry().counter(
@@ -978,6 +982,37 @@ def checkpoint_sweep_counters() -> Dict[str, Counter]:
                            for k in ("staging", "uncommitted", "retention",
                                      "orphan_shard", "dist_abort")}
     return _sweep_children
+
+
+def distributed_metrics() -> Dict[str, Any]:
+    """The multi-host training metric children in the global registry
+    (:mod:`analytics_zoo_tpu_torch.ft.distributed` and
+    ``Estimator.train_distributed``): ``steps`` (counter
+    ``zoo_dist_steps_total``: sharded-update optimizer steps completed by
+    this host), ``exchange_seconds`` (summary ``zoo_dist_exchange_seconds``:
+    wall seconds blocked in the cross-host rendezvous per round),
+    ``commits`` (labelled counter ``zoo_dist_commits_total{outcome}``:
+    ``committed``, ``aborted``, ``timeout``) and ``hosts`` (gauge
+    ``zoo_dist_hosts``: the host count of the current run). One call per
+    ``train_distributed``, whose loop holds the children."""
+    reg = get_registry()
+    return {
+        "steps": reg.counter(
+            "zoo_dist_steps_total",
+            "Sharded-update optimizer steps completed by this host in "
+            "multi-host training.").labels(),
+        "exchange_seconds": reg.summary(
+            "zoo_dist_exchange_seconds",
+            "Wall seconds this host spent blocked in the cross-host "
+            "exchange per round.").labels(),
+        "commits": reg.counter(
+            "zoo_dist_commits_total",
+            "Two-phase sharded checkpoint commits by outcome "
+            "(committed/aborted/timeout).", labels=("outcome",)),
+        "hosts": reg.gauge(
+            "zoo_dist_hosts",
+            "Host count of the current multi-host training run.").labels(),
+    }
 
 
 def hot_reload_metrics() -> Dict[str, Any]:

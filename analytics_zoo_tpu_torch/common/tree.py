@@ -62,3 +62,29 @@ def tree_paths(tree, prefix: str = "") -> List[str]:
     for key, sub in items:
         out += tree_paths(sub, f"{prefix}/{key}" if prefix else key)
     return out
+
+
+def jax_leaf_order(tree) -> List[int]:
+    """The positions in :func:`tree_leaves`'s order of the leaves in the
+    order JAX flattens the same tree: dict keys sorted, sequences and
+    named-tuple fields in order. What ``ravel_pytree`` and the JAX
+    package's checkpoint keys follow, where :func:`tree_leaves` keeps a
+    dict's insertion order."""
+    counter = iter(range(1 << 62))
+    positions = tree_map(lambda _: next(counter), tree)
+    out: List[int] = []
+
+    def walk(node):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key])
+        elif isinstance(node, (list, tuple)):
+            for sub in node:
+                walk(sub)
+        else:
+            out.append(node)
+
+    walk(positions)
+    return out

@@ -58,20 +58,30 @@ set's index upload, or a launch once CUDA's launch queue is full. The
 watchdog is paused around the epoch-end checkpoint and validation, and
 around a preemption's save.
 
-Not ported yet, and raising ``NotImplementedError`` where the JAX package
-has a setter or an entry point: ZeRO-1, ``train_distributed`` and
-``train_pipelined``.
+Multi-host data-parallel training (``train_distributed``) runs N host
+processes in lockstep through :mod:`analytics_zoo_tpu_torch.ft.distributed`:
+each host takes its rows of every global batch, the hosts exchange
+gradient sums through a filesystem rendezvous, each updates its window of
+the flat parameter vector and the windows are exchanged back; checkpoints
+are two-phase sharded commits. ``zero1=True`` is accepted: on the port's
+one-device data axis there is nothing to shard, so its trajectory is the
+plain one, as the JAX package's is on a one-device mesh.
+
+Not ported yet, and raising ``NotImplementedError``: ``train_pipelined``
+(ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import os
 import sys
 import threading
 import time
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.nncontext import (
@@ -84,8 +94,10 @@ from analytics_zoo_tpu_torch.common.observability import (
     training_metrics,
 )
 from analytics_zoo_tpu_torch.common.tree import (
+    jax_leaf_order,
     tree_leaves,
     tree_map,
+    tree_paths,
     tree_unflatten,
 )
 from analytics_zoo_tpu_torch.engine import checkpoint as ckpt_lib
@@ -133,8 +145,22 @@ def _closing(stream, batches):
         stream.close()
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
+def _round_batch(batch_size: int, n_data: int) -> int:
+    """The sharded-batch contract: the global batch divides across the
+    data axis; rounded up (the wrap-padded rows are masked)."""
+    rounded = -(-batch_size // n_data) * n_data
+    if rounded != batch_size:
+        logger.info("batch_size %d rounded up to %d (data axis = %d shards)",
+                    batch_size, rounded, n_data)
+    return rounded
+
+
+def _jax_flatten(tree) -> list:
+    """``engine.checkpoint.flatten`` in JAX's leaf order (dict keys
+    sorted): the order in which the JAX package assigns a sharded
+    checkpoint's leaves to hosts."""
+    flat = ckpt_lib.flatten(tree)
+    return [flat[i] for i in jax_leaf_order(tree)]
 
 
 def _host_stat(t):
@@ -152,6 +178,19 @@ def _masked_mean(ps, mask):
         return ps.mean(), torch.tensor(float(ps.shape[0]), device=ps.device)
     count = mask.sum()
     return (ps * mask).sum() / torch.clamp_min(count, 1.0), count
+
+
+def _dense_grads(grads, leaves, trainable):
+    """``torch.autograd.grad``'s list with an unused leaf's None as zeros
+    and, where ``trainable`` (a bool per leaf) is given, frozen leaves'
+    grads zeroed: BEFORE the transform, so they neither inflate the clip
+    norm nor feed moments."""
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+    if trainable is not None:
+        grads = [g if t else torch.zeros_like(g)
+                 for g, t in zip(grads, trainable)]
+    return grads
 
 
 def _clip_by_global_norm(grads, max_norm: float):
@@ -361,7 +400,13 @@ class TrainState(NamedTuple):
 class Estimator:
     """Uniform train/evaluate/predict facade over a model that implements
     ``ensure_params``/``params``, ``apply(params, state, x, training, rng)``,
-    ``layers()`` and ``regularization(params)`` (``KerasNet`` does)."""
+    ``layers()`` and ``regularization(params)`` (``KerasNet`` does).
+
+    ``zero1=True`` (ZeRO-1: optimizer moments sharded over the data axis)
+    is accepted and shards nothing: the port's data axis is one device, so
+    the trajectory is the plain one, as the JAX package's is on a
+    one-device mesh; ``train_distributed`` refuses it, its sharded update
+    already keeping 1/N of the optimizer state per host."""
 
     # True: each train step also records the host seconds spent producing
     # its batch (``batch_seconds``) and, on the card, a CUDA event after
@@ -374,9 +419,8 @@ class Estimator:
                      GradientTransformation] = None,
                  model_dir: Optional[str] = None, zero1: bool = False,
                  gradient_accumulation: int = 1):
-        if zero1:
-            _not_ported("ZeRO-1")
         self.model = model
+        self.zero1 = bool(zero1)  # see the class docstring
         self.optim_method = optim_method
         # K > 1: apply the optimizer every Kth micro-batch on the
         # count-weighted mean of the K gradients (count_weighted_accumulation);
@@ -411,6 +455,9 @@ class Estimator:
         self.step_events: List[Any] = []
         self._profile: Optional[tuple] = None
         self._watchdog: Optional[tuple] = None
+        # with time_steps, train_distributed's per-step host seconds on a
+        # multi-host run: {"compute", "exchange", "update"}
+        self.dist_timings: List[dict] = []
 
     # -- configuration ---------------------------------------------------
 
@@ -503,11 +550,10 @@ class Estimator:
         self._profile = (log_dir, int(start_iteration), int(num_iterations))
         return self
 
-    def train_distributed(self, *args, **kwargs):
-        _not_ported("train_distributed")
-
     def train_pipelined(self, *args, **kwargs):
-        _not_ported("train_pipelined")
+        raise NotImplementedError(
+            "train_pipelined is not ported yet (ROADMAP A7: stage plans "
+            "and microbatch schedules)")
 
     def _tx(self):
         if self.optim_method is None:
@@ -528,9 +574,14 @@ class Estimator:
             clip = None
         if clip is not None:
             opt = tx
-            tx = GradientTransformation(
-                opt.init, lambda grads, state, params=None: opt.update(
-                    clip(grads), state, params))
+
+            def clipped(grads, state, params=None):
+                return opt.update(clip(grads), state, params)
+
+            if hasattr(opt.update, "optax_leaves"):
+                # optax's clip transforms keep no state
+                clipped.optax_leaves = opt.update.optax_leaves
+            tx = GradientTransformation(opt.init, clipped)
         if self.gradient_accumulation > 1:
             # clipping applies to the window's mean gradient, as in the
             # big-batch run
@@ -641,21 +692,27 @@ class Estimator:
         # the in-epoch offset and the dropout stream: with both, the resumed
         # run takes the uninterrupted run's batches and draws
         rs.epoch_step = int(meta.get("epoch_step", 0))
-        if "step_generator" in meta:
-            state = torch.tensor(list(bytes.fromhex(meta["step_generator"])),
-                                 dtype=torch.uint8)
-            try:
-                self.ctx.step_generator.set_state(state)
-            except RuntimeError as e:
-                logger.warning("checkpoint %s: the step generator's position "
-                               "was saved on another device type (%s); the "
-                               "dropout stream restarts", path, e)
+        self._restore_step_generator(meta, path)
         # a streamed run's checkpoint carries the pipeline's stream
         # position, held until the next train() has the Pipeline object to
         # validate it against (load_state_dict rejects a stream-shape
         # mismatch)
         self._restored_data_state = meta.get("pipeline")
         return self
+
+    def _restore_step_generator(self, meta: dict, path: str) -> None:
+        """Put the step generator (the dropout stream) where checkpoint
+        ``path`` saved it, when it did."""
+        if "step_generator" not in meta:
+            return
+        state = torch.tensor(list(bytes.fromhex(meta["step_generator"])),
+                             dtype=torch.uint8)
+        try:
+            self.ctx.step_generator.set_state(state)
+        except RuntimeError as e:
+            logger.warning("checkpoint %s: the step generator's position "
+                           "was saved on another device type (%s); the "
+                           "dropout stream restarts", path, e)
 
     def _cast_for_compute(self, tree):
         """Mixed precision: float32 leaves cast to the model's compute
@@ -693,6 +750,37 @@ class Estimator:
 
     # -- the train step --------------------------------------------------
 
+    def _make_forward(self, criterion: Callable,
+                      device_transform: Optional[Callable] = None
+                      ) -> Callable:
+        """``forward(params, model_state, xs, y, per_sample, rng) ->
+        (losses, new_model_state)``: the training forward
+        (``device_transform`` first) and the criterion, the one loss
+        contract of the plain and the distributed step. ``losses`` is a
+        per-sample vector when ``per_sample`` and the criterion has a
+        per-sample form, or when the criterion returns rows (each averaged
+        to one value); else the criterion's scalar."""
+        model, cast = self.model, self._cast_for_compute
+        ps_criterion = objectives_lib.get_per_sample(criterion)
+
+        def forward(params, model_state, xs, y, per_sample, rng):
+            if device_transform is not None:
+                xs = device_transform(xs)
+            pred, new_state = model.apply(cast(params), model_state,
+                                          cast(xs), training=True, rng=rng)
+            if isinstance(pred, torch.Tensor):
+                # a multi-output model's list stays as it is, as in the
+                # JAX package
+                pred = pred.float()
+            if per_sample and ps_criterion is not None:
+                return ps_criterion(y, pred), new_state
+            raw = criterion(y, pred)
+            if raw.dim():
+                return raw.reshape(raw.shape[0], -1).mean(dim=-1), new_state
+            return raw, new_state
+
+        return forward
+
     def _make_train_step(self, criterion: Callable,
                          device_transform: Optional[Callable] = None
                          ) -> Callable:
@@ -700,34 +788,22 @@ class Estimator:
         (``device_transform`` first), backward and update."""
         tx = self._tx()
         accumulate = self.gradient_accumulation > 1
-        model, cast = self.model, self._cast_for_compute
+        model = self.model
         generator = self.ctx.step_generator
-        ps_criterion = objectives_lib.get_per_sample(criterion)
+        forward = self._make_forward(criterion, device_transform)
         update_mask = self._update_mask(self.tstate.params)
         trainable = (None if update_mask is None
                      else tree_leaves(update_mask))
 
         def loss_fn(params, model_state, xs, y, mask):
-            if device_transform is not None:
-                xs = device_transform(xs)
-            pred, new_state = model.apply(cast(params), model_state,
-                                          cast(xs), training=True,
-                                          rng=generator)
-            if isinstance(pred, torch.Tensor):
-                # a multi-output model's list stays as it is, as in the
-                # JAX package
-                pred = pred.float()
-            if mask is not None and ps_criterion is not None:
-                # wrap-pad duplicates get zero loss weight
-                loss, count = _masked_mean(ps_criterion(y, pred), mask)
+            # wrap-pad duplicates get zero loss weight
+            losses, new_state = forward(params, model_state, xs, y,
+                                        mask is not None, generator)
+            if losses.dim():
+                loss, count = _masked_mean(losses, mask)
             else:
-                raw = criterion(y, pred)
-                if raw.dim():
-                    loss, count = _masked_mean(
-                        raw.reshape(raw.shape[0], -1).mean(dim=-1), mask)
-                else:
-                    loss, count = raw, torch.tensor(
-                        float(tree_leaves(y)[0].shape[0]), device=raw.device)
+                loss, count = losses, torch.tensor(
+                    float(tree_leaves(y)[0].shape[0]), device=losses.device)
             return loss + model.regularization(params), new_state, loss, count
 
         def step(tstate: TrainState, xs, y, mask):
@@ -739,14 +815,8 @@ class Estimator:
                     tstate.model_state, xs, y, mask)
                 grads = torch.autograd.grad(total, leaves, allow_unused=True)
             with torch.no_grad():
-                grads = [torch.zeros_like(p) if g is None else g
-                         for g, p in zip(grads, leaves)]
-                if trainable is not None:
-                    # frozen grads are zeroed BEFORE the transform, so they
-                    # neither inflate the clip norm nor feed moments
-                    grads = [g if t else torch.zeros_like(g)
-                             for g, t in zip(grads, trainable)]
-                grads = tree_unflatten(tstate.params, grads)
+                grads = tree_unflatten(tstate.params,
+                                       _dense_grads(grads, leaves, trainable))
                 if accumulate:
                     updates, new_opt = tx.update(grads, tstate.opt_state,
                                                  tstate.params, count)
@@ -973,6 +1043,466 @@ class Estimator:
                 profile.stop()
                 if profile.started:
                     self._profile = None  # one-shot: the next train()
+            self._write_back()
+        return self
+
+    # -- multi-host data-parallel training (ft/distributed.py) -----------
+
+    def _make_dist_grad(self, criterion: Callable,
+                        device_transform: Optional[Callable] = None):
+        """The N > 1 gradient step on this host's device: the gradient of
+        the SUM of the window's per-sample losses plus the valid-sample
+        count, so the cross-host combine is ``(sum of gsum) / (sum of
+        count) + greg`` in fixed host order, the same on every host. The
+        regularization's gradient ``greg`` is computed apart, on the
+        (replicated) parameters, so every host holds the whole of it and
+        adds it once, as ``train()`` does. (The JAX package adds
+        ``greg / num_hosts`` on each host, which applies 1/N of the
+        penalty's gradient; the port does not copy that.)
+        Returns ``(fn, update_mask)``; ``fn(params, model_state, xs, y,
+        mask, generator)`` gives ``(gsum_vec, greg_vec or None, loss_sum,
+        count, new_model_state)``, the vectors in JAX's flat order on the
+        device."""
+        model = self.model
+        forward = self._make_forward(criterion, device_transform)
+        update_mask = self._update_mask(self.tstate.params)
+        trainable = (None if update_mask is None
+                     else tree_leaves(update_mask))
+        order = jax_leaf_order(self.tstate.params)
+
+        def flat(grads, leaves):
+            grads = _dense_grads(grads, leaves, trainable)
+            return torch.cat([grads[i].reshape(-1) for i in order])
+
+        def grad_step(params, model_state, xs, y, mask, generator):
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(params)]
+            tree = tree_unflatten(params, leaves)
+            with torch.enable_grad():
+                losses, new_state = forward(tree, model_state, xs, y, True,
+                                            generator)
+                if losses.dim():
+                    loss_sum, count = (losses * mask).sum(), mask.sum()
+                else:
+                    # a scalar-only criterion: the batch mean counts as
+                    # exact
+                    rows = float(tree_leaves(y)[0].shape[0])
+                    loss_sum = losses * rows
+                    count = torch.tensor(rows, device=losses.device)
+                grads = torch.autograd.grad(loss_sum, leaves,
+                                            allow_unused=True)
+                reg = model.regularization(tree)
+                greg = (torch.autograd.grad(reg, leaves, allow_unused=True)
+                        if isinstance(reg, torch.Tensor) and reg.requires_grad
+                        else None)
+            with torch.no_grad():
+                gvec = flat(grads, leaves)
+                rvec = None if greg is None else flat(greg, leaves)
+            return (gvec, rvec, loss_sum.detach(), count.float(),
+                    new_state)
+
+        return grad_step, update_mask
+
+    def _host_generator(self, iteration: int, host_id: int):
+        """Host ``host_id``'s dropout stream at ``iteration`` of a
+        multi-host run: a generator on the device seeded from the
+        context's seed, the iteration and the host, so each host draws its
+        own masks (the JAX package folds the device index into the step's
+        key) and a resumed run draws what the uninterrupted one drew."""
+        seed = (int(self.ctx.conf.seed) * 1_000_003 + int(iteration)) \
+            * 1_009 + int(host_id)
+        gen = torch.Generator(device=self.ctx.device)
+        return gen.manual_seed(seed % (1 << 63))
+
+    def _dist_batches(self, data, global_batch: int, epoch: int, skip: int,
+                      window):
+        """This host's device (x, y, mask) rows ``window`` of every global
+        training batch of ``epoch``, without the first ``skip`` batches;
+        the whole batch when ``window`` is None."""
+        if window is None:
+            yield from self._batches(data, global_batch, epoch, skip)
+            return
+        if not hasattr(data, "train_index_batches"):
+            raise TypeError(
+                f"train_distributed over several hosts needs a feature set "
+                f"with train_index_batches, not {type(data).__name__}")
+        lo, hi = window
+        dev = self.ctx.device
+        gather = getattr(data, "gather", None)
+        batches = data.train_index_batches(global_batch, shuffle=True,
+                                           seed=epoch)
+        for idx, mask in itertools.islice(batches, skip, None):
+            idx, mask = idx[lo:hi], mask[lo:hi]
+            if gather is not None:
+                x, y = gather(torch.tensor(idx, device=dev))
+            else:
+                x, y = data.take(idx)
+                x, y = self._to_device(x), self._to_device(y)
+            yield x, y, torch.tensor(mask, device=dev)
+
+    def _write_dist_checkpoint(self, dist, updater, opt_shard) -> str:
+        """Synchronous two-phase sharded save of the current state: every
+        host stages its round-robin share of the flattened
+        params/model_state/step tree (JAX's leaf order) plus its own
+        optimizer shard; the coordinator validates, merges and commits
+        (:func:`~analytics_zoo_tpu_torch.ft.distributed
+        .commit_sharded_checkpoint`). Raises DistTimeoutError or
+        DistCommitError on failure; the caller decides whether that is
+        fatal."""
+        from analytics_zoo_tpu_torch.ft import distributed as dist_lib
+
+        rs = self.run_state
+        shared_flat = _jax_flatten({"params": self.tstate.params,
+                                    "model_state": self.tstate.model_state,
+                                    "step": self.tstate.step})
+        if dist.num_hosts == 1:
+            # the single host trains the per-leaf state: checkpoint the
+            # flat layout, which any host count restores
+            opt_shard = updater.tree_to_flat(opt_shard)
+        mine = (dist_lib.split_round_robin(shared_flat, dist.host_id,
+                                           dist.num_hosts)
+                + updater.opt_flat(opt_shard))
+        expected = ({k for k, _ in shared_flat}
+                    | updater.expected_opt_keys())
+        metadata = {"epoch": rs.epoch, "iteration": rs.iteration,
+                    "epoch_step": rs.epoch_step,
+                    "gradient_accumulation": self.gradient_accumulation,
+                    "step_generator": _generator_state(
+                        self.ctx.step_generator),
+                    "dist": {"num_hosts": dist.num_hosts,
+                             "flat_size": updater.flat_size,
+                             "slice_len": updater.slice_len,
+                             "opt_leaves": updater.opt_leaf_count}}
+        path = os.path.join(self._checkpoint_path, f"ckpt_{rs.iteration}")
+        with get_tracer().span("train.checkpoint", iteration=rs.iteration,
+                               dist=True):
+            dist_lib.commit_sharded_checkpoint(
+                path, mine, host_id=dist.host_id,
+                num_hosts=dist.num_hosts, expected_keys=expected,
+                metadata=metadata, commit_id=dist.commit_id(rs.iteration),
+                timeout_s=dist.timeout_s,
+                overwrite=self._checkpoint_overwrite)
+        if dist.is_coordinator:
+            self._checkpoint_manager().sweep(rs.iteration)
+        return path
+
+    def _resume_distributed(self, dist, updater):
+        """Restore the newest committed checkpoint for a distributed run:
+        the params/model_state/step tree by KEY (a sharded manifest orders
+        leaves by owning host), the optimizer shards resliced for this
+        run's host count, the counters and the step generator. Falls back
+        over corrupt checkpoints as :meth:`resume_from_checkpoint` does.
+        Returns ``(opt_shard or None, resumed)``."""
+        from analytics_zoo_tpu_torch.ft import atomic
+
+        if dist.is_coordinator:
+            atomic.sweep_stale(self._checkpoint_path)
+        dist.barrier()  # nobody lists the directory until the sweep is done
+        candidates = atomic.committed_checkpoints(self._checkpoint_path)
+        if not candidates:
+            return None, False
+        shared = {"params": self.tstate.params,
+                  "model_state": self.tstate.model_state,
+                  "step": self.tstate.step}
+        dev = self.ctx.device
+        last_err = None
+        for _step, path in reversed(candidates):
+            try:
+                flat, meta = atomic.read_checkpoint(path)
+                fm = dict(flat)
+                leaves = []
+                for key, like in zip(tree_paths(shared),
+                                     tree_leaves(shared)):
+                    if key not in fm:
+                        raise CheckpointCorruptError(
+                            f"checkpoint {path!r}: leaf {key!r} missing")
+                    arr = fm[key]
+                    want = tuple(getattr(like, "shape", ()))
+                    if tuple(arr.shape) != want:
+                        raise ValueError(
+                            f"Checkpoint {path!r}: leaf {key!r} has shape "
+                            f"{tuple(arr.shape)}, target expects {want}")
+                    leaves.append(arr)
+                dist_meta = (meta or {}).get("dist")
+                if dist_meta is None:
+                    raise CheckpointCorruptError(
+                        f"checkpoint {path!r} carries no 'dist' metadata: "
+                        "not a distributed checkpoint")
+                restored = tree_unflatten(shared, leaves)
+                opt_shard = updater.restore_opt(
+                    fm, dist_meta, device=dev, step=int(restored["step"]))
+            except CheckpointCorruptError as e:
+                logger.warning("checkpoint %s is corrupt (%s): trying the "
+                               "previous committed one", path, e)
+                last_err = e
+                continue
+            with torch.inference_mode(False):
+                params, mstate = (
+                    tree_map(lambda a: torch.tensor(a, device=dev), tree)
+                    for tree in (restored["params"],
+                                 restored["model_state"]))
+            self.tstate = TrainState(params, mstate, None,
+                                     int(restored["step"]))
+            self._write_back()
+            rs = self.run_state
+            rs.epoch = int(meta.get("epoch", 0))
+            rs.iteration = int(meta.get("iteration", 0))
+            rs.epoch_step = int(meta.get("epoch_step", 0))
+            self._restore_step_generator(meta, path)
+            logger.info("host %d resumed from %s (epoch %d, iteration %d, "
+                        "written by %d host(s))", dist.host_id, path,
+                        rs.epoch, rs.iteration, int(dist_meta["num_hosts"]))
+            return opt_shard, True
+        raise CheckpointError(
+            f"every checkpoint under {self._checkpoint_path!r} is corrupt"
+        ) from last_err
+
+    def train_distributed(self, train_set, criterion: Callable,
+                          end_trigger: Optional[trig.Trigger] = None,
+                          checkpoint_trigger: Optional[trig.Trigger] = None,
+                          batch_size: int = 32,
+                          auto_resume: bool = False,
+                          dist=None, mesh_config=None) -> "Estimator":
+        """Multi-host data-parallel training with sharded optimizer
+        updates and two-phase sharded checkpoints.
+
+        ``dist`` is this host's
+        :class:`~analytics_zoo_tpu_torch.ft.distributed.DistContext`
+        (default: a single-host context, whose trajectory is bitwise
+        :meth:`train`'s). ``batch_size`` is the GLOBAL batch, rounded up to
+        divide ``num_hosts x`` the local data axis (one device); each host
+        takes its contiguous row window of every batch. Per step each host
+        computes the gradient of the sum of its window's per-sample losses
+        on its device, the hosts all-gather ``(grad-sum, loss-sum,
+        count)`` through the rendezvous and combine them in fixed host
+        order, and the optimizer update runs sharded: host k updates the
+        k-th window of the flattened parameter vector
+        (:class:`~analytics_zoo_tpu_torch.ft.distributed.ShardedUpdater`,
+        1/N of the optimizer state per host), then the updated windows
+        are exchanged and reassembled. Each host draws its own dropout
+        masks (:meth:`_host_generator`).
+
+        Checkpoints (``set_checkpoint``) are synchronous two-phase sharded
+        commits; a failed save (a peer's death, a validation abort) is
+        recorded and re-raised at the next save attempt or at the end of
+        training, which itself continues. A preemption flagged on ANY host
+        (``set_preemption_handler``) travels with the next gradient
+        exchange: every host then saves coordinately and raises
+        :class:`~analytics_zoo_tpu_torch.ft.preemption.PreemptedError`.
+        ``auto_resume=True`` restores the newest committed checkpoint, one
+        written by another host count too (the optimizer shards reshard).
+
+        Not supported here: ``gradient_accumulation > 1``, L2-norm
+        clipping (it needs the global norm before the update is sliced)
+        and ``zero1`` (superseded by the sharded update). ``model_state``
+        stays each host's own (no cross-host batch-norm statistics)."""
+        from analytics_zoo_tpu_torch.common.observability import (
+            distributed_metrics,
+        )
+        from analytics_zoo_tpu_torch.ft import distributed as dist_lib
+        from analytics_zoo_tpu_torch.ft.preemption import PreemptedError
+        from analytics_zoo_tpu_torch.mesh.config import MeshConfig
+
+        if self.gradient_accumulation > 1:
+            raise NotImplementedError(
+                "train_distributed does not support gradient_accumulation "
+                "> 1 (the accumulator state is not shard-partitionable)")
+        if self._clip_l2norm is not None:
+            raise NotImplementedError(
+                "train_distributed does not support L2-norm clipping: the "
+                "global norm needs every gradient before the update is "
+                "sliced; use constant clipping")
+        if self.zero1:
+            raise NotImplementedError(
+                "zero1 is superseded by the sharded update in "
+                "train_distributed (optimizer state is already 1/N per "
+                "host)")
+        if dist is None:
+            dist = dist_lib.DistContext(0, 1)
+        self._ensure_state()
+        single = dist.num_hosts == 1
+        mesh_cfg = mesh_config or MeshConfig.host_local_data()
+        global_batch = _round_batch(
+            batch_size, dist.num_hosts * mesh_cfg.axis_length("data"))
+        per_host = global_batch // dist.num_hosts
+        tx = self._tx()
+        updater = dist_lib.ShardedUpdater(
+            tx, self.tstate.params, dist.host_id, dist.num_hosts, mesh_cfg)
+        # the full optimizer state is dead weight on several hosts: the
+        # updater's shard (1/N) is the live state
+        self.tstate = self.tstate._replace(opt_state=None)
+        opt_shard, resumed = None, False
+        if (auto_resume and self._checkpoint_path is not None
+                and self.run_state.iteration == 0):
+            opt_shard, resumed = self._resume_distributed(dist, updater)
+            if opt_shard is not None and single:
+                # the single host runs the plain per-leaf step: keep its
+                # state in the tree layout it trains with
+                opt_shard = updater.to_tree_state(opt_shard)
+        if opt_shard is None:
+            opt_shard = (self._init_opt_state(self.tstate.params) if single
+                         else updater.init_opt(self.tstate.params))
+
+        rs = self.run_state
+        end_trigger = end_trigger or trig.MaxEpoch(rs.epoch + 1)
+        checkpoint_trigger = checkpoint_trigger or trig.EveryEpoch()
+        transform = getattr(train_set, "device_transform", None)
+        if single:
+            plain_step = self._make_train_step(criterion, transform)
+            mask_vec = None
+        else:
+            grad_fn, update_mask = self._make_dist_grad(criterion,
+                                                        transform)
+            mask_vec = updater.mask_vector(self.tstate.params, update_mask)
+        window = (None if single else
+                  (dist.host_id * per_host, (dist.host_id + 1) * per_host))
+        dm = distributed_metrics()
+        dm["hosts"].set(dist.num_hosts)
+        obs = training_metrics()
+        tracer = get_tracer()
+        save_error: List[Optional[BaseException]] = [None]
+        # the just-resumed iteration is already committed: a trigger firing
+        # at the same step must not commit over the checkpoint restored from
+        last_saved = [rs.iteration if resumed else -1]
+        # the in-band preemption bit, exchanged with the gradients so that
+        # ALL hosts save and exit at the same step
+        preempt_flag = [False]
+        if self._preemption is not None:
+            self._preemption.add_listener(
+                lambda: preempt_flag.__setitem__(0, True))
+
+        def _save(coordinated_exit=False):
+            if save_error[0] is not None:
+                err, save_error[0] = save_error[0], None
+                raise err
+            if self._checkpoint_path is None:
+                return None
+            if last_saved[0] == rs.iteration:
+                return os.path.join(self._checkpoint_path,
+                                    f"ckpt_{rs.iteration}")
+            try:
+                path = self._write_dist_checkpoint(
+                    dist, updater,
+                    self.tstate.opt_state if single else opt_shard)
+            except (dist_lib.DistTimeoutError,
+                    dist_lib.DistCommitError) as e:
+                if coordinated_exit:
+                    raise
+                logger.error("distributed checkpoint at iteration %d "
+                             "failed (%s): training continues; the error "
+                             "re-raises at the next save attempt",
+                             rs.iteration, e)
+                save_error[0] = e
+                return None
+            last_saved[0] = rs.iteration
+            return path
+
+        def _coordinated_preempt():
+            path = _save(coordinated_exit=True)
+            logger.warning("preemption: distributed checkpoint %s committed "
+                           "at iteration %d: exiting", path, rs.iteration)
+            raise PreemptedError(
+                f"training preempted at iteration {rs.iteration}"
+                + (f"; checkpoint committed at {path}" if path else
+                   " (no checkpoint directory configured: state NOT "
+                   "saved)"),
+                checkpoint_path=path)
+
+        if single:
+            self.tstate = self.tstate._replace(opt_state=opt_shard)
+        try:
+            while not end_trigger(rs):
+                rs.epoch_finished = False
+                epoch_start = time.time()
+                epoch_loss, epoch_batches = 0.0, 0
+                stream = self._dist_batches(train_set, global_batch,
+                                            rs.epoch, rs.epoch_step, window)
+                for xs, y, mask in _closing(stream, stream):
+                    if single:
+                        with tracer.span("train.dispatch", kind="dist_step"):
+                            self.tstate, loss = plain_step(self.tstate, xs,
+                                                           y, mask)
+                        loss_val = loss.item()
+                    else:
+                        t0 = time.perf_counter()
+                        gvec, greg, ls, cnt, new_mstate = grad_fn(
+                            self.tstate.params, self.tstate.model_state,
+                            xs, y, mask,
+                            self._host_generator(rs.iteration, dist.host_id))
+                        payload = {"g": gvec.cpu().numpy(),
+                                   "ls": ls.cpu().numpy(),
+                                   "c": cnt.cpu().numpy(),
+                                   "flag": np.asarray(
+                                       1.0 if preempt_flag[0] else 0.0,
+                                       np.float32)}
+                        t1 = time.perf_counter()
+                        red = dist.allreduce_sum(payload)
+                        t2 = time.perf_counter()
+                        dm["exchange_seconds"].observe(t2 - t1)
+                        count_total = float(red["c"])
+                        g = red["g"] / max(count_total, 1.0)
+                        if greg is not None:
+                            g = g + greg.cpu().numpy()
+                        g_full = np.zeros((updater.padded_size,), np.float32)
+                        g_full[: updater.flat_size] = g
+                        loss_val = float(red["ls"]) / max(count_total, 1.0)
+                        if float(red["flag"]) > 0:
+                            preempt_flag[0] = True
+                        with tracer.span("train.dispatch", kind="dist_step"):
+                            new_slice, opt_shard = updater.step(
+                                self.tstate.params, g_full, opt_shard,
+                                mask_vec)
+                            new_slice = new_slice.cpu().numpy()
+                        t3 = time.perf_counter()
+                        parts = dist.exchange({"s": new_slice})
+                        t4 = time.perf_counter()
+                        dm["exchange_seconds"].observe(t4 - t3)
+                        with torch.inference_mode(False):
+                            new_params = updater.assemble(
+                                [p["s"] for p in parts], self.ctx.device)
+                        self.tstate = TrainState(new_params, new_mstate,
+                                                 None, self.tstate.step + 1)
+                        if self.time_steps:
+                            self.dist_timings.append({
+                                "compute": t1 - t0,
+                                "exchange": (t2 - t1) + (t4 - t3),
+                                "update": (t3 - t2)
+                                + (time.perf_counter() - t4)})
+                    rs.iteration += 1
+                    rs.epoch_step += 1
+                    rs.loss = loss_val
+                    self.train_losses.append(loss_val)
+                    epoch_loss += loss_val
+                    epoch_batches += 1
+                    dm["steps"].inc()
+                    obs["steps"].inc()
+                    if self.train_summary is not None:
+                        self.train_summary.add_scalar("Loss", loss_val,
+                                                      rs.iteration)
+                    if preempt_flag[0] or (self._preemption is not None
+                                           and self._preemption.requested):
+                        _coordinated_preempt()
+                    if end_trigger(rs):
+                        break
+                    if (checkpoint_trigger(rs) and not isinstance(
+                            checkpoint_trigger, trig.EveryEpoch)):
+                        _save()
+                rs.epoch += 1
+                rs.epoch_step = 0
+                rs.epoch_finished = True
+                logger.info("Epoch %d done in %.2fs: mean loss %.5f (host %d "
+                            "of %d)", rs.epoch, time.time() - epoch_start,
+                            epoch_loss / max(epoch_batches, 1),
+                            dist.host_id, dist.num_hosts)
+                if checkpoint_trigger(rs):
+                    _save()
+                if preempt_flag[0] or (self._preemption is not None
+                                       and self._preemption.requested):
+                    _coordinated_preempt()
+            if save_error[0] is not None:
+                err, save_error[0] = save_error[0], None
+                raise err
+        finally:
             self._write_back()
         return self
 

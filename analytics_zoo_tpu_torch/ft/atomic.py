@@ -17,9 +17,15 @@ committed directory (:class:`CheckpointCorruptError`) and a restore into a
 mismatched structure fails naming the key. Every kill site is a
 :mod:`analytics_zoo_tpu_torch.ft.chaos` failure point.
 
+A multi-host checkpoint (written by the two-phase commit of
+:mod:`analytics_zoo_tpu_torch.ft.distributed`) keeps each host's leaves in
+its own ``host_K/arrays.npz`` beside a ``shard.json``; the merged
+``manifest.json`` carries a ``"shards"`` section, and each of its leaf
+records names the owning host and the leaf's index there. Every reader
+here accepts both layouts.
+
 The bytes on disk are the JAX package's, so each package reads what the
-other wrote. Left out until the distributed port (ROADMAP A7): the
-multi-host layout (``host_K/`` shards under a merged manifest).
+other wrote, sharded checkpoints included.
 """
 
 from __future__ import annotations
@@ -47,6 +53,9 @@ FORMAT = "azoo-ckpt-v1"
 ARRAYS = "arrays.npz"
 MANIFEST = "manifest.json"
 COMMIT = "COMMIT"
+#: Per-host shard manifest inside ``host_K/`` of a multi-host checkpoint.
+SHARD_MANIFEST = "shard.json"
+_HOST_DIR_RE = re.compile(r"host_(\d+)$")
 
 
 class CheckpointError(RuntimeError):
@@ -142,11 +151,28 @@ def commit_checkpoint(path: str, flat: List[Tuple[str, np.ndarray]],
     return path
 
 
+def _has_host_shards(path: str) -> bool:
+    """True iff ``path`` holds a ``host_K/`` shard directory with an array
+    payload (the multi-host layout)."""
+    try:
+        entries = os.listdir(path)
+    except OSError:
+        return False
+    return any(_HOST_DIR_RE.match(f) and os.path.isfile(
+        os.path.join(path, f, ARRAYS)) for f in entries)
+
+
 def is_committed(path: str) -> bool:
     """True iff ``path`` is a checkpoint directory whose COMMIT marker
-    landed: the only state a reader may trust."""
-    return all(os.path.isfile(os.path.join(path, name))
-               for name in (COMMIT, MANIFEST, ARRAYS))
+    landed: the only state a reader may trust. Accepts the single-writer
+    layout (a top-level ``arrays.npz``) and the multi-host one (per-host
+    ``host_K/arrays.npz`` payloads under a merged manifest)."""
+    if not (os.path.isfile(os.path.join(path, COMMIT))
+            and os.path.isfile(os.path.join(path, MANIFEST))):
+        return False
+    if os.path.isfile(os.path.join(path, ARRAYS)):
+        return True
+    return _has_host_shards(path)
 
 
 def committed_checkpoints(directory: str, prefix: str = "ckpt"
@@ -167,13 +193,37 @@ def committed_checkpoints(directory: str, prefix: str = "ckpt"
     return out
 
 
+def _sweep_orphan_shards(path: str) -> List[str]:
+    """Inside a committed sharded checkpoint, remove every ``host_K/``
+    directory the merged manifest does not declare: debris of an aborted
+    concurrent attempt, which must never shadow real shards. Single-writer
+    checkpoints (no ``"shards"`` section) are left as they are."""
+    try:
+        shards = read_manifest(path).get("shards")
+    except CheckpointCorruptError:
+        return []
+    if not shards:
+        return []
+    declared = {int(h["host"]) for h in shards.get("hosts", [])}
+    removed = []
+    for fname in os.listdir(path):
+        m = _HOST_DIR_RE.match(fname)
+        sub = os.path.join(path, fname)
+        if m and int(m.group(1)) not in declared and os.path.isdir(sub):
+            shutil.rmtree(sub, ignore_errors=True)
+            removed.append(sub)
+    return removed
+
+
 def sweep_stale(directory: str, prefix: str = "ckpt",
                 keep_steps: Optional[set] = None) -> List[str]:
-    """Delete crash debris (``*.tmp`` staging directories and uncommitted
-    ``<prefix>_<step>`` husks) and, when ``keep_steps`` is given, the
-    committed checkpoints whose step is not in it (retention). Every
-    removal is counted in ``zoo_checkpoint_sweeps_total{kind}``. Returns
-    the removed paths."""
+    """Delete crash debris (``*.tmp`` staging directories, aborted
+    multi-host staging with its ``host_K/`` directories included, and
+    uncommitted ``<prefix>_<step>`` husks) and, when ``keep_steps`` is
+    given, the committed checkpoints whose step is not in it (retention).
+    A committed sharded checkpoint that stays is scrubbed of ``host_K/``
+    directories its manifest does not declare. Every removal is counted in
+    ``zoo_checkpoint_sweeps_total{kind}``. Returns the removed paths."""
     from analytics_zoo_tpu_torch.common.observability import (
         checkpoint_sweep_counters,
     )
@@ -195,6 +245,10 @@ def sweep_stale(directory: str, prefix: str = "ckpt",
         elif keep_steps is not None and int(m.group(1)) not in keep_steps:
             kind = "retention"
         else:
+            orphans = _sweep_orphan_shards(path)
+            for _ in orphans:
+                counters["orphan_shard"].inc()
+            removed.extend(orphans)
             continue
         shutil.rmtree(path, ignore_errors=True)
         removed.append(path)
@@ -213,14 +267,40 @@ def read_manifest(path: str) -> Dict[str, Any]:
             f"checkpoint {path!r}: manifest unreadable ({e})") from e
 
 
-def _load_leaves(path: str, n: int) -> List[np.ndarray]:
+def _load_leaves(path: str, manifest: Dict[str, Any]) -> List[np.ndarray]:
+    """Every leaf of ``path`` in manifest order: a single-writer
+    checkpoint reads its top-level ``arrays.npz``; a multi-host one (a
+    ``"shards"`` section, a ``host``/``index`` in each leaf record) reads
+    each leaf out of its owner's ``host_K/arrays.npz``. Damage on either
+    path raises :class:`CheckpointCorruptError`."""
+    recs = manifest.get("leaves", [])
+    if not manifest.get("shards"):
+        try:
+            with np.load(os.path.join(path, ARRAYS)) as npz:
+                return [npz[f"a{i}"] for i in range(len(recs))]
+        except (OSError, ValueError, KeyError, zlib.error, EOFError,
+                zipfile.BadZipFile) as e:
+            raise CheckpointCorruptError(
+                f"checkpoint {path!r}: array payload unreadable ({e})") from e
+    shards: Dict[int, Any] = {}
+    leaves = []
     try:
-        with np.load(os.path.join(path, ARRAYS)) as npz:
-            return [npz[f"a{i}"] for i in range(n)]
-    except (OSError, ValueError, KeyError, zlib.error, EOFError,
-            zipfile.BadZipFile) as e:
-        raise CheckpointCorruptError(
-            f"checkpoint {path!r}: array payload unreadable ({e})") from e
+        for rec in recs:
+            try:
+                host = int(rec["host"])
+                if host not in shards:
+                    shards[host] = np.load(
+                        os.path.join(path, f"host_{host}", ARRAYS))
+                leaves.append(shards[host][f"a{int(rec['index'])}"])
+            except (OSError, ValueError, KeyError, TypeError, zlib.error,
+                    EOFError, zipfile.BadZipFile) as e:
+                raise CheckpointCorruptError(
+                    f"checkpoint {path!r}: shard payload for leaf "
+                    f"'{rec.get('key', '?')}' unreadable ({e})") from e
+    finally:
+        for npz in shards.values():
+            npz.close()
+    return leaves
 
 
 def verify_checksums(path: str, leaves: Optional[List[np.ndarray]] = None
@@ -228,9 +308,10 @@ def verify_checksums(path: str, leaves: Optional[List[np.ndarray]] = None
     """Verify every leaf's CRC32 against the manifest and return the
     number checked; raises :class:`CheckpointCorruptError` naming the
     first mismatched key."""
-    recs = read_manifest(path).get("leaves", [])
+    manifest = read_manifest(path)
+    recs = manifest.get("leaves", [])
     if leaves is None:
-        leaves = _load_leaves(path, len(recs))
+        leaves = _load_leaves(path, manifest)
     checked = 0
     for rec, arr in zip(recs, leaves):
         want = rec.get("crc32")
@@ -269,7 +350,7 @@ def read_checkpoint(path: str, like: Any = None, verify: bool = True
             f"{path!r} is not a committed checkpoint directory")
     manifest = read_manifest(path)
     keys, recs = manifest.get("keys", []), manifest.get("leaves", [])
-    leaves = _load_leaves(path, len(recs))
+    leaves = _load_leaves(path, manifest)
     if verify:
         verify_checksums(path, leaves)
     meta = manifest.get("metadata", {})

@@ -30,10 +30,11 @@ front door's worker kill site (:data:`FRONTDOOR_POINTS`) is armed in a
 worker's environment; the fleet fabric's forward drop
 (:data:`FLEET_POINTS`) is in-process, armed like the serving points. The
 online-learning flywheel's kill sites (:data:`FLYWHEEL_POINTS`) have the
-hard-death semantics and environment arming of the batch points.
-
-The JAX package's distributed and pipeline-parallel points belong to
-tiers the port does not have yet (ROADMAP A7).
+hard-death semantics and environment arming of the batch points. The
+two-phase sharded commit of :mod:`analytics_zoo_tpu_torch.ft.distributed`
+has its own kill sites (:data:`DIST_POINTS`), armed in one host process's
+environment only. The JAX package's pipeline-parallel point belongs to a
+tier the port does not have yet (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ import threading
 import time
 from typing import Dict, Optional
 
-__all__ = ["FAILURE_POINTS", "BATCH_POINTS", "FRONTDOOR_POINTS",
+__all__ = ["FAILURE_POINTS", "BATCH_POINTS", "DIST_POINTS",
+           "FRONTDOOR_POINTS",
            "FLYWHEEL_POINTS", "FLEET_POINTS", "EXIT_CODE", "active_point",
            "should_fail", "fail", "maybe_fail", "reset",
            "SERVING_POINTS", "ChaosPredictError", "ChaosForwardError",
@@ -77,6 +79,27 @@ FAILURE_POINTS = ("torn_arrays", "after_arrays", "before_rename",
 #:   shard boundaries first).
 BATCH_POINTS = ("batch_writer_torn", "batch_before_manifest",
                 "batch_mid_job_kill")
+
+#: The two-phase sharded checkpoint commit's kill sites (the multi-host
+#: protocol of :mod:`analytics_zoo_tpu_torch.ft.distributed`; same
+#: ``os._exit`` semantics and environment arming as :data:`FAILURE_POINTS`,
+#: set in the dying host's process only):
+#:
+#: - ``dist_participant_torn``: half this host's shard payload bytes hit
+#:   ``ckpt_N.tmp/host_K/arrays.npz``, then death (the coordinator must
+#:   abort, never merge).
+#: - ``dist_participant_before_manifest``: the shard payload is complete
+#:   but the host dies before its ``shard.json`` lands: to the
+#:   coordinator the shard never existed.
+#: - ``dist_coordinator_before_merge``: every shard manifest validated,
+#:   death before the merged ``manifest.json`` is written (a staging husk,
+#:   swept on restart).
+#: - ``dist_coordinator_before_commit``: renamed to ``ckpt_N/``, death
+#:   before the COMMIT marker: readers treat the directory as absent and a
+#:   resume sweeps it.
+DIST_POINTS = ("dist_participant_torn", "dist_participant_before_manifest",
+               "dist_coordinator_before_merge",
+               "dist_coordinator_before_commit")
 
 #: The front door's kill site, armed in a worker's environment
 #: (``FrontDoorConfig.worker_env``):
@@ -269,7 +292,7 @@ def serving_chaos(point: str, tag: Optional[str] = None) -> None:
 def active_point() -> Optional[str]:
     """The failure point armed via ``AZOO_FT_CHAOS`` (None = chaos off)."""
     point = os.environ.get("AZOO_FT_CHAOS")
-    known = (FAILURE_POINTS + BATCH_POINTS + FRONTDOOR_POINTS
+    known = (FAILURE_POINTS + BATCH_POINTS + DIST_POINTS + FRONTDOOR_POINTS
              + FLYWHEEL_POINTS)
     if point and point not in known:
         raise ValueError(f"AZOO_FT_CHAOS={point!r} is not a failure point; "

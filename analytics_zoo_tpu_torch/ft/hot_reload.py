@@ -68,7 +68,8 @@ class CheckpointWatcher:
     driven deterministically instead of with real sleeps.
 
     ``aot_cache_dir`` other than ``None`` raises ``NotImplementedError``:
-    the persistent executable cache is not ported.
+    the port keeps no persistent executable cache (a CUDA graph cannot be
+    saved; ``inference.inference_model.NO_AOT_CACHE``).
 
     With the engine's rollout control plane active, a reloaded
     version enters the canary ladder instead of instantly repointing
@@ -87,10 +88,12 @@ class CheckpointWatcher:
                  aot_cache_dir: Optional[str] = None,
                  clock: Optional[Callable[[], float]] = None):
         if aot_cache_dir is not None:
-            raise NotImplementedError(
-                "aot_cache_dir: the persistent executable cache is not "
-                "ported (ROADMAP A4): a CUDA graph cannot be saved, so "
-                "every reloaded version captures its graphs at register")
+            from analytics_zoo_tpu_torch.inference.inference_model import (
+                refuse_aot_cache,
+            )
+
+            refuse_aot_cache(f"watch_checkpoints(aot_cache_dir="
+                             f"{aot_cache_dir!r})")
         if keep_versions < 1:
             raise ValueError(
                 f"keep_versions must be >= 1, got {keep_versions}")

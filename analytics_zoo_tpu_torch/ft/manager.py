@@ -173,7 +173,7 @@ class CheckpointManager:
         span_t0 = monotonic_s()
         atomic.commit_checkpoint(job.path, job.flat, job.metadata,
                                  overwrite=self.overwrite)
-        self._sweep(current_step=job.step)
+        self.sweep(current_step=job.step)
         dt = time.perf_counter() - t0
         nbytes = sum(a.nbytes for _, a in job.flat)
         self._metrics["saves"].inc()
@@ -188,7 +188,9 @@ class CheckpointManager:
 
     # -- retention --------------------------------------------------------
 
-    def _sweep(self, current_step: int) -> None:
+    def sweep(self, current_step: int) -> None:
+        """Apply the retention policy after ``current_step`` committed
+        (also for checkpoints another writer committed: a sharded save)."""
         steps = [s for s, _ in self.all_checkpoints()]
         keep: Optional[set] = None
         if self.keep_last is not None:

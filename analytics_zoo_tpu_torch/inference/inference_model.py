@@ -69,15 +69,25 @@ graph function (placed on the device once, at the first warm-up), so the
 model has no parameters and ``do_quantize`` is a no-op, as in the JAX
 package; on the card each bucket is a CUDA graph.
 
-Not ported yet: sharding and stage plans (ROADMAP A7) and the persistent
-AOT executable cache (A4: ``aot_cache_dir`` and ``set_aot_cache`` raise
-``NotImplementedError``).
+**No persistent executable cache.** The JAX package can save its
+compiled XLA executables to a directory (``aot_cache_dir``,
+``set_aot_cache``, ``AZOO_AOT_CACHE_DIR``) so that a restart compiles
+nothing. The port's executables are CUDA graphs, which PyTorch cannot
+save, and capturing them again is cheap beside a process's boot (see
+:data:`NO_AOT_CACHE`); the kernels' nvcc builds are already cached on
+disk (``ops/_kernels.py``). So nothing persists: every entry point that
+takes a cache directory raises ``NotImplementedError`` with that reason,
+and so does an ``InferenceModel`` built while ``AZOO_AOT_CACHE_DIR`` is
+set, rather than ignoring the user's directory.
+
+Not ported yet: sharding and stage plans (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import os
 import threading
 import time
 import weakref
@@ -98,6 +108,27 @@ from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.ops import _kernels
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
+
+#: The environment variable through which the JAX package enables its
+#: persistent executable cache process-wide.
+AOT_CACHE_ENV = "AZOO_AOT_CACHE_DIR"
+
+#: Why the port keeps no persistent executable cache: the measurements
+#: the decision rests on (``chip_smoke.py`` phases 11c and 12).
+NO_AOT_CACHE = (
+    "the port keeps no persistent executable cache: its executables are "
+    "CUDA graphs, which PyTorch cannot save, and capturing them again is "
+    "cheap (BERT-base's bucket ladder 1-32 at 128 tokens: 0.103-0.726 s "
+    "of eager warm-up and 0.104-0.762 s of capture a bucket, against "
+    "12-19 s for a serving worker's boot, 8.2-15.8 s of it before its "
+    "spec runs; NVIDIA H100 80GB HBM3, 700.00 W); the kernels' nvcc "
+    "builds are cached on disk (ops/_kernels.py)")
+
+
+def refuse_aot_cache(what: str) -> None:
+    """Raise ``NotImplementedError`` for ``what`` (an AOT cache directory
+    given to an entry point), with :data:`NO_AOT_CACHE` as the reason."""
+    raise NotImplementedError(f"{what}: {NO_AOT_CACHE}")
 
 # One CUDA graph capture at a time in the process: two models' captures must
 # not overlap (each begins with a warm-up that synchronises its side stream,
@@ -418,14 +449,18 @@ class InferenceModel:
     unbounded). On the card it bounds the number of CUDA graphs, not the
     card memory they hold: the graphs share one pool, and an eviction that
     leaves other graphs alive returns no memory to the device (see the
-    module docstring). ``aot_cache_dir`` other than ``None`` raises
-    ``NotImplementedError`` (:meth:`set_aot_cache`)."""
+    module docstring). ``aot_cache_dir`` other than ``None``, or
+    ``AZOO_AOT_CACHE_DIR`` set in the environment, raises
+    ``NotImplementedError``: the port keeps no persistent executable
+    cache (:data:`NO_AOT_CACHE`)."""
 
     def __init__(self, concurrent_num: int = 1,
                  executable_cache_size: Optional[int] = 32,
                  aot_cache_dir: Optional[str] = None):
         if aot_cache_dir is not None:
             self.set_aot_cache(aot_cache_dir)
+        if os.environ.get(AOT_CACHE_ENV):
+            refuse_aot_cache(f"{AOT_CACHE_ENV}={os.environ[AOT_CACHE_ENV]!r}")
         self.concurrent_num = concurrent_num
         self.model = None
         self.params = None
@@ -463,14 +498,12 @@ class InferenceModel:
     # -- int8 -------------------------------------------------------------
 
     def set_aot_cache(self, directory: Optional[str]) -> "InferenceModel":
-        """The persistent AOT executable cache is not ported: a CUDA graph
-        cannot be saved, so a restarted process captures its graphs again.
-        Raises ``NotImplementedError``; ``None`` is a no-op."""
+        """The JAX package's persistent executable cache has no port: a
+        CUDA graph cannot be saved, and a restarted process captures its
+        graphs again at little cost (:data:`NO_AOT_CACHE`). Raises
+        ``NotImplementedError``; ``None`` is a no-op."""
         if directory is not None:
-            raise NotImplementedError(
-                "the persistent AOT executable cache is not ported "
-                "(ROADMAP A4): PyTorch cannot save a CUDA graph, so every "
-                "process captures its buckets at register")
+            refuse_aot_cache(f"set_aot_cache({directory!r})")
         return self
 
     def do_calibrate(self, batches) -> "InferenceModel":

@@ -47,7 +47,7 @@ The step count lives on the host, so no update reads the device.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -60,6 +60,27 @@ class GradientTransformation(NamedTuple):
     adds the updates to the parameters."""
     init: Callable
     update: Callable
+
+
+def optax_leaves(tx: GradientTransformation) -> Optional[Tuple[str, ...]]:
+    """The state entries of ``tx`` in the order of the leaves of optax's
+    state for the JAX package's same optimizer (``"count"`` twice where
+    optax keeps a second count for a schedule), or None for an optimizer
+    that does not declare it. A sharded checkpoint stores the optimizer
+    shards by that leaf index (``ft.distributed.opt_shard_key``), so both
+    packages read each other's. Declared on the ``update`` function."""
+    return getattr(tx.update, "optax_leaves", None)
+
+
+def _declare(update: Callable, *entries: str) -> Callable:
+    update.optax_leaves = tuple(entries)
+    return update
+
+
+def _schedule_count(schedule) -> Tuple[str, ...]:
+    """optax's ``scale_by_learning_rate`` keeps a count only for a
+    schedule."""
+    return ("count",) if callable(schedule) else ()
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +209,7 @@ def SGD(lr: float = 0.01, momentum: float = 0.0, decay: float = 0.0,
         return (tree_unflatten(grads, u),
                 {"trace": _tree(grads, trace), "count": state["count"] + 1})
 
+    _declare(update, *(("trace",) if momentum else ()), *_schedule_count(sched))
     return GradientTransformation(init, update)
 
 
@@ -224,6 +246,7 @@ def Adam(lr: float = 1e-3, beta_1: float = 0.9, beta_2: float = 0.999,
                                           "nu": _tree(grads, nu),
                                           "count": count}
 
+    _declare(update, "count", "mu", "nu", *_schedule_count(sched))
     return GradientTransformation(_adam_state, update)
 
 
@@ -264,6 +287,7 @@ def AdamWeightDecay(lr: float = 1e-3, warmup_portion: float = -1.0,
                                           "nu": _tree(grads, nu),
                                           "count": count}
 
+    _declare(update, "count", "mu", "nu", *_schedule_count(schedule))
     return GradientTransformation(_adam_state, update)
 
 
@@ -296,6 +320,10 @@ def RMSprop(lr: float = 0.001, rho: float = 0.9, epsilon: float = 1e-8,
             "mu": _tree(grads, mu), "nu": _tree(grads, nu),
             "trace": _tree(grads, trace), "count": state["count"] + 1}
 
+    # optax: scale_by_rms (nu) or scale_by_stddev (mu, nu), the learning
+    # rate (a count for a schedule), then the momentum trace
+    _declare(update, *(("mu", "nu") if centered else ("nu",)),
+             *_schedule_count(sched), "trace")
     return GradientTransformation(init, update)
 
 
@@ -320,6 +348,7 @@ def Adagrad(lr: float = 0.01, epsilon: float = 1e-8, decay: float = 0.0,
         return tree_unflatten(grads, u), {
             "sum_of_squares": _tree(grads, s), "count": state["count"] + 1}
 
+    _declare(update, "sum_of_squares", *_schedule_count(sched))
     return GradientTransformation(init, update)
 
 
@@ -347,6 +376,7 @@ def Adadelta(lr: float = 1.0, rho: float = 0.95, epsilon: float = 1e-8,
             "e_g": _tree(grads, e_g), "e_x": _tree(grads, e_x),
             "count": state["count"] + 1}
 
+    _declare(update, "e_g", "e_x")
     return GradientTransformation(init, update)
 
 
@@ -368,6 +398,7 @@ def Adamax(lr: float = 0.002, beta_1: float = 0.9, beta_2: float = 0.999,
                                           "nu": _tree(grads, nu),
                                           "count": count}
 
+    _declare(update, "count", "mu", "nu")
     return GradientTransformation(_adam_state, update)
 
 

@@ -578,8 +578,8 @@ class ServingEngine:
         directory is visible if and only if its COMMIT marker landed, so
         the watcher never loads a torn or in-progress save.
         ``aot_cache_dir`` other than ``None`` raises
-        ``NotImplementedError``: the persistent executable cache is not
-        ported."""
+        ``NotImplementedError``: the port keeps no persistent executable
+        cache."""
         from analytics_zoo_tpu_torch.ft.hot_reload import CheckpointWatcher
 
         watcher = CheckpointWatcher(

@@ -203,8 +203,9 @@ class FleetConfig:
         .FrontDoorConfig.shared_port`).
       proxy_timeout_s: per-hop timeout on forwarded predicts (and the
         local front door's proxy hops).
-      aot_cache_dir: not ported (ROADMAP A4); anything but ``None``
-        raises ``NotImplementedError`` as
+      aot_cache_dir: the port keeps no persistent executable cache
+        (``inference.inference_model.NO_AOT_CACHE``); anything but
+        ``None`` raises ``NotImplementedError`` as
         :class:`~analytics_zoo_tpu_torch.serving.frontdoor.FrontDoorConfig`
         does.
       Everything else passes straight through to the local
@@ -240,10 +241,12 @@ class FleetConfig:
         if not self.host_id:
             raise ValueError("host_id must be non-empty")
         if self.aot_cache_dir is not None:
-            raise NotImplementedError(
-                "FleetConfig(aot_cache_dir=) is not ported (ROADMAP A4): "
-                "PyTorch cannot save a CUDA graph, so every worker captures "
-                "its buckets at boot")
+            from analytics_zoo_tpu_torch.inference.inference_model import (
+                refuse_aot_cache,
+            )
+
+            refuse_aot_cache(
+                f"FleetConfig(aot_cache_dir={self.aot_cache_dir!r})")
 
 
 class FleetDoor:

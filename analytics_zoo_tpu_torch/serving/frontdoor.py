@@ -177,9 +177,10 @@ class FrontDoorConfig:
       host / port: the front door's listener (``port=0`` picks a free
         port — read :attr:`FrontDoor.port`).
       aot_cache_dir: the JAX package's shared persistent executable
-        cache. Not ported (ROADMAP A4): a CUDA graph cannot be saved, so
-        every worker captures its buckets at boot; anything but ``None``
-        raises ``NotImplementedError``.
+        cache. The port keeps none (a CUDA graph cannot be saved, and a
+        worker captures its buckets at boot at little cost:
+        ``inference.inference_model.NO_AOT_CACHE``); anything but
+        ``None`` raises ``NotImplementedError``.
       quota: the single token-bucket authority
         (:class:`~analytics_zoo_tpu_torch.serving.quota.QuotaConfig`);
         workers' own quota is stripped at boot.
@@ -235,10 +236,12 @@ class FrontDoorConfig:
         if self.workers < 1:
             raise ValueError(f"workers must be >= 1, got {self.workers}")
         if self.aot_cache_dir is not None:
-            raise NotImplementedError(
-                "FrontDoorConfig(aot_cache_dir=) is not ported (ROADMAP "
-                "A4): PyTorch cannot save a CUDA graph, so every worker "
-                "captures its buckets at boot")
+            from analytics_zoo_tpu_torch.inference.inference_model import (
+                refuse_aot_cache,
+            )
+
+            refuse_aot_cache(
+                f"FrontDoorConfig(aot_cache_dir={self.aot_cache_dir!r})")
 
 
 class _WorkerSlot:
@@ -989,8 +992,8 @@ class FrontDoor:
         """Zero-downtime restart of every worker, one at a time: eject
         from the ring → drain the engine (queued work completes) →
         SIGTERM → respawn → health-gate → rejoin → advance. Each respawn
-        captures its bucket graphs again (the AOT cache is not ported,
-        ROADMAP A4)."""
+        captures its bucket graphs again (the port keeps no persistent
+        executable cache)."""
         reports: Dict[str, object] = {}
         for slot in sorted(self._slots, key=lambda s: (len(s), s)):
             with self._lock:

@@ -24,8 +24,9 @@ identical to an uninterrupted run.
         --batch 64 --buckets 16,32,64 --rows-per-shard 4096
     # zero rescored shards
 
-``--aot-cache-dir`` raises ``NotImplementedError`` (ROADMAP A4: PyTorch
-cannot save a CUDA graph, so each run captures its buckets again).
+``--aot-cache-dir`` raises ``NotImplementedError``: the port keeps no
+persistent executable cache (PyTorch cannot save a CUDA graph, and each
+run captures its buckets again at little cost).
 """
 
 from __future__ import annotations
@@ -95,8 +96,8 @@ def main(argv=None, model=None):
     parser.add_argument("--checkpoint-every", type=int, default=8,
                         help="job-state checkpoint cadence, in shards")
     parser.add_argument("--aot-cache-dir", default=None,
-                        help="persistent AOT executable cache: not ported "
-                             "(ROADMAP A4), raises")
+                        help="the JAX package's persistent executable "
+                             "cache: the port keeps none, so it raises")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the model (default cuda; "
                              "cpu runs without a card)")
@@ -106,9 +107,11 @@ def main(argv=None, model=None):
                         help="discard any existing output first")
     args = parser.parse_args(argv)
     if args.aot_cache_dir is not None:
-        raise NotImplementedError(
-            "--aot-cache-dir is not ported (ROADMAP A4): PyTorch cannot "
-            "save a CUDA graph, so every run captures its buckets")
+        from analytics_zoo_tpu_torch.inference.inference_model import (
+            refuse_aot_cache,
+        )
+
+        refuse_aot_cache(f"--aot-cache-dir {args.aot_cache_dir}")
 
     job = build_job(args, model=model)
     spec = OutputSpec(args.output, fmt=args.format,

@@ -1,6 +1,7 @@
 """The port's horizontal serving tier: the preforked front door and its
 engine workers (the cases of tests/test_frontdoor.py, on the port), plus
-whole-slice parity with the JAX package and the A4 raise.
+whole-slice parity with the JAX package and the refusal of an AOT cache
+directory (the port keeps no persistent executable cache).
 
 Workers are real subprocesses (``python -m
 analytics_zoo_tpu_torch.serving.worker``) booted from
@@ -122,17 +123,94 @@ def test_load_spec_contract(tmp_path):
             load_spec(bad)
 
 
-def test_aot_cache_dir_raises_naming_a4(tmp_path):
-    """The JAX package's warm restart through a shared AOT directory has
-    no port: a CUDA graph cannot be saved, so the config refuses it
-    before any worker boots."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        FrontDoorConfig(spec=SPEC, aot_cache_dir=str(tmp_path / "aot"))
+def _aot_entry_points():
+    """Every entry point that takes the JAX package's AOT cache directory,
+    and the environment variable that enables it process-wide, as
+    ``call(directory)``."""
+    import analytics_zoo_tpu_torch as port
+    from analytics_zoo_tpu_torch.batch import BatchPredictJob
+    from analytics_zoo_tpu_torch.data.sources import ArraySource
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import ServingEngine
     from analytics_zoo_tpu_torch.serving.fabric import FleetConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        FleetConfig(spec=SPEC, fleet_dir=str(tmp_path), host_id="a",
-                    aot_cache_dir=str(tmp_path / "aot"))
+    def in_cpu_context(fn):
+        def call(d):
+            port.init_nncontext(device="cpu")
+            try:
+                return fn(d)
+            finally:
+                port.stop_nncontext()
+        return call
+
+    def env(d):
+        os.environ["AZOO_AOT_CACHE_DIR"] = d
+        try:
+            return in_cpu_context(lambda _: InferenceModel())(d)
+        finally:
+            del os.environ["AZOO_AOT_CACHE_DIR"]
+
+    return {
+        "frontdoor-config": lambda d: FrontDoorConfig(spec=SPEC,
+                                                      aot_cache_dir=d),
+        "fleet-config": lambda d: FleetConfig(
+            spec=SPEC, fleet_dir=os.path.dirname(d), host_id="a",
+            aot_cache_dir=d),
+        "inference-model": in_cpu_context(
+            lambda d: InferenceModel(aot_cache_dir=d)),
+        "set-aot-cache": in_cpu_context(
+            lambda d: InferenceModel().set_aot_cache(d)),
+        "watch-checkpoints": in_cpu_context(
+            lambda d: ServingEngine().watch_checkpoints(
+                "m", os.path.dirname(d), lambda path: None,
+                example_input=np.zeros((1, 4), np.float32),
+                aot_cache_dir=d)),
+        "batch-predict-job": lambda d: BatchPredictJob(
+            lambda x: x, ArraySource(np.zeros((4, 2), np.float32)),
+            aot_cache_dir=d),
+        "env-AZOO_AOT_CACHE_DIR": env,
+    }
+
+
+AOT_ENTRIES = ("batch-predict-job", "env-AZOO_AOT_CACHE_DIR",
+               "fleet-config", "frontdoor-config", "inference-model",
+               "set-aot-cache", "watch-checkpoints")
+
+
+@pytest.mark.parametrize("entry", AOT_ENTRIES)
+def test_aot_cache_dir_raises_naming_a4(tmp_path, entry):
+    """The decision on the JAX package's persistent AOT cache: the port
+    keeps none (its executables are CUDA graphs, which PyTorch cannot
+    save, and capturing them again costs little beside a boot). Each entry
+    point that takes a cache directory, and ``AZOO_AOT_CACHE_DIR`` set in
+    the environment, refuses it before any worker boots or model loads,
+    naming the reason and the measurements it rests on; the directory is
+    never created.
+
+    The JAX package's ``tests/test_inference_aot_cache.py`` cases:
+    ``test_warm_restart_performs_zero_compiles`` becomes this refusal (a
+    restart captures again); ``test_warmup_overflow_is_detected_and_counted``
+    and ``test_no_overflow_when_cache_fits_the_ladder`` are mirrored by
+    ``tests/test_torch_serving_engine.py`` (``warmup_overflows`` and the
+    ``warmup_overflow`` counter); the corrupted-entry fallback, entries of
+    structurally different models, the key's argument structure and the
+    missing-key miss are not applicable: no entry is ever written or
+    keyed."""
+    from analytics_zoo_tpu_torch.inference.inference_model import (
+        NO_AOT_CACHE,
+    )
+
+    entries = _aot_entry_points()
+    assert sorted(entries) == list(AOT_ENTRIES)
+    d = str(tmp_path / "aot")
+    with pytest.raises(NotImplementedError,
+                       match="no persistent executable cache") as exc:
+        entries[entry](d)
+    assert NO_AOT_CACHE in str(exc.value)
+    assert "H100" in str(exc.value) and "0.762 s of capture" in str(
+        exc.value)
+    assert not os.path.exists(d)
+    assert "AZOO_AOT_CACHE_DIR" not in os.environ
 
 
 # -- predict + routing ------------------------------------------------------

@@ -338,7 +338,7 @@ def test_shutdown_stops_watchers_and_aot_cache_raises(tmp_path):
         poll_interval_s=0.05)
     thread = watcher._thread
     assert thread is not None and thread.is_alive()
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(NotImplementedError, match="no persistent executable cache"):
         engine.watch_checkpoints("n", str(tmp_path), _build_scale,
                                  example_input=X, aot_cache_dir="/x")
     engine.shutdown()

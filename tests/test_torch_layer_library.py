@@ -192,6 +192,11 @@ CASES = [
     ("dense-regularized", lambda L: L.Dense(
         3, W_regularizer=L.L1L2(0.1, 0.2), activation="tanh"), (4,),
      "normal"),
+    # top-1 routing with over-capacity drops (12 tokens, 4 experts, 3
+    # slots each) and ample capacity
+    ("moe-drops", lambda L: L.MoE(4, 16, capacity_factor=1.0), (6, 8),
+     "normal"),
+    ("moe", lambda L: L.MoE(3, 8, capacity_factor=2.0), (5, 4), "normal"),
     # -- convolutional ----------------------------------------------------
     ("conv1d-alias", lambda L: L.Conv1D(4, 3, border_mode="same"), (7, 3),
      "normal"),
@@ -273,7 +278,7 @@ def test_deconvolution2d_output_size_and_kernel_layout():
 
 
 def test_layer_exports_equal_the_jax_package_less_moe():
-    assert set(tl.__all__) == set(jl.__all__) - {"MoE", "moe"}
+    assert set(tl.__all__) == set(jl.__all__)
     assert set(tA.__all__) == set(jA.__all__)
     for name in tA.__all__:
         assert hasattr(tA, name), name

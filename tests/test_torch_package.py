@@ -127,6 +127,27 @@ def test_tf_importers_load_no_jax_tensorflow_or_h5py():
     assert res.returncode == 0, res.stderr
 
 
+def test_distributed_modules_load_no_jax():
+    """Multi-host training (``ft.distributed``, ``mesh``) and the
+    mixture-of-experts layer (``parallel``, ``keras.layers.moe``) import
+    neither jax nor the JAX package, nor optax."""
+    code = ("import sys\n"
+            "import analytics_zoo_tpu_torch.ft.distributed\n"
+            "import analytics_zoo_tpu_torch.mesh\n"
+            "import analytics_zoo_tpu_torch.mesh.config\n"
+            "import analytics_zoo_tpu_torch.parallel\n"
+            "import analytics_zoo_tpu_torch.parallel.moe\n"
+            "import analytics_zoo_tpu_torch.keras.layers.moe\n"
+            "import analytics_zoo_tpu_torch.engine.estimator\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+            "'analytics_zoo_tpu', 'optax')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_init_nncontext_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port.stop_nncontext()

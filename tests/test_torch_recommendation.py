@@ -240,7 +240,8 @@ def test_jax_saved_neural_cf_loads_into_the_port(tmp_path):
     # (tests/test_torch_ranking_zoo.py, tests/test_torch_training_surface.py),
     # the regularizers (tests/test_torch_regularizers.py) and predict_image
     # over an ImageSet (tests/test_torch_predictor_images.py); serving a
-    # recommender from a persistent executable cache is not (ROADMAP A4)
+    # recommender from a persistent executable cache is not: the port
+    # keeps none
     lambda: InferenceModel().do_load_keras(
         trec.NeuralCF(USERS, ITEMS, CLASSES).model).set_aot_cache("aot")])
 def test_unported_parts_raise(call):

@@ -4,8 +4,11 @@ continuous batching (``serving.sequence``, ``serving.decode_state``),
 / ``generate`` and HTTP ``:generate``.
 
 The cases of the JAX package's ``tests/test_sequence_serving.py`` run
-here against the port, the int8 one included; its AOT-cache case waits
-for the persistent executable cache (ROADMAP A4). The load-bearing pin
+here against the port, the int8 one included; its AOT-cache case does
+not apply: the port keeps no persistent executable cache (a CUDA graph
+cannot be saved; ``tests/test_torch_frontdoor.py``
+``test_aot_cache_dir_raises_naming_a4`` holds the refusal). The
+load-bearing pin
 is **interleaving parity**: whatever admission/eviction schedule the
 continuous batcher picks, each request's generated tokens equal its
 single-request sequential generate (``Seq2seqNet.infer``), token for

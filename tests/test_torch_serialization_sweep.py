@@ -62,6 +62,7 @@ SPECS = {
     "Deconvolution2D": (dict(nb_filter=4, nb_row=3, nb_col=3), (3, 8, 8)),
     "ComputeMask": (dict(mask_value=0.0), SEQ8),
     "Dense": (dict(output_dim=5, activation="relu"), (8,)),
+    "MoE": (dict(n_experts=4, hidden_dim=16), SEQ8),
     "DepthwiseConvolution2D": (dict(kernel_size=3, dim_ordering="tf"), IMG),
     "Dropout": (dict(p=0.3), (8,)),
     "ELU": (dict(), (8,)),
@@ -167,7 +168,7 @@ EXCLUDED = {
 
 # The JAX package's exports that the port does not have yet: once one is
 # ported, the exhaustiveness check below asks for its SPECS entry.
-NOT_PORTED = {"MoE": "ROADMAP A7 (distribution)"}
+NOT_PORTED: dict = {}
 
 
 def test_sweep_is_exhaustive():

@@ -321,9 +321,9 @@ def test_unported_surfaces_raise_naming_the_roadmap(call):
     what they raise on what they cannot serve: ``generate`` and
     ``generate_async`` of an unregistered name raise the registry miss,
     ``register(sequence=)`` of a model without the decode contract raises
-    ``TypeError``, and ``watch_checkpoints(aot_cache_dir=...)`` raises
-    naming the AOT cache's ROADMAP item. Either way the engine stays
-    empty."""
+    ``TypeError``, and ``watch_checkpoints(aot_cache_dir=...)`` raises:
+    the port keeps no persistent executable cache. Either way the engine
+    stays empty."""
     engine = port_serving.ServingEngine()
     ex = np.zeros((1, 3), np.float32)
     try:
@@ -336,7 +336,8 @@ def test_unported_surfaces_raise_naming_the_roadmap(call):
                 engine.register("m", plain, ex,
                                 sequence=port_serving.SequenceConfig())
         elif call == "watch_checkpoints":
-            with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            with pytest.raises(NotImplementedError,
+                               match="no persistent executable cache"):
                 engine.watch_checkpoints("m", "/nonexistent", None, ex,
                                          aot_cache_dir="/nonexistent")
         else:

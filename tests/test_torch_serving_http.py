@@ -261,21 +261,23 @@ def _families(text):
 
 # Families the JAX process registry may carry from tiers the port has not
 # ported (registered by whatever else ran in the same test process).
-_UNPORTED = ("zoo_dist_", "zoo_serving_aot_")
+# the JAX package's persistent AOT cache: the port keeps none
+_UNPORTED = ("zoo_serving_aot_",)
 
 
 def test_metrics_families_match_the_jax_engine_after_the_same_traffic():
     """The same traffic through a JAX and a port engine: the port's
-    ``/metrics`` carries every family the JAX one does (but those of
-    unported tiers) and nothing else, ``zoo_build_info`` with the port's
+    ``/metrics`` carries every family the JAX one does (but the AOT
+    cache's, which the port does not keep) and nothing else, ``zoo_build_info`` with the port's
     labels and the inference-cache counters among them."""
     texts = {}
     for root in ROOTS:
         P = _ns(root)
         # registered on first use of either package's InferenceModel,
         # Estimator.train, CheckpointManager, sweep_stale,
-        # CheckpointWatcher, streaming Pipeline, BatchJobRunner or the
-        # flywheel's tap, trainer, label store and drift trackers, which
+        # CheckpointWatcher, streaming Pipeline, BatchJobRunner, the
+        # flywheel's tap, trainer, label store and drift trackers or
+        # train_distributed, which
         # another test in this process may or may not have made
         P.obs.inference_cache_counters()
         P.obs.training_metrics()
@@ -288,6 +290,7 @@ def test_metrics_families_match_the_jax_engine_after_the_same_traffic():
         P.obs.flywheel_metrics()
         P.obs.label_metrics()
         P.obs.drift_metrics()
+        P.obs.distributed_metrics()
         base, engine, srv = _start(P, {"dbl": Doubler()})
         try:
             for _ in range(3):

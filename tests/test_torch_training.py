@@ -547,15 +547,20 @@ def test_float64_inputs_are_made_float32(surface):
 
 
 @pytest.mark.parametrize("call", [
-    lambda e: test_.Estimator(e.model, zero1=True),
+    lambda e: test_.Estimator(e.model, zero1=True).train_distributed(
+        None, None),
     lambda e: InferenceModel().set_aot_cache("/nonexistent"),
-    lambda e: e.train_distributed(None, None),
+    lambda e: e.set_l2_norm_gradient_clipping(1.0).train_distributed(
+        None, None),
     lambda e: e.train_pipelined(None, None)])
 def test_unported_surfaces_raise(call):
-    """ZeRO-1, the AOT executable cache and distributed and pipelined
-    training raise; profiling and the step watchdog, which these cases
-    held before they were ported, are driven by
-    ``tests/test_torch_trace_tools.py``."""
+    """Pipelined training and the AOT executable cache raise (the port
+    keeps none), and so do the surfaces ``train_distributed`` refuses as
+    the JAX package does: ``zero1`` (superseded by its sharded update) and
+    L2-norm clipping (the global norm needs every gradient before the
+    update is sliced). ZeRO-1 itself and ``train_distributed`` are ported
+    (``tests/test_torch_dist_training.py``); profiling and the step
+    watchdog are driven by ``tests/test_torch_trace_tools.py``."""
     est = test_.Estimator(BERTClassifierNet(num_classes=2, **CFG))
     with pytest.raises(NotImplementedError):
         call(est)
