@@ -90,9 +90,15 @@ class BatchPredictJob:
         port keeps none (``inference.inference_model.NO_AOT_CACHE``):
         anything but ``None`` raises ``NotImplementedError`` (through
         the model's ``set_aot_cache`` where it has one).
-      sharding_plan: a mesh plan partitioning every bucket. Not ported
-        (ROADMAP A7): anything but ``None`` raises
-        ``NotImplementedError``.
+      sharding_plan: a :class:`~analytics_zoo_tpu_torch.mesh.plan
+        .ShardingPlan` partitioning every bucket over its ``data`` slots.
+        Every static batch shape (the ladder, or ``batch_size`` without
+        one) is validated against the plan's ``data`` axis before a row
+        is read and before the model is touched
+        (:class:`~analytics_zoo_tpu_torch.mesh.plan.BucketShardingError`);
+        then the plan is attached to the model
+        (``model.set_sharding_plan``; a model without it raises
+        ``TypeError``).
 
     The scored stream is deterministic: shuffle off, epoch seed 0, so
     output row ``i`` is always source row ``i`` — the invariant that
@@ -131,10 +137,26 @@ class BatchPredictJob:
 
             refuse_aot_cache(f"BatchPredictJob(aot_cache_dir="
                              f"{aot_cache_dir!r})")
+        if sharding_plan is not None and not hasattr(
+                model, "set_sharding_plan"):
+            raise TypeError(
+                "model does not accept a sharding plan (no "
+                "set_sharding_plan) — duck-typed models must handle "
+                "their own device placement")
+        plan = (sharding_plan if sharding_plan is not None
+                else getattr(model, "sharding_plan", None))
+        if plan is not None:
+            # every static shape the batch stage can emit must split
+            # evenly over the data axis: the bucket ladder when one is
+            # configured, otherwise the single padded batch_size.
+            # Validated BEFORE attaching, so a rejected job leaves the
+            # model untouched.
+            _, _, buckets = pipe._batch_cfg
+            plan.validate_ladder(
+                tuple(buckets) if buckets else (self.batch_size,),
+                context="batch job bucket ladder")
         if sharding_plan is not None:
-            raise NotImplementedError(
-                "BatchPredictJob(sharding_plan=) is not ported (ROADMAP "
-                "A7: the mesh plans)")
+            model.set_sharding_plan(sharding_plan)
 
     # -- geometry ---------------------------------------------------------
 

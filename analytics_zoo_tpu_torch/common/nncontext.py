@@ -1,8 +1,11 @@
 """Runtime bring-up (port of ``analytics_zoo_tpu.common.nncontext``).
 
 One global context, created idempotently under a lock, holding the device,
-the dtype policy, a root ``torch.Generator`` seeded from the config (the
-parameters' draws) and the step generator (the training draws, dropout).
+the in-process mesh (:class:`~analytics_zoo_tpu_torch.mesh.slots.SlotMesh`:
+``mesh_shape`` slots dealt over the context's device kind, one slot by
+default), the dtype policy, a root ``torch.Generator`` seeded from the
+config (the parameters' draws) and the step generator (the training draws,
+dropout).
 The default device is ``cuda``; without a card, ``init_nncontext()`` raises
 rather than carrying on quietly on the CPU. Pass ``device="cpu"`` to run
 there on purpose.
@@ -33,8 +36,8 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 class NNContext:
-    """Global runtime context: device + dtype policy + root and step
-    generators."""
+    """Global runtime context: device + slot mesh + dtype policy + root and
+    step generators."""
 
     def __init__(self, conf: Optional[ZooConfig] = None):
         self.conf = conf or ZooConfig()
@@ -47,9 +50,13 @@ class NNContext:
         # (the JAX package's f32 numerics are the reference).
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        # one device per process: the data-parallel mesh (ROADMAP A7) is
-        # not ported, so batch geometry divides by 1 on a card or the CPU
-        self.num_devices = 1
+        from analytics_zoo_tpu_torch.mesh.slots import SlotMesh
+
+        self.mesh = SlotMesh.deal(self.conf.mesh_shape,
+                                  self.conf.mesh_axis_names, self.device)
+        # the slot count: what batch geometry divides by, as the JAX
+        # package's divides by its mesh's devices
+        self.num_devices = self.mesh.size
         self.default_dtype = _torch_dtype(self.conf.default_dtype)
         self.param_dtype = _torch_dtype(self.conf.param_dtype)
         # A CPU generator: the same seed gives the same weights whichever
@@ -61,7 +68,13 @@ class NNContext:
         # with step_generator.get_state() / set_state().
         self.step_generator = torch.Generator(
             device=self.device).manual_seed(int(self.conf.seed))
-        logger.info("Initialized NNContext on %s", self.device)
+        logger.info("Initialized NNContext on %s, mesh %s", self.device,
+                    self.mesh)
+
+    @property
+    def data_axis(self) -> str:
+        """Name of the mesh axis batches shard over (the first)."""
+        return self.mesh.axis_names[0]
 
 
 def host_to_device(a, device) -> torch.Tensor:
@@ -78,7 +91,9 @@ def init_nncontext(conf: Optional[ZooConfig] = None, **kwargs) -> NNContext:
     """Create (or fetch) the global :class:`NNContext`.
 
     Extra ``kwargs`` override :class:`ZooConfig` fields, e.g.
-    ``init_nncontext(device="cpu", seed=3)``.
+    ``init_nncontext(device="cpu", seed=3)`` or, for eight CPU slots,
+    ``init_nncontext(device="cpu", mesh_shape=(2, 1, 4),
+    mesh_axis_names=("data", "model", "seq"))``.
     """
     global _GLOBAL_CONTEXT
     with _CONTEXT_LOCK:

@@ -63,12 +63,15 @@ processes in lockstep through :mod:`analytics_zoo_tpu_torch.ft.distributed`:
 each host takes its rows of every global batch, the hosts exchange
 gradient sums through a filesystem rendezvous, each updates its window of
 the flat parameter vector and the windows are exchanged back; checkpoints
-are two-phase sharded commits. ``zero1=True`` is accepted: on the port's
-one-device data axis there is nothing to shard, so its trajectory is the
-plain one, as the JAX package's is on a one-device mesh.
+are two-phase sharded commits. ``zero1=True`` is accepted: a step runs
+on the context's device, with nothing to shard, so its trajectory is the
+plain one, as the JAX package's is on a one-device mesh. A context mesh
+(``init_nncontext(mesh_shape=...)``) reaches training through the layers
+(``sequence_parallel`` attention over its ``seq`` slots).
 
-Not ported yet, and raising ``NotImplementedError``: ``train_pipelined``
-(ROADMAP A7).
+Not ported yet: data and tensor parallelism of ``train`` over the slots of
+an in-process mesh, and ``train_pipelined``, which raises
+``NotImplementedError`` (ROADMAP A7).
 """
 
 from __future__ import annotations

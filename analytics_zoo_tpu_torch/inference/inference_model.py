@@ -28,7 +28,8 @@ depends on the device:
   replay's outputs are cloned on the card before the lock is released.
   A capture that fails raises; there is no eager fallback on the card.
 
-**Graph memory.** On the card a model's graphs share one memory pool, and
+**Graph memory.** On the card a model's graphs share one memory pool (one
+per card, when a sharding plan's slots span several), and
 PyTorch lets its allocator hand a pool's blocks back to the device (at its
 next release of cached blocks, such as ``torch.cuda.empty_cache``) only
 once no graph of the pool is left: after a load, a release, a quantize or
@@ -80,7 +81,21 @@ takes a cache directory raises ``NotImplementedError`` with that reason,
 and so does an ``InferenceModel`` built while ``AZOO_AOT_CACHE_DIR`` is
 set, rather than ignoring the user's directory.
 
-Not ported yet: sharding and stage plans (ROADMAP A7).
+**Sharding plans.** With a :class:`~analytics_zoo_tpu_torch.mesh.plan
+.ShardingPlan` attached (``InferenceModel(sharding_plan=...)`` or
+:meth:`InferenceModel.set_sharding_plan`), a bucket of ``b`` rows runs as
+one executable per (bucket, data slot): slot *k* of the plan's ``data``
+axis takes rows ``[k * b / d, (k + 1) * b / d)`` (``d`` the axis length)
+on its slot's device, through a program of its own (on the card, one CUDA
+graph per cell), and the outputs are concatenated in row order on the
+host. The parameters are placed by the plan once per generation
+(:meth:`ShardingPlan.shard_params`: a rule-matched leaf lives in shards on
+its slots, the rest once per slot device) and each slot's program gathers
+them before use, so a plan changes where rows and bytes live, not what a
+row computes. The LRU and the warm-up accounting count (bucket, slot)
+cells. Sequence programs (:meth:`InferenceModel.compile_program`) are
+single-device and raise under a plan, as in the JAX package. Stage plans
+(``set_stage_plan``) are not ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -106,6 +121,7 @@ from analytics_zoo_tpu_torch.common.observability import (
 )
 from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
 from analytics_zoo_tpu_torch.ops import _kernels
+from analytics_zoo_tpu_torch.parallel.sharding import gather_tree
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -204,17 +220,20 @@ class _Snapshot:
     """What one executable was built from: the model, its parameters cast
     to the compute dtype (qleafs whole), its state, the device, the
     generation and whether the params are weight-only int8 (every program
-    then dequantizes them per call). An executable holds its snapshot, so
-    the tensors a graph captured by address stay alive as long as the
+    then dequantizes them per call). ``placed``: params and state are a
+    sharding plan's placed trees (``ShardedTensor`` leaves), which the
+    program gathers on ``device`` first. An executable holds its snapshot,
+    so the tensors a graph captured by address stay alive as long as the
     graph does."""
 
     __slots__ = ("model", "params", "state", "device", "gen", "dtype",
-                 "param_dtype", "quantized")
+                 "param_dtype", "quantized", "placed")
 
     def __init__(self, model, params, state, device, gen, quantized=False):
         self.model, self.params, self.state = model, params, state
         self.device, self.gen = device, gen
         self.quantized = quantized
+        self.placed = False
         cd = getattr(model, "compute_dtype", None)
         # the arguments' cast (a program may keep float32 arguments) and
         # the parameters' (always the model's compute dtype)
@@ -240,10 +259,13 @@ def _forward(snap: _Snapshot, inner, args):
         args = tree_map(
             lambda t: t.to(dt) if t.dtype == torch.float32 else t, args)
     with torch.inference_mode():
-        params = snap.params
+        params, state = snap.params, snap.state
+        if snap.placed:  # a slot's program: the whole leaves on its device
+            params = gather_tree(params, snap.device)
+            state = gather_tree(state, snap.device)
         if snap.quantized:
             params = _dequantize_params(params, snap.param_dtype)
-        out = inner(params, snap.state, *args)
+        out = inner(params, state, *args)
         return tree_map(
             lambda t: t.float() if t.is_floating_point() else t, out)
 
@@ -264,6 +286,12 @@ def _host_leaf(a) -> torch.Tensor:
     a = np.asarray(a)
     return torch.from_numpy(np.ascontiguousarray(
         a, dtype=np.float32 if a.dtype == np.float64 else a.dtype))
+
+
+class _RowShards(list):
+    """A sharded predict's outputs: one device output per data slot, in
+    row order; :meth:`InferenceModel.do_fetch` concatenates them on the
+    host."""
 
 
 class _EagerProgram:
@@ -452,11 +480,14 @@ class InferenceModel:
     module docstring). ``aot_cache_dir`` other than ``None``, or
     ``AZOO_AOT_CACHE_DIR`` set in the environment, raises
     ``NotImplementedError``: the port keeps no persistent executable
-    cache (:data:`NO_AOT_CACHE`)."""
+    cache (:data:`NO_AOT_CACHE`). ``sharding_plan``: a
+    :class:`~analytics_zoo_tpu_torch.mesh.plan.ShardingPlan` to serve
+    under (see the module docstring and :meth:`set_sharding_plan`)."""
 
     def __init__(self, concurrent_num: int = 1,
                  executable_cache_size: Optional[int] = 32,
-                 aot_cache_dir: Optional[str] = None):
+                 aot_cache_dir: Optional[str] = None,
+                 sharding_plan=None):
         if aot_cache_dir is not None:
             self.set_aot_cache(aot_cache_dir)
         if os.environ.get(AOT_CACHE_ENV):
@@ -467,6 +498,11 @@ class InferenceModel:
         self.model_state = None
         self.device = None
         self._exec_params = None  # params cast to the compute dtype
+        # with a ShardingPlan: one executable per (bucket, data slot), the
+        # params placed by the plan once per generation (cached below)
+        self.sharding_plan = sharding_plan
+        self._placed = None       # (placed params, placed state)
+        self._placed_gen = -1     # generation _placed belongs to
         self.executable_cache_size = executable_cache_size
         self._compiled: "collections.OrderedDict[Tuple, Any]" = \
             collections.OrderedDict()
@@ -485,15 +521,15 @@ class InferenceModel:
         # built for generation g is cached and replayed only while
         # _gen == g
         self._gen = 0
-        # card only: the graphs' shared memory pool, the graphs alive in it,
-        # the side stream they capture and replay on, and the lock that
-        # keeps one graph's capture or replay from interleaving with
-        # another's on it (see _GraphProgram)
+        # card only, per card (a sharding plan's slots may span several):
+        # the graphs' shared memory pool, the graphs alive in it and the
+        # side stream they capture and replay on; and the lock that keeps
+        # one graph's capture or replay from interleaving with another's
+        # (see _GraphProgram)
         self._replay_lock = threading.Lock()
-        self._pool = None
-        self._pool_graphs: "weakref.WeakSet[_GraphProgram]" = \
-            weakref.WeakSet()
-        self._stream = None
+        self._pools: Dict[torch.device, Any] = {}
+        self._pool_graphs: "Dict[torch.device, weakref.WeakSet]" = {}
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
 
     # -- int8 -------------------------------------------------------------
 
@@ -505,6 +541,44 @@ class InferenceModel:
         if directory is not None:
             refuse_aot_cache(f"set_aot_cache({directory!r})")
         return self
+
+    def set_sharding_plan(self, plan) -> "InferenceModel":
+        """Attach (or with ``None`` detach) a
+        :class:`~analytics_zoo_tpu_torch.mesh.plan.ShardingPlan`. Later
+        builds make one executable per (bucket, data slot); the params are
+        placed by the plan once per model generation. Changing the plan
+        bumps the generation and drops every executable: one built for one
+        mesh never serves another."""
+        if plan is not None:
+            from analytics_zoo_tpu_torch.mesh.plan import ShardingPlan
+
+            if not isinstance(plan, ShardingPlan):
+                raise TypeError(
+                    f"sharding_plan must be a ShardingPlan or None, got "
+                    f"{type(plan).__name__}")
+        with self._lock:
+            self._gen += 1
+            self._compiled.clear()
+            self._warmed.clear()
+            self._placed = None
+            self.sharding_plan = plan
+        return self
+
+    def _placed_args(self, plan, params, state, gen):
+        """``(params, state)`` placed by ``plan``, once per generation: a
+        placement per predict would dominate its cost. Placed outside the
+        lock (the copies are the expensive part); the generation check on
+        insert keeps a reload that raced the placement from pinning stale
+        weights."""
+        with self._lock:
+            if self._placed is not None and self._placed_gen == gen:
+                return self._placed
+        placed = (plan.shard_params(params), plan.shard_params(state))
+        with self._lock:
+            if self._gen == gen:
+                self._placed = placed
+                self._placed_gen = gen
+        return placed
 
     def do_calibrate(self, batches) -> "InferenceModel":
         """Post-training static int8: a calibration pass over
@@ -722,24 +796,31 @@ class InferenceModel:
         inner = inner or _predict_inner(snap.model)
         if snap.device.type != "cuda":
             return _EagerProgram(snap, inner)
-        with _CAPTURE_LOCK, self._replay_lock:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(snap.device)
-            if not self._pool_graphs:
+        dev = snap.device
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        with _CAPTURE_LOCK, self._replay_lock, torch.cuda.device(dev):
+            if dev not in self._streams:
+                self._streams[dev] = torch.cuda.Stream(dev)
+            graphs = self._pool_graphs.setdefault(dev, weakref.WeakSet())
+            if not graphs:
                 # PyTorch retires a pool once no graph holds it (a reload
                 # or an eviction dropped the last one); start a new one
-                self._pool = torch.cuda.graph_pool_handle()
+                self._pools[dev] = torch.cuda.graph_pool_handle()
             t0 = time.perf_counter()
-            exe = _GraphProgram(snap, inner, example_args, self._pool,
-                                self._stream, self._replay_lock)
-            self._pool_graphs.add(exe)
+            exe = _GraphProgram(snap, inner, example_args, self._pools[dev],
+                                self._streams[dev], self._replay_lock)
+            graphs.add(exe)
             _kernels.compiled(time.perf_counter() - t0)
         return exe
 
-    def _get_executable(self, key, inner, example_args, label, cast=True):
+    def _get_executable(self, key, inner, example_args, label, cast=True,
+                        slot=None):
         # Snapshot (model, params, state, gen) in ONE lock acquisition so a
         # build never sees a torn combination; build outside the lock so a
         # new shape does not stall concurrent predicts of built ones.
+        # ``slot``: (plan, the slot's device) for a sharded cell, whose
+        # snapshot runs on the plan's placed params on that device.
         with self._lock:
             if self.model is None:
                 raise RuntimeError(
@@ -753,6 +834,11 @@ class InferenceModel:
             snap = None if fn is not None else self._snapshot()
         if snap is not None and not cast:
             snap.dtype = None  # the arguments keep their float32
+        if snap is not None and slot is not None:
+            plan, device = slot
+            snap.params, snap.state = self._placed_args(
+                plan, snap.params, snap.state, snap.gen)
+            snap.device, snap.placed = device, True
         inference_cache_counters()["hits" if fn is not None
                                    else "misses"].inc()
         tracer = get_tracer()
@@ -788,15 +874,41 @@ class InferenceModel:
             inference_cache_counters()["evictions"].inc(evicted)
 
     def _run(self, x):
-        """Run ``x`` (host arrays) through its signature's executable;
-        returns device tensors. An executable of an older generation is
+        """Run ``x`` (host arrays) through its signature's executable(s);
+        returns device tensors (under a sharding plan, the slots' outputs
+        as :class:`_RowShards`). An executable of an older generation is
         never replayed: a load or release that raced the lookup sends the
-        call back for the current model's executable."""
-        key = self._shape_key(x)
+        call back for the current model's executables."""
         while True:
-            fn = self._get_executable(key, None, (x,), str(key))
-            if fn.gen == self._gen:
-                return fn.run(x)
+            plan = self.sharding_plan
+            if plan is None:
+                key = self._shape_key(x)
+                fn = self._get_executable(key, None, (x,), str(key))
+                if fn.gen == self._gen:
+                    return fn.run(x)
+                continue
+            cells = self._slot_cells(plan, x)
+            if all(fn.gen == self._gen for fn, _, _ in cells):
+                return _RowShards(fn.run(part) for fn, part, _ in cells)
+
+    def _slot_cells(self, plan, x):
+        """``[(executable, slot rows, key)]`` of ``x`` over ``plan``'s data
+        slots, in row order: the batch placed by the plan
+        (:meth:`ShardingPlan.device_put_batch`, a fresh copy) and each
+        data slot's executable at its share of the rows."""
+        rows = (x[0] if isinstance(x, (list, tuple)) else x).shape[0]
+        plan.validate_batch(rows, context="predict batch")
+        placed = plan.device_put_batch(x)
+        mesh = plan.build_mesh()
+        cells = []
+        for k, idx in enumerate(plan.data_slot_indices()):
+            part = ([t.shards[idx] for t in placed]
+                    if isinstance(placed, list) else placed.shards[idx])
+            key = self._shape_key(part) + (("slot", k),)
+            fn = self._get_executable(key, None, (part,), str(key),
+                                      slot=(plan, mesh.slots()[idx]))
+            cells.append((fn, part, key))
+        return cells
 
     def do_optimize(self, example_input) -> "InferenceModel":
         """Warm one bucket shape: build its executable (on the card,
@@ -810,6 +922,11 @@ class InferenceModel:
         x = ([np.asarray(a) for a in example_input]
              if isinstance(example_input, (list, tuple))
              else np.asarray(example_input))
+        plan = self.sharding_plan
+        if plan is not None:  # every (bucket, data slot) cell
+            for _, _, key in self._slot_cells(plan, x):
+                self._note_warmed(key)
+            return self
         key = self._shape_key(x)
         self._get_executable(key, None, (x,), str(key))
         self._note_warmed(key)
@@ -867,6 +984,11 @@ class InferenceModel:
 
         Returns ``(program, params, model_state)``; call
         ``program(params, model_state, *args)``."""
+        if self.sharding_plan is not None:
+            raise NotImplementedError(
+                "compile_program does not support sharding plans — "
+                "sequence serving is single-device (detach the plan or "
+                "serve this model through do_predict)")
         key = ("__prog__", tag, self._args_key(example_args))
         fn = self._get_executable(key, inner, example_args,
                                   f"{tag}:{key[2][1:]}", cast)
@@ -903,7 +1025,11 @@ class InferenceModel:
 
     def do_fetch(self, out):
         """Materialize a :meth:`do_dispatch` output as host numpy arrays
-        (waits for the device)."""
+        (waits for the device); a sharded predict's slot outputs are
+        concatenated in row order."""
+        if isinstance(out, _RowShards):
+            parts = [self.do_fetch(o) for o in out]
+            return tree_map(lambda *a: np.concatenate(a, axis=0), *parts)
         return tree_map(lambda t: t.cpu().numpy(), out)
 
     predict = do_predict
@@ -916,6 +1042,7 @@ class InferenceModel:
             self._warmed.clear()
             self._quantized = False
             self._calibrated = False
+            self._placed = None
             self.model = None
             self.params = None
             self._exec_params = None

@@ -11,8 +11,11 @@ that one generator in call order, not from ``jax.random.fold_in`` streams.
 ``remat=True`` recomputes each block's activations in the backward pass
 (``torch.utils.checkpoint``, training only) and replays the block's
 dropout draws from the generator's saved state, so loss and gradients are
-bitwise those of ``remat=False``. Sequence and pipeline parallelism raise
-(ROADMAP A7).
+bitwise those of ``remat=False``. ``sequence_parallel="ring"`` or
+``"ulysses"`` runs the attention body through
+:mod:`analytics_zoo_tpu_torch.parallel.ring_attention` when the context's
+slot mesh has a ``seq`` axis longer than 1 (the standard path otherwise,
+as in the JAX package). Pipeline parallelism raises (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -56,7 +59,20 @@ def _maybe_dropout(x, rate: float, training: bool, rng):
 
 def _not_yet(feature: str, value) -> None:
     if value:
-        raise NotImplementedError(f"{feature} is not ported yet")
+        raise NotImplementedError(
+            f"{feature} is not ported yet (ROADMAP A7)")
+
+
+def _armed_mesh(axis_name: str):
+    """The context's slot mesh, iff it carries ``axis_name`` with length
+    > 1: the arming gate of the sequence-parallel dispatch (None: the
+    standard path)."""
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+
+    mesh = get_nncontext().mesh
+    if axis_name not in mesh.axis_names:
+        return None
+    return mesh if mesh.shape[axis_name] > 1 else None
 
 
 def _embed(table, ids):
@@ -136,21 +152,41 @@ def _run_blocks(blocks, params, h, training, rng, mask, remat):
 
 
 class MultiHeadAttention(KerasLayer):
-    """Self-attention over (B, S, H); ``cross=True`` takes [query, kv]."""
+    """Self-attention over (B, S, H); ``cross=True`` takes [query, kv].
+
+    ``sequence_parallel``: "ring" or "ulysses" routes the attention body
+    through the sequence-parallel engines when the context mesh carries a
+    ``seq_mesh_axis`` of length > 1; on a mesh without one the layer runs
+    the standard path. Key padding masks ride the engines; attention
+    dropout, the Keras query-mask mode and cross-attention raise
+    ``NotImplementedError`` once the engines engage, as in the JAX
+    package."""
 
     def __init__(self, n_head: int, hidden_size: Optional[int] = None,
                  attn_dropout: float = 0.0, resid_dropout: float = 0.0,
                  causal: bool = False, cross: bool = False,
-                 sequence_parallel: Optional[str] = None, input_shape=None,
-                 name=None):
+                 sequence_parallel: Optional[str] = None,
+                 seq_mesh_axis: str = "seq", input_shape=None, name=None):
         super().__init__(input_shape, name)
-        _not_yet("sequence_parallel", sequence_parallel)
         self.n_head = n_head
         self.hidden_size = hidden_size
         self.attn_dropout = attn_dropout
         self.resid_dropout = resid_dropout
         self.causal = causal
         self.cross = cross
+        if sequence_parallel not in (None, "ring", "ulysses"):
+            raise ValueError(
+                f"sequence_parallel must be None|'ring'|'ulysses', got "
+                f"{sequence_parallel!r}")
+        self.sequence_parallel = sequence_parallel
+        self.seq_mesh_axis = seq_mesh_axis
+
+    def _sp_mesh(self):
+        """The context mesh, when sequence parallelism is armed and the
+        mesh spans a seq axis (else None: the standard path)."""
+        if self.sequence_parallel is None:
+            return None
+        return _armed_mesh(self.seq_mesh_axis)
 
     @staticmethod
     def _norm_shape(input_shape: Shape) -> Shape:
@@ -214,6 +250,9 @@ class MultiHeadAttention(KerasLayer):
         if not isinstance(x, (list, tuple)) or len(x) != 2:
             raise ValueError(
                 f"{self.name}: cross=True takes [query, kv] inputs")
+        if self._sp_mesh() is not None:
+            raise NotImplementedError(
+                "sequence-parallel cross-attention is not supported")
         q_in, kv_in = x
         b, s_q, _ = q_in.shape
         s_kv = kv_in.shape[1]
@@ -254,6 +293,28 @@ class MultiHeadAttention(KerasLayer):
             if keras and not rows:
                 mm = m[:, None, :, None] * mm
             bias = ((1.0 - mm) * -1e9).to(x.dtype)
+        sp_mesh = self._sp_mesh()
+        if sp_mesh is not None:
+            # raised at dispatch, not silently altered: on a mesh without a
+            # seq axis the same config runs the standard path with dropout
+            # and mask intact, so the conflict exists only when SP engages
+            if (training and self.attn_dropout > 0) or keras:
+                raise NotImplementedError(
+                    "sequence-parallel attention supports causal + key "
+                    "padding masks only — attention dropout and the keras "
+                    "query-side mask mode don't fit the ring pass; set "
+                    "attn dropout to 0, or run without sequence_parallel")
+            from analytics_zoo_tpu_torch.parallel.ring_attention import (
+                ring_attention,
+                ulysses_attention,
+            )
+
+            sp_fn = (ring_attention if self.sequence_parallel == "ring"
+                     else ulysses_attention)
+            out = sp_fn(q, k, v, sp_mesh, seq_axis=self.seq_mesh_axis,
+                        causal=self.causal, key_mask=mask)
+            out = out.transpose(1, 2).reshape(b, s, h)
+            return self._project(params, out, training, rng)
         out = self._attend(q, k, v, bias, training, rng)
         if rows:
             out = torch.where(m[:, None, :, None] > 0, out,
@@ -326,7 +387,6 @@ class TransformerLayer(KerasLayer):
                  input_shape=None, name=None):
         super().__init__(input_shape, name or unique_name("transformer"))
         _not_yet("pipeline_parallel", pipeline_parallel)
-        _not_yet("sequence_parallel", sequence_parallel)
         self.vocab = vocab
         self.seq_len = seq_len
         self.n_block = n_block
@@ -338,6 +398,7 @@ class TransformerLayer(KerasLayer):
             TransformerBlock(n_head, hidden_drop=hidden_drop,
                              attn_drop=attn_drop, causal=not bidirectional,
                              activation=activation,
+                             sequence_parallel=sequence_parallel,
                              name=f"{self.name}_block{i}")
             for i in range(n_block))
 

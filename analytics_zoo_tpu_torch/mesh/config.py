@@ -2,22 +2,24 @@
 ``analytics_zoo_tpu.mesh.config``).
 
 A frozen value object describing the mesh *shape* only; no device is
-touched until :meth:`MeshConfig.build` checks it against the devices of
-this process. Keeping the declaration device-free lets a trainer, a
-checkpoint and a script carry the same object, and keeps the fingerprint
-stable.
+touched until :meth:`MeshConfig.build` takes its slots from the context's
+in-process mesh (:class:`~analytics_zoo_tpu_torch.mesh.slots.SlotMesh`,
+``init_nncontext(mesh_shape=...)``). Keeping the declaration device-free
+lets a serving config, a trainer, a checkpoint and a script carry the same
+object, and keeps the fingerprint stable.
 
-The port runs one device per process (``NNContext.num_devices``): hosts
-are processes, and the cross-host reduction happens above PyTorch, in the
-rendezvous of :class:`~analytics_zoo_tpu_torch.ft.distributed.DistContext`.
-So :meth:`MeshConfig.host_local_data` is a one-device data axis and
-:meth:`MeshConfig.build` refuses a larger mesh, naming the device count.
+:meth:`MeshConfig.host_local_data` is the data axis of one host process of
+a multi-host trainer (:class:`~analytics_zoo_tpu_torch.ft.distributed
+.DistContext`): one device, the context's, with the cross-host reduction
+above PyTorch in the rendezvous.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+import numpy as np
 
 __all__ = ["MeshConfig", "DEFAULT_AXIS_NAMES", "STAGE_AXIS"]
 
@@ -31,25 +33,19 @@ DEFAULT_AXIS_NAMES: Tuple[str, ...] = ("data", "fsdp", "tp")
 STAGE_AXIS: str = "stage"
 
 
-def _process_device_count() -> int:
-    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
-
-    return int(get_nncontext().num_devices)
-
-
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Declarative mesh description: ``axis_lengths`` x ``axis_names``.
 
     ::
 
-        MeshConfig((1, 1, 1))                  # one device
+        MeshConfig((8, 1, 1))                  # 8-way data parallel
         MeshConfig((4,), axis_names=("data",)) # data-only mesh
         MeshConfig.from_spec("data=8,tp=1")    # the --mesh CLI syntax
 
     Validated for internal consistency at construction (rank match,
-    positive lengths, unique names) and against the process's devices only
-    at :meth:`build`, so a config for a larger machine can be built,
+    positive lengths, unique names) and against the context's slots only
+    at :meth:`build`, so a config for a larger mesh can be built,
     serialized and fingerprinted anywhere.
     """
 
@@ -104,11 +100,11 @@ class MeshConfig:
 
     @classmethod
     def host_local_data(cls) -> "MeshConfig":
-        """A data-only mesh over every device of *this* process: the
-        default mesh of a multi-host data-parallel trainer. On the port
-        that is one device (the context's). Touches the context, so unlike
-        the other constructors this one is not device-free."""
-        return cls((_process_device_count(),), ("data",))
+        """The data axis of *this* host process of a multi-host
+        data-parallel trainer: one device, the context's (each host is a
+        process; the cross-host reduction is the rendezvous of
+        :class:`~analytics_zoo_tpu_torch.ft.distributed.DistContext`)."""
+        return cls((1,), ("data",))
 
     @property
     def total_devices(self) -> int:
@@ -127,25 +123,22 @@ class MeshConfig:
             return 1
 
     def build(self):
-        """The process's devices as an object array of ``axis_lengths``
-        (``torch.device`` entries), after checking the shape against the
-        device count: a mesh bigger than the process fails here, naming
-        the count, instead of deep inside a step."""
-        import numpy as np
-
+        """The context mesh's first ``total_devices`` slots (``torch.device``
+        entries) as an object array of ``axis_lengths``: a mesh with more
+        slots than the context has fails here, naming both counts, instead
+        of deep inside a step."""
         from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
 
-        ctx = get_nncontext()
-        available = int(ctx.num_devices)
-        if self.total_devices > available:
+        slots = get_nncontext().mesh.slots()
+        if self.total_devices > len(slots):
             raise ValueError(
                 f"mesh {self.describe()} needs {self.total_devices} "
-                f"device(s) but this process has {available} (the port "
-                "runs one device per process; spread a larger data axis "
-                "over host processes with ft.distributed.DistContext)")
+                f"device slot(s) but the context has {len(slots)} — make "
+                "the context with init_nncontext(mesh_shape=...) of at "
+                "least as many slots (on the CPU: device='cpu')")
         devices = np.empty((self.total_devices,), dtype=object)
         for i in range(self.total_devices):
-            devices[i] = ctx.device
+            devices[i] = slots[i]
         return devices.reshape(self.axis_lengths)
 
     def describe(self) -> str:

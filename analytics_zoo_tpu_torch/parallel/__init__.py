@@ -1,7 +1,39 @@
-"""Parallel layers (port of ``analytics_zoo_tpu.parallel``): the top-1
-mixture-of-experts FFN. Sharding plans, ring attention and pipeline
-stages are not ported yet (ROADMAP A7)."""
+"""Parallel layers and layouts (port of ``analytics_zoo_tpu.parallel``) on
+the in-process slot mesh: the sharding helpers, ring and Ulysses sequence
+parallelism, and the top-1 mixture-of-experts FFN. Pipeline stages
+(``parallel/pipeline.py``) are not ported yet (ROADMAP A7)."""
 
 from analytics_zoo_tpu_torch.parallel.moe import init_moe_params, moe_ffn
+from analytics_zoo_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    ulysses_attention,
+)
+from analytics_zoo_tpu_torch.parallel.sharding import (
+    PartitionSpec,
+    ShardedTensor,
+    ShardingRules,
+    SlotSharding,
+    data_sharding,
+    named_sharding,
+    param_shardings,
+    place_params,
+    replicated,
+    shard_batch,
+)
 
-__all__ = ["init_moe_params", "moe_ffn"]
+__all__ = [
+    "ShardingRules",
+    "data_sharding",
+    "replicated",
+    "shard_batch",
+    "named_sharding",
+    "param_shardings",
+    "place_params",
+    "PartitionSpec",
+    "SlotSharding",
+    "ShardedTensor",
+    "ring_attention",
+    "ulysses_attention",
+    "init_moe_params",
+    "moe_ffn",
+]

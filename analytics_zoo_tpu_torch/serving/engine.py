@@ -27,8 +27,11 @@ Hot reload: :meth:`ServingEngine.watch_checkpoints` registers every
 committed checkpoint of a training run as a new version
 (:class:`~analytics_zoo_tpu_torch.ft.hot_reload.CheckpointWatcher`).
 
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: ``register(sharding_plan=..., stage_plan=...)`` (A7).
+Mesh serving: ``register(sharding_plan=ShardingPlan(...))`` validates the
+bucket ladder against the plan's ``data`` axis before it touches the model,
+attaches the plan and warms every (bucket, data slot) cell. Not ported yet,
+and raising ``NotImplementedError`` that names the ROADMAP item:
+``register(stage_plan=...)`` (A7).
 
 Resilience is on by default: a
 :class:`~analytics_zoo_tpu_torch.serving.resilience.ResilienceConfig` gives
@@ -193,6 +196,9 @@ class ModelEntry:
         cache = getattr(self.model, "cache_stats", None)
         if cache is not None:
             out["executable_cache"] = dict(cache)
+        plan = getattr(self.model, "sharding_plan", None)
+        if plan is not None:
+            out["sharding"] = plan.describe()
         return out
 
 
@@ -343,16 +349,42 @@ class ServingEngine:
         admission programs, so generation never builds one at serve
         time.
 
-        ``sharding_plan`` and ``stage_plan`` are not ported yet: passing
-        one raises ``NotImplementedError`` (ROADMAP A7) before anything is
-        touched.
+        ``sharding_plan``: a
+        :class:`~analytics_zoo_tpu_torch.mesh.plan.ShardingPlan` to attach
+        to the model before warmup; warmup then builds one executable per
+        (bucket, data slot) cell (on the card, a CUDA graph each). Whether
+        passed here or already attached to the model, the bucket ladder is
+        validated against the plan's ``data`` axis first: a bucket not
+        divisible by the axis length raises
+        :class:`~analytics_zoo_tpu_torch.mesh.plan.BucketShardingError`
+        naming the offending (bucket, axis) pair, and the model is left as
+        it was. Sequence serving is single-device: combining ``sequence``
+        with a sharding plan raises ``NotImplementedError`` at warmup.
+
+        ``stage_plan`` is not ported yet: passing one raises
+        ``NotImplementedError`` (ROADMAP A7) before anything is touched.
         """
-        if sharding_plan is not None or stage_plan is not None:
+        if stage_plan is not None:
             raise NotImplementedError(
-                "sharding and stage plans are not ported yet (ROADMAP A7)")
+                "stage plans are not ported yet (ROADMAP A7)")
         cfg = config or BatcherConfig()
         rows = _example_rows(example_input)
         multi = isinstance(example_input, (list, tuple))
+        if sharding_plan is not None and not hasattr(
+                model, "set_sharding_plan"):
+            raise TypeError(
+                f"model for '{name}' does not accept a sharding plan "
+                "(no set_sharding_plan) — duck-typed models must "
+                "handle their own device placement")
+        plan = (sharding_plan if sharding_plan is not None
+                else getattr(model, "sharding_plan", None))
+        if plan is not None:
+            # validate BEFORE attaching: a rejected register must not
+            # leave the model mutated (plan set, executables dropped)
+            plan.validate_ladder(
+                cfg.ladder(), context=f"model '{name}' bucket ladder")
+        if sharding_plan is not None:
+            model.set_sharding_plan(sharding_plan)
         entry_t0 = time.perf_counter()
         if warmup and hasattr(model, "do_optimize"):
             from analytics_zoo_tpu_torch.common.observability import get_tracer

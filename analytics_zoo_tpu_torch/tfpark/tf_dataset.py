@@ -5,8 +5,9 @@ In the reference this class shards an RDD/ndarray/ImageSet/TextSet source
 across Spark executors and makes TF placeholders whose batch dim obeys
 ``batch_size % total_cores == 0`` (tf_dataset.py:134-139). Here, as in the
 JAX package, it is a named wrapper over a FeatureSet carrying that batch
-geometry (the device count is the context's ``num_devices``, 1 in the
-port), with the same constructor family (from_ndarrays:426, from_rdd:295,
+geometry (the device count is the context's ``num_devices``: its mesh's
+slot count, 1 unless ``init_nncontext(mesh_shape=...)``), with the same
+constructor family (from_ndarrays:426, from_rdd:295,
 from_image_set:548, from_text_set, from_feature_set).
 """
 

@@ -74,7 +74,7 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    ``load_model`` -> ``predict`` bitwise;
 3e. checkpoint and resume: NCF (as in 3d, 3 epochs, a checkpoint each
    epoch) and BERT-base at full width cut to 2 blocks (bf16 compute,
-   hidden dropout 0.1, batch 64, 2 epochs of 320 rows, a checkpoint every
+   hidden dropout 0.1, batch 64, 2 epochs of 192 rows, a checkpoint every
    2 iterations, under ``torch.use_deterministic_algorithms`` so that its
    embedding gradients repeat) each run (a) uninterrupted twice, (b) in a child process
    (``--resume-child``) armed with ``AZOO_FT_CHAOS=before_commit`` to die
@@ -114,7 +114,8 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    ResNet-50 as ``.npy``); every batch the batcher dispatched is recorded,
    every response must equal its batch's replayed rows bitwise, every
    replay the eager forward of the same bucket-shaped batch bitwise, and
-   every BERT response the plain attention route within ``PROB_BOUND``;
+   every BERT response of the last run the plain attention route within
+   ``PROB_BOUND``;
    ``cache_stats`` must show one miss per bucket after ``register`` and
    none after it; the flash wrapper must launch 24 times per BERT bucket
    at ``register`` (its eager warm-up and its capture), never for
@@ -133,7 +134,7 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
 6. the text model family and sequence serving: TextClassifier with the cnn,
    lstm and gru encoders at the model's own defaults (20 classes, embedding
    200 from a random matrix, 500 tokens, encoder width 256, vocab 20000)
-   each fits 1 epoch of 2048 random rows at batch 128 (Adam 0.01, sparse
+   each fits 1 epoch of 1024 random rows at batch 128 (Adam 0.01, sparse
    cross-entropy, accuracy and top-5) with every loss finite, then 10
    Estimator steps are timed (step p50, samples/s); ``predict`` must equal
    ``InferenceModel`` serving the trained model bitwise at the same batch
@@ -413,6 +414,26 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    host's step p50 split into compute, exchange and sharded update, the
    rendezvous bytes a step, commit and restore seconds and each process's
    peak card memory.
+17. the in-process mesh (``mesh_phase``; alone
+   ``scripts/torch_mesh_phase.py``; right after phase 16): 17a ring
+   attention's flash body, causal and not, and Ulysses with a key mask
+   (causal) at (2, 12, 4096, 64) bf16 on a 4-slot seq mesh of the card,
+   each held with its (q, k, v) gradients against the same call on the
+   kernels' plain versions (phase 2b's factors on the error against the
+   f64 dense formulas, with a nonzero lse cotangent from the ring's
+   merge), one flash call over the full sequence (printed) and the f64
+   values, with exact launch counts (16/16/16 a ring call, 4/4/4 a
+   Ulysses call); 17b a causal TransformerLayer at BERT-base widths and
+   depth at 4096 tokens (bf16, dropout 0, batch 2) trains 3 steps with
+   ``sequence_parallel="ring"`` on a (1, 1, 4) context mesh against 3
+   steps without it on one slot: loss and update within
+   ``MESH_STEP_BOUND``, 192/192/192 launches a step with the ring and
+   12/12/12 without, step p50 and peak memory printed; 17c BERT-base
+   served plain and under a ``data=4`` ``ShardingPlan``, ladder (8, 16,
+   32): 0 misses after register, 12 flash nodes in each (bucket, slot)
+   graph, every bucket and 5 and 13 rows within ``MESH_SERVE_BOUND`` with
+   equal argmax, ``BatchPredictJob`` over 1,024 rows sharded against
+   plain, and a (4, 6) ladder refused before the model changes.
    The script prints its own seconds at the end.
 
 The build phase prints each kernel's ptxas registers and spills and, for
@@ -437,7 +458,8 @@ workers' registers (other processes: counted in neither);
 counted in ``launches``; ``keras_encoder_launches`` its wrapper launches
 over phase 15a, counted in ``launches``; ``dist_launches`` its wrapper
 launches in phase 16's host processes (16a on both hosts and 16b),
-counted in ``launches``;
+counted in ``launches``; ``mesh_launches`` its wrapper launches over
+phase 17, counted in ``launches``;
 ``ms`` is its device time under torch.profiler and ``event_ms`` CUDA-event
 time over back-to-back calls; ``plain_ms`` is event time; the backward
 rows add the whole backward's times and bound and each bf16 route's tiles
@@ -555,11 +577,13 @@ NCF_CHECK_ROWS = 1024  # rows scored by predict, serving and the utilities
 # before_commit, and (c) from a fresh Estimator with auto_resume=True.
 # NCF as in 3d, 3 epochs, a checkpoint each epoch; BERT-base at full width
 # (bf16 compute, hidden dropout 0.1 so that the dropout stream must be
-# restored) cut to 2 blocks, batch 64, 320 rows, 2 epochs, a checkpoint
-# every 2 iterations (so the resume lands mid-epoch).
+# restored) cut to 2 blocks, batch 64, 192 rows, 2 epochs, a checkpoint
+# every 2 iterations (so the resume lands mid-epoch): 6 steps, the child
+# dies at iteration 4's commit. It was 320 rows (10 steps; 7.2-7.7 s a run
+# on an H100 host, PERF.md §6) until phase 17 needed the time.
 RESUME_NCF_EPOCHS = 3
 RESUME_BERT = dict(TRAIN_BERT, n_block=2)
-RESUME_BERT_SAMPLES, RESUME_BERT_EPOCHS, RESUME_BERT_EVERY = 320, 2, 2
+RESUME_BERT_SAMPLES, RESUME_BERT_EPOCHS, RESUME_BERT_EVERY = 192, 2, 2
 RESUME_BERT_DROP = 0.1
 CKPT_WRITES = 2  # checkpoint writes timed per model and mode
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
@@ -2212,12 +2236,12 @@ def _row_key(x, i):
     return b"".join(a[i].tobytes() for a in xs)
 
 
-def check_served(fa, name, im, batches, results):
+def check_served(fa, name, im, batches, results, plain_route):
     """Each response of ``name`` against the batch the batcher put it in:
     equal bitwise to that batch's replayed rows, the replay equal bitwise
     to an eager forward of the same bucket-shaped batch on the card, and,
-    for BERT, within PROB_BOUND of the plain attention route. Returns
-    ({bucket: [seconds]}, [rows / bucket per batch])."""
+    for BERT with ``plain_route``, within PROB_BOUND of the plain attention
+    route. Returns ({bucket: [seconds]}, [rows / bucket per batch])."""
     index = {}
     outs = []
     for j, (x, out) in enumerate(batches):
@@ -2258,7 +2282,7 @@ def check_served(fa, name, im, batches, results):
                  f"batch at the same bucket (max "
                  f"{np.abs(eager - outs[j]).max():.3e})")
     worst = 0.0
-    if name == "bert":
+    if name == "bert" and plain_route:
         kernel_fwd = fa._flash_forward
         fa._flash_forward = fa._flash_forward_plain
         try:
@@ -2278,7 +2302,10 @@ def check_served(fa, name, im, batches, results):
     return by_bucket, fill, worst
 
 
-SERVE_CPU_SAMPLE = 16  # BERT responses also held against the CPU route
+# BERT responses also held against the CPU route: 8 (16 until phase 17
+# needed the time; a BERT-base bf16 forward of 1-8 rows takes 1.2-2.6 s
+# on an 8-core host's CPU)
+SERVE_CPU_SAMPLE = 8
 
 
 def check_cpu_route(net, results):
@@ -2374,6 +2401,7 @@ def serve_tier(fa, net, resnet, rng):
             for via_http in (False, True)] + [(max(SERVE_CLIENTS), True,
                                                True)]
     replayed = traced_count = 0
+    plain_gap = 0.0
     try:
         for n_clients, via_http, traced in runs:
             run = lambda: serve_traffic(  # noqa: E731
@@ -2408,9 +2436,14 @@ def serve_tier(fa, net, resnet, rng):
                       f"bert {len(batches['bert'])}, resnet "
                       f"{len(batches['resnet'])}", flush=True)
             for name in models:
+                # the plain route (one more eager forward per batch, the
+                # attention on its block loops) is held on the traced run,
+                # the heaviest (it was held on all five before phase 17)
                 by_bucket, fill, worst = check_served(
-                    fa, name, models[name], batches[name], results)
+                    fa, name, models[name], batches[name], results,
+                    plain_route=traced)
                 if traced:
+                    plain_gap = max(plain_gap, worst)
                     continue
                 lat = [r[3] * 1e3 for r in results if r[0] == name]
                 p50, p90 = np.percentile(lat, (50, 90))
@@ -2423,14 +2456,12 @@ def serve_tier(fa, net, resnet, rng):
                       f"{np.mean(fill):.3f} over {len(fill)} flushes; "
                       f"by bucket {buckets}; every response bitwise = "
                       f"its replayed batch rows = eager at the same "
-                      f"bucket" + (f"; max |served - plain route| "
-                                   f"{worst:.3e} (bound {PROB_BOUND:g})"
-                                   if name == "bert" else ""),
-                      flush=True)
+                      f"bucket", flush=True)
         print(f"serve: every response of the traced run bitwise = its "
-              f"replayed batch rows = eager at the same bucket; flash "
-              f"wrapper launches over phase 5's main path {launches}, all "
-              f"at register", flush=True)
+              f"replayed batch rows = eager at the same bucket, BERT's "
+              f"within {plain_gap:.3e} of the plain route (bound "
+              f"{PROB_BOUND:g}); flash wrapper launches over phase 5's "
+              f"main path {launches}, all at register", flush=True)
         check_cpu_route(net, results)  # the last run: HTTP, most clients
         for name, im in models.items():
             if im.cache_stats["misses"] != len(SERVE_LADDER) or \
@@ -2655,8 +2686,11 @@ def time_replay_vs_eager(models, rng):
 # 20000 words), with a random embedding matrix in place of GloVe.
 TEXT_CFG = dict(class_num=20, embedding=200, sequence_length=500,
                 encoder_output_dim=256, vocab_size=20000)
-TEXT_ROWS, TEXT_BATCH, TEXT_EPOCHS = 2048, 128, 1
-TEXT_TIMED_STEPS = 5  # Estimator steps timed after the fit
+# 1024 rows: 8 fit steps (2048 until phase 17 needed the time: the lstm and
+# gru fits took 11.5 and 10.5 s, PERF.md §6); the timed steps and the
+# predict/evaluate rows come from the first batches either way.
+TEXT_ROWS, TEXT_BATCH, TEXT_EPOCHS = 1024, 128, 1
+TEXT_TIMED_STEPS = 3  # Estimator steps timed after the fit (5 before)
 # Seq2seq at scripts/seq_serving_bench.py's FULL_SIZE, LSTM, bridge pass,
 # trained 2 epochs on a copy task (Adam at SEQ_LR: at 0.01 the loss stays
 # at ln 64), served with the bench's full SequenceConfig.
@@ -2713,7 +2747,7 @@ def make_seq_workload(n, cfg, vocab, zipf_s, seed=0):
 
 def text_classifiers(fa, rng):
     """Phase 6a: TextClassifier cnn, lstm and gru at the model's defaults,
-    each fit 1 epoch of 2048 random rows (Adam 0.01, sparse cross-entropy,
+    each fit 1 epoch of 1024 random rows (Adam 0.01, sparse cross-entropy,
     accuracy and top-5), then 10 Estimator steps timed; evaluate and
     predict against InferenceModel serving the trained model."""
     from analytics_zoo_tpu_torch.inference import InferenceModel
@@ -4046,7 +4080,9 @@ ROI_BOX_BOUND, ROI_TIE, IOU_TIE = 1e-4, 1e-4, 1e-5
 # slow host, then 40, 0.91-0.92 in 832-928 steps, then 22, 0.908 and
 # 0.915 in 384 and 416 steps); it is now DET_EPOCHS epochs, so that a
 # slower host takes longer instead of training less: 12 (384 steps, mAP
-# 0.908), then 8 (256 steps) to make room for phase 16.
+# 0.908), then 8 (256 steps) to make room for phase 16. Fewer cost more
+# mAP than they save time: 8 epochs read 0.8633, 6 0.4275, 5 0.3947 on an
+# H100 (PERF.md §6).
 DET_TRAIN_MODEL = "ssd-vgg16-300x300"
 DET_IMAGES, DET_BATCH, DET_EPOCHS, DET_LR = 1024, 32, 8, 2e-4
 DET_MAX_BOXES, DET_EVAL_IMAGES, DET_EVAL_IOU = 16, 256, 0.4
@@ -9211,6 +9247,441 @@ def _dist_run(seed, root):
             for i in range(3)]
 
 
+# -- phase 17: the in-process mesh --------------------------------------------
+
+MESH_SEQ = 4  # slots of the seq axis, all on the one card
+RING_SHAPE = (2, 12, 4096, 64)  # (b, heads, S, d): BERT-base's, 4096 tokens
+# 17b: TransformerLayer at BERT-base widths and depth, causal, at 4096 tokens
+MESH_LAYER = dict(vocab=30522, seq_len=4096, n_block=12, hidden_size=768,
+                  n_head=12)
+MESH_BATCH = 2
+MESH_STEPS = 3
+# SGD, momentum 0.9 (Adam's sign-like first step turns rounding noise into
+# whole steps: PERF.md §6). At 0.01 the first step saturated the softmax
+# head (loss 0.0 from step 2 on, PERF.md §6).
+MESH_LR = 1e-4
+# Predicted in PERF.md §6 before the first run: the ring's attention
+# output is its merge of 4 bf16 partials, a rounding away from the single
+# kernel's, and that difference moves through 12 blocks and 3 steps.
+MESH_STEP_BOUND = {"loss": 1e-2, "update": 1e-1}
+MESH_DATA = 4  # 17c: the data axis of the serving plan
+MESH_LADDER = (8, 16, 32)
+MESH_OFF_LADDER = (5, 13)
+MESH_JOB_ROWS = 1024
+# 17c: sharded against unsharded BERT-base probabilities. A data slot runs
+# a quarter of a bucket's rows, whose products may take other cuBLAS
+# algorithms (another summation order in bf16 compute): measured 1.320e-03
+# serving and 2.092e-03 over the batch job (PERF.md §6; H100, 700 W); the
+# bound is about 5x that.
+MESH_SERVE_BOUND = 1e-2
+
+
+def _dense_attention64(q, k, v, g, causal, bias=None):
+    """Attention and its (q, k, v) gradients for the output cotangent
+    ``g``, evaluated densely in f64 from the same operands: the exact
+    yardstick of 17a."""
+    qd, kd, vd = (t.detach().double().requires_grad_(True) for t in (q, k, v))
+    s = qd @ kd.transpose(-1, -2) * q.shape[-1] ** -0.5
+    if bias is not None:
+        s = s + bias.double()
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(~torch.ones(n, n, dtype=torch.bool,
+                                      device=s.device).tril(), -math.inf)
+    out = torch.softmax(s, dim=-1) @ vd
+    grads = torch.autograd.grad(out, (qd, kd, vd), g.double())
+    return out.detach(), grads
+
+
+@contextlib.contextmanager
+def _routed_plain(fa):
+    """Route the flash wrappers onto the kernels' plain versions (the
+    same block loops in plain PyTorch, on the card's tensors)."""
+    fwd, bwd = fa._flash_forward, fa._flash_backward
+    fa._flash_forward = fa._flash_forward_plain
+    fa._flash_backward = fa._flash_backward_plain
+    try:
+        yield
+    finally:
+        fa._flash_forward, fa._flash_backward = fwd, bwd
+
+
+def _attn_with_grads(fn, q, k, v, g):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    return out.detach(), grads
+
+
+def sp_kernel_case(fa, label, fn, single, q, k, v, g, causal, bias, want):
+    """One 17a case: ``fn`` (ring or Ulysses over the seq slots) on the
+    kernels, then on their plain versions, ``single`` (one flash call over
+    the full sequence) and the f64 dense formulas, forward and (q, k, v)
+    gradients of ``sum(out * g)``. Gates: the kernels' launches are
+    ``want`` (forward, dq, dk/dv) and, for out and every gradient, the
+    kernel route's error against the f64 values is within phase 2b's
+    factors (``BWD_FACTORS``) of the plain route's. Returns the launches."""
+    before = read_launches(fa)
+    got = _attn_with_grads(fn, q, k, v, g)
+    launches = [b - a for a, b in zip(before, read_launches(fa))]
+    with _routed_plain(fa):
+        plain = _attn_with_grads(fn, q, k, v, g)
+    one = _attn_with_grads(single, q, k, v, g)
+    exact = _dense_attention64(q, k, v, g, causal, bias)
+    ok = launches == want
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        a, p, s1, x = ((r[0] if i == 0 else r[1][i - 1]) for r in
+                       (got, plain, one, exact))
+        errs = {}
+        for key, t in (("kernel", a), ("plain", p), ("single", s1)):
+            e = (t.double() - x).abs()
+            errs[key] = (e.square().mean().sqrt().item(), e.max().item())
+        finite = bool(torch.isfinite(a).all().item())
+        r_rms = errs["kernel"][0] / errs["plain"][0]
+        r_max = errs["kernel"][1] / errs["plain"][1]
+        ok = (ok and finite and r_rms <= BWD_FACTORS["rms"]
+              and r_max <= BWD_FACTORS["max"])
+        print(f"mesh 17a {label}: {name} vs f64: kernel rms "
+              f"{errs['kernel'][0]:.3e} max {errs['kernel'][1]:.3e}, plain "
+              f"rms {errs['plain'][0]:.3e} max {errs['plain'][1]:.3e}, one "
+              f"flash call over S rms {errs['single'][0]:.3e} max "
+              f"{errs['single'][1]:.3e}; ratios to plain rms {r_rms:.3f} "
+              f"(bound {BWD_FACTORS['rms']:g}) max {r_max:.3f} (bound "
+              f"{BWD_FACTORS['max']:g}); max |kernel - one call| "
+              f"{(a.double() - s1.double()).abs().max().item():.3e}; "
+              f"finite {finite}", flush=True)
+    print(f"mesh 17a {label}: launches forward, dq, dk/dv {launches} (want "
+          f"{want}): {'ok' if ok else 'FAIL'}", flush=True)
+    del got, plain, one, exact
+    torch.cuda.empty_cache()
+    if not ok:
+        fail(f"mesh 17a {label}: the kernels under the mesh disagree with "
+             f"their plain versions or launched {launches}, want {want}")
+    return launches
+
+
+def sp_kernels_phase(fa, seed):
+    """17a: ring attention's flash body (``use_flash=True``) causal and
+    not, and Ulysses with a key mask, at ``RING_SHAPE`` bf16 on a
+    ``MESH_SEQ``-slot seq mesh of the one card (``sp_kernel_case``).
+    Returns the kernels' launches (forward, dq, dk/dv)."""
+    from analytics_zoo_tpu_torch.mesh import SlotMesh
+    from analytics_zoo_tpu_torch.parallel import (
+        ring_attention,
+        ulysses_attention,
+    )
+
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+
+    device = get_nncontext().device
+    mesh = SlotMesh.deal((MESH_SEQ,), ("seq",), device)
+    gen = torch.Generator().manual_seed(seed)
+    b, h, s, d = RING_SHAPE
+    q, k, v, g = (torch.randn(RING_SHAPE, generator=gen).to(
+        device, torch.bfloat16) for _ in range(4))
+    n2 = MESH_SEQ * MESH_SEQ
+    total = [0, 0, 0]
+    for causal in (False, True):
+        total = [a + b_ for a, b_ in zip(total, sp_kernel_case(
+            fa, f"ring flash causal={causal}",
+            lambda *t, c=causal: ring_attention(*t, mesh, causal=c,
+                                                use_flash=True),
+            lambda *t, c=causal: fa.flash_attention(*t, causal=c),
+            q, k, v, g, causal, None, [n2, n2, n2]))]
+    # Ulysses: a padded tail crossing shard boundaries, one row padded
+    # from a third on; each slot attends with heads / 4 heads
+    km = torch.ones((b, s))
+    km[:, 3 * s // 4:] = 0.0
+    km[0, s // 3:] = 0.0
+    km = km.to(device)
+    bias = ((1.0 - km) * -1e30)[:, None, None, :].to(torch.bfloat16)
+    total = [a + b_ for a, b_ in zip(total, sp_kernel_case(
+        fa, "ulysses causal=True key mask",
+        lambda *t: ulysses_attention(*t, mesh, causal=True, key_mask=km),
+        lambda *t: fa.flash_attention(*t, bias=bias, causal=True),
+        q, k, v, g, True, bias, [MESH_SEQ] * 3))]
+    return total
+
+
+def _update_gap(params, ref, init):
+    """|params - ref| over |ref - init|, L2 over every leaf (f64)."""
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves
+
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(tree_leaves(params), tree_leaves(ref)))
+    den = sum(float((b.double() - c.double()).square().sum())
+              for b, c in zip(tree_leaves(ref), init))
+    return math.sqrt(num) / max(math.sqrt(den), 1e-30)
+
+
+def sp_train_phase(fa, seed):
+    """17b: ``MESH_LAYER`` (a TransformerLayer at BERT-base widths, causal,
+    dropout 0, bf16 compute) under a global-average pool and a 2-class
+    softmax head trains ``MESH_STEPS`` steps of ``Estimator.train`` with
+    ``sequence_parallel="ring"`` on a (1, 1, ``MESH_SEQ``) context mesh,
+    against the same steps with ``sequence_parallel=None`` on a one-slot
+    context, from the same weights over the same batches. Gates: the loss
+    and the update's gap after each step within ``MESH_STEP_BOUND``, and
+    the flash launches a step 192/192/192 with the ring (12 blocks x 16)
+    and 12/12/12 without. Prints each run's step p50 (CUDA events) and
+    peak card memory. Returns the launches (forward, dq, dk/dv)."""
+    from analytics_zoo_tpu_torch.common import nncontext
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.engine.triggers import MaxIteration
+    from analytics_zoo_tpu_torch.keras import layers as L
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+
+    rng = np.random.default_rng(seed)
+    rows, s = MESH_BATCH * MESH_STEPS, MESH_LAYER["seq_len"]
+    ids = rng.integers(1, MESH_LAYER["vocab"], (rows, s)).astype(np.int32)
+    y = rng.integers(0, 2, rows).astype(np.int32)
+    criterion = objectives.sparse_categorical_crossentropy
+    n_block = MESH_LAYER["n_block"]
+    per_step = {"ring": [n_block * MESH_SEQ * MESH_SEQ] * 3,
+                None: [n_block] * 3}
+    saved = nncontext.get_nncontext()
+    runs, init, launches = {}, None, [0, 0, 0]
+    try:
+        for sp in (None, "ring"):
+            nncontext.stop_nncontext()
+            mesh = (dict(mesh_shape=(1, 1, MESH_SEQ),
+                         mesh_axis_names=("data", "model", "seq"))
+                    if sp else {})
+            nncontext.init_nncontext(seed=seed, device=str(saved.device),
+                                     **mesh)
+            model = Sequential([
+                L.TransformerLayer(embedding_drop=0.0, hidden_drop=0.0,
+                                   attn_drop=0.0, sequence_parallel=sp,
+                                   input_shape=(s,), name="mesh_t",
+                                   **MESH_LAYER),
+                L.GlobalAveragePooling1D(),
+                L.Dense(2, activation="softmax", name="mesh_head")])
+            model.compute_dtype = "bfloat16"
+            if init is None:
+                init = model.init(torch.Generator().manual_seed(seed))[0]
+            model.params = tree_map(torch.clone, init)
+            model.model_state = {}
+            est = Estimator(model, SGD(lr=MESH_LR, momentum=0.9))
+            data = ArrayFeatureSet(ids, y).cache_device()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            for k in range(1, MESH_STEPS + 1):
+                before = read_launches(fa)
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                est.train(data, criterion, end_trigger=MaxIteration(k),
+                          batch_size=MESH_BATCH)
+                t1.record()
+                per = [b - a for a, b in zip(before, read_launches(fa))]
+                launches = [a + b for a, b in zip(launches, per)]
+                steps.append((float(est.train_losses[-1]),
+                              [t.detach().clone() for t in tree_leaves(
+                                  est.tstate.params)],
+                              t0.elapsed_time(t1), per))
+            peak = torch.cuda.max_memory_allocated()
+            ms = [st[2] for st in steps[1:]]  # step 1 also warms up
+            step_ms = [round(st[2], 3) for st in steps]
+            print(f"mesh 17b: sequence_parallel={sp!r}: losses "
+                  f"{[st[0] for st in steps]}; step ms {step_ms}"
+                  f" (p50 of steps 2-{MESH_STEPS}: {float(np.median(ms)):.3f} "
+                  f"ms, CUDA events around each Estimator.train step); peak "
+                  f"card memory {peak / 2**30:.3f} GiB; flash launches a "
+                  f"step {[st[3] for st in steps]} (want {per_step[sp]})",
+                  flush=True)
+            if any(st[3] != per_step[sp] for st in steps):
+                fail(f"mesh 17b: a step with sequence_parallel={sp!r} did "
+                     f"not launch {per_step[sp]} flash kernels")
+            if not all(math.isfinite(st[0]) for st in steps):
+                fail(f"mesh 17b: a non-finite loss ({sp!r})")
+            runs[sp] = steps
+            del est, model, data
+            torch.cuda.empty_cache()
+    finally:
+        nncontext.stop_nncontext()
+        # the script's own context goes back in place: phases after this
+        # one draw from its generators
+        nncontext._GLOBAL_CONTEXT = saved
+    init_leaves = [t.to(saved.device) for t in tree_leaves(init)]
+    for k, (a, b) in enumerate(zip(runs["ring"], runs[None]), start=1):
+        gap = _update_gap(a[1], b[1], init_leaves)
+        dloss = abs(a[0] - b[0])
+        print(f"mesh 17b: step {k}: |loss ring - loss plain| {dloss:.3e} "
+              f"(bound {MESH_STEP_BOUND['loss']:g}); |params ring - params "
+              f"plain| / |update plain| {gap:.3e} (bound "
+              f"{MESH_STEP_BOUND['update']:g})", flush=True)
+        if not (dloss <= MESH_STEP_BOUND["loss"]
+                and gap <= MESH_STEP_BOUND["update"]):
+            fail(f"mesh 17b: step {k} of the ring run left the plain run's "
+                 f"bounds")
+    return launches
+
+
+def _slot_graph_nodes(im, n_block, where):
+    """Flash forward nodes of each (bucket, slot) cell's CUDA graph, read
+    through libcuda: each must hold ``n_block``."""
+    per = {(k[0][0][0], k[-1][1]): sum(
+        kind == "kernel" and "flash_fwd_" in name
+        for kind, name in graph_nodes(fn.graph))
+        for k, fn in im._compiled.items()}
+    print(f"{where}: flash forward nodes in each (rows, slot) cell's CUDA "
+          f"graph {per}", flush=True)
+    if any(v != n_block for v in per.values()):
+        fail(f"{where}: a cell's graph does not hold {n_block} flash "
+             "forward kernels")
+    return per
+
+
+def sp_serve_phase(fa, seed):
+    """17c: BERT-base (``TRAIN_BERT``, 2 classes, bf16, dropout 0) in one
+    ``ServingEngine`` twice, plain and under ``ShardingPlan(MeshConfig.
+    from_spec("data=4"))``, ladder ``MESH_LADDER``: 0 executable misses
+    after register, ``n_block`` flash nodes in each (bucket, slot) graph;
+    every bucket and the off-ladder sizes agree within
+    ``MESH_SERVE_BOUND`` with equal argmax (rows whose plain margin is
+    within the bound are near-ties and printed); ``BatchPredictJob`` over
+    ``MESH_JOB_ROWS`` rows sharded against unsharded within the bound; a
+    register with ladder (4, 6) raises ``BucketShardingError`` and leaves
+    the model's generation as it was. Returns the wrappers' launches."""
+    from analytics_zoo_tpu_torch.batch import BatchPredictJob
+    from analytics_zoo_tpu_torch.common import nncontext
+    from analytics_zoo_tpu_torch.data.sources import ArraySource
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.mesh import (
+        BucketShardingError,
+        MeshConfig,
+        ShardingPlan,
+    )
+    from analytics_zoo_tpu_torch.serving import BatcherConfig, ServingEngine
+    from analytics_zoo_tpu_torch.tfpark.bert import BERTClassifierNet
+
+    saved = nncontext.get_nncontext()
+    nncontext.stop_nncontext()
+    nncontext.init_nncontext(seed=seed, device=str(saved.device),
+                             mesh_shape=(MESH_DATA,),
+                             mesh_axis_names=("data",))
+    before = read_launches(fa)
+    engine = ServingEngine()
+    try:
+        seq, vocab = TRAIN_BERT["seq_len"], TRAIN_BERT["vocab"]
+        net = BERTClassifierNet(num_classes=2, hidden_drop=0.0,
+                                attn_drop=0.0, name="mesh_bert", **TRAIN_BERT)
+        net.params, net.model_state = net.init(
+            torch.Generator().manual_seed(seed))
+        plain = InferenceModel().do_load_keras(net)
+        sharded = InferenceModel().do_load_keras(net)
+        cfg = BatcherConfig(max_batch_size=MESH_LADDER[-1],
+                            buckets=MESH_LADDER, max_wait_ms=1.0)
+        rng = np.random.default_rng(seed)
+        example = make_request(rng, 1, seq, vocab)
+        plan = ShardingPlan(MeshConfig.from_spec(f"data={MESH_DATA}"))
+        gen0 = sharded._gen
+        try:
+            engine.register("bad", sharded, example,
+                            config=BatcherConfig(max_batch_size=6,
+                                                 buckets=(4, 6)),
+                            sharding_plan=plan)
+        except BucketShardingError as e:
+            print(f"mesh 17c: ladder (4, 6) refused: {e}", flush=True)
+        else:
+            fail("mesh 17c: a ladder of (4, 6) on data=4 registered")
+        if sharded._gen != gen0 or sharded.sharding_plan is not None:
+            fail("mesh 17c: the refused register changed the model")
+        t0 = time.perf_counter()
+        engine.register("plain", plain, example, config=cfg)
+        t1 = time.perf_counter()
+        mib = torch.cuda.memory_reserved() / 2**20
+        engine.register("sharded", sharded, example, config=cfg,
+                        sharding_plan=plan)
+        t2 = time.perf_counter()
+        added = {f"{k[0][0][0]}/{k[-1][1]}": round(v / 2**20, 1)
+                 for k, v in sharded.capture_bytes.items()}
+        print(f"mesh 17c: registered plain {len(MESH_LADDER)} graphs in "
+              f"{t1 - t0:.2f} s, sharded {len(sharded._compiled)} (bucket, "
+              f"slot) graphs in {t2 - t1:.2f} s; card memory reserved "
+              f"{mib:.1f} -> {torch.cuda.memory_reserved() / 2**20:.1f} MiB; "
+              f"MiB each sharded capture added (rows/slot) {added}",
+              flush=True)
+        _slot_graph_nodes(sharded, TRAIN_BERT["n_block"], "mesh 17c")
+        misses = (plain.cache_stats["misses"], sharded.cache_stats["misses"])
+        worst, ties = 0.0, 0
+        for rows in MESH_LADDER + MESH_OFF_LADDER:
+            x = make_request(rng, rows, seq, vocab)
+            a = np.asarray(engine.predict("plain", x))
+            b = np.asarray(engine.predict("sharded", x))
+            if a.shape != (rows, 2) or not np.isfinite(b).all():
+                fail(f"mesh 17c: {rows} rows gave {b.shape} or non-finite")
+            gap = float(np.abs(a - b).max())
+            worst = max(worst, gap)
+            margin = np.abs(a[:, 0] - a[:, 1])
+            flips = (a.argmax(1) != b.argmax(1)) & (margin > MESH_SERVE_BOUND)
+            ties += int(((a.argmax(1) != b.argmax(1))
+                         & (margin <= MESH_SERVE_BOUND)).sum())
+            print(f"mesh 17c: {rows} rows: max |sharded - plain| {gap:.3e} "
+                  f"(bound {MESH_SERVE_BOUND:g}); argmax differs on "
+                  f"{int(flips.sum())} rows past the bound's margin",
+                  flush=True)
+            if gap > MESH_SERVE_BOUND or flips.any():
+                fail(f"mesh 17c: sharded BERT-base disagrees at {rows} rows")
+        after = (plain.cache_stats["misses"], sharded.cache_stats["misses"])
+        print(f"mesh 17c: executable misses after register "
+              f"{after[0] - misses[0]} plain, {after[1] - misses[1]} sharded; "
+              f"near-tie argmax flips {ties}", flush=True)
+        if after != misses:
+            fail("mesh 17c: serving built an executable after register")
+        xs = make_request(np.random.default_rng(seed + 1), MESH_JOB_ROWS, seq,
+                          vocab)
+        outs = []
+        for im, p in ((plain, None), (sharded, plan)):
+            t0 = time.perf_counter()
+            job = BatchPredictJob(im, ArraySource(xs), batch_size=32,
+                                  pad_to_bucket=MESH_LADDER, sharding_plan=p)
+            outs.append(np.concatenate(list(job.scored_blocks()), axis=0))
+            print(f"mesh 17c: BatchPredictJob {'sharded' if p else 'plain'}"
+                  f" over {MESH_JOB_ROWS} rows in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        gap = float(np.abs(outs[0] - outs[1]).max())
+        print(f"mesh 17c: BatchPredictJob sharded vs plain max |diff| "
+              f"{gap:.3e} (bound {MESH_SERVE_BOUND:g}); worst serving gap "
+              f"{worst:.3e}", flush=True)
+        if outs[1].shape != (MESH_JOB_ROWS, 2) or gap > MESH_SERVE_BOUND:
+            fail("mesh 17c: the sharded batch job disagrees")
+    finally:
+        engine.shutdown()
+        nncontext.stop_nncontext()
+        nncontext._GLOBAL_CONTEXT = saved
+    return [b - a for a, b in zip(before, read_launches(fa))]
+
+
+def mesh_phase(fa, seed):
+    """Phase 17: the in-process mesh on the one card: 17a the kernels under
+    ring and Ulysses attention, 17b long-context training with the ring,
+    17c sharded BERT-base serving and batch scoring. Returns the flash
+    wrappers' launches (forward, dq, dk/dv) over the phase."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a = sp_kernels_phase(fa, seed)
+    t_a = time.perf_counter()
+    b = sp_train_phase(fa, seed + 1)
+    t_b = time.perf_counter()
+    c = sp_serve_phase(fa, seed + 2)
+    torch.cuda.empty_cache()
+    total = [x + y + z for x, y, z in zip(a, b, c)]
+    print(f"mesh: phase 17 took {time.perf_counter() - t_phase:.1f} s (17a "
+          f"{t_a - t_phase:.1f}, 17b {t_b - t_a:.1f}, 17c "
+          f"{time.perf_counter() - t_b:.1f}); flash wrapper launches "
+          f"forward, dq, dk/dv {total} (17a {a}, 17b {b}, 17c {c}) "
+          f"({smi_line()})", flush=True)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9275,6 +9746,9 @@ def main(argv=None) -> int:
     dist = dist_phase(args.seed + 16)
     print(f"dist: phase 16 took {time.perf_counter() - t0:.1f} s; flash "
           f"launches by the hosts' wrappers {dist}", flush=True)
+    # -- 17. the in-process mesh: ring and Ulysses attention on the kernels,
+    # long-context training with the ring, sharded serving ------------------
+    mesh = mesh_phase(fa, args.seed + 17)
     ctx.generator.set_state(draws[0])
     ctx.step_generator.set_state(draws[1])
     torch.cuda.empty_cache()
@@ -9452,7 +9926,7 @@ def main(argv=None) -> int:
         "launches": (launches + train_launches[0] + resume_launches[0]
                      + serve_launches + zoo_launches[0] + int8_launches[0]
                      + fdb["launches"][0] + fly[0] + remat[0] + kenc[0]
-                     + dist[0]),
+                     + dist[0] + mesh[0]),
         # the kernel's runs on the card in CUDA graph replays, which no
         # wrapper sees, in phase 3's traffic and phase 5's traced run:
         # the flash nodes of each bucket's graph (read through the driver)
@@ -9473,12 +9947,12 @@ def main(argv=None) -> int:
     }, bwd_row("dq", 0, "analytics_zoo_tpu/ops/flash_attention.py:323",
                train_launches[1] + resume_launches[1] + zoo_launches[1]
                + int8_launches[1] + fdb["launches"][1] + fly[1] + remat[1]
-               + kenc[1] + dist[1],
+               + kenc[1] + dist[1] + mesh[1],
                dq_err),
         bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
                 train_launches[2] + resume_launches[2] + zoo_launches[2]
                 + int8_launches[2] + fdb["launches"][2] + fly[2] + remat[2]
-                + kenc[2] + dist[2],
+                + kenc[2] + dist[2] + mesh[2],
                 dkv_err)]
     for row, n, z, lib, q in zip(kernels, detection_launches, zoo_launches,
                                  layer_launches, int8_launches):
@@ -9516,6 +9990,10 @@ def main(argv=None) -> int:
     # host and 16b), counted in launches
     for row, n in zip(kernels, dist):
         row["dist_launches"] = n
+    # phase 17's (17a the ring's and Ulysses' calls, 17b the train steps,
+    # 17c the registers' warm-ups and captures), counted in launches
+    for row, n in zip(kernels, mesh):
+        row["mesh_launches"] = n
     print(f"chip_smoke: the whole script took "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

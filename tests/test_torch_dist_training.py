@@ -339,8 +339,8 @@ def test_split_round_robin_partitions_completely():
 
 
 def test_mesh_config_counts_the_process_devices():
-    """The port runs one device per process: the local data axis is one
-    device, and a larger mesh is refused naming the count (JAX
+    """A host process's local data axis is one device, and a mesh larger
+    than the context's slots (one here) is refused naming the count (JAX
     ``MeshConfig.build`` refuses likewise)."""
     assert MeshConfig.host_local_data().describe() == "data=1"
     assert MeshConfig.from_spec("data=1,tp=1").build().shape == (1, 1)

@@ -128,15 +128,21 @@ def test_tf_importers_load_no_jax_tensorflow_or_h5py():
 
 
 def test_distributed_modules_load_no_jax():
-    """Multi-host training (``ft.distributed``, ``mesh``) and the
-    mixture-of-experts layer (``parallel``, ``keras.layers.moe``) import
-    neither jax nor the JAX package, nor optax."""
+    """Multi-host training (``ft.distributed``, ``mesh``), the in-process
+    mesh (``mesh.plan``, ``mesh.slots``, ``parallel.sharding``,
+    ``parallel.ring_attention``) and the mixture-of-experts layer
+    (``parallel``, ``keras.layers.moe``) import neither jax nor the JAX
+    package, nor optax."""
     code = ("import sys\n"
             "import analytics_zoo_tpu_torch.ft.distributed\n"
             "import analytics_zoo_tpu_torch.mesh\n"
             "import analytics_zoo_tpu_torch.mesh.config\n"
+            "import analytics_zoo_tpu_torch.mesh.plan\n"
+            "import analytics_zoo_tpu_torch.mesh.slots\n"
             "import analytics_zoo_tpu_torch.parallel\n"
             "import analytics_zoo_tpu_torch.parallel.moe\n"
+            "import analytics_zoo_tpu_torch.parallel.sharding\n"
+            "import analytics_zoo_tpu_torch.parallel.ring_attention\n"
             "import analytics_zoo_tpu_torch.keras.layers.moe\n"
             "import analytics_zoo_tpu_torch.engine.estimator\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "

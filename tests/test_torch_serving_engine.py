@@ -17,7 +17,8 @@
   shapes the forward may pick other kernels, so only a stated tolerance
   holds there).
 - Host behaviour through the engine: an oversize request split, a full
-  queue, a deadline, the surfaces the port has not ported yet, and what
+  queue, a deadline, the surface the port has not ported yet (stage
+  plans), a sharding plan on a model that cannot take one, and what
   generation raises on a model it cannot serve.
 """
 
@@ -314,8 +315,11 @@ def test_engine_host_behaviour_split_queue_full_deadline():
                                   "watch_checkpoints", "sequence",
                                   "sharding_plan", "stage_plan"])
 def test_unported_surfaces_raise_naming_the_roadmap(call):
-    """The sharding and stage plans are not ported and raise naming their
-    ROADMAP item. Generation and hot reload are ported
+    """The stage plan is not ported and raises naming its ROADMAP item; a
+    sharding plan given with a model that cannot take one raises the JAX
+    package's ``TypeError`` (``tests/test_torch_mesh.py`` and
+    ``tests/test_torch_serving_mesh.py`` drive the plan). Generation and
+    hot reload are ported
     (``tests/test_torch_sequence_serving.py`` and
     ``tests/test_torch_hot_reload.py`` drive them); their cases here hold
     what they raise on what they cannot serve: ``generate`` and
@@ -340,6 +344,9 @@ def test_unported_surfaces_raise_naming_the_roadmap(call):
                                match="no persistent executable cache"):
                 engine.watch_checkpoints("m", "/nonexistent", None, ex,
                                          aot_cache_dir="/nonexistent")
+        elif call == "sharding_plan":
+            with pytest.raises(TypeError, match="set_sharding_plan"):
+                engine.register("m", object(), ex, sharding_plan=object())
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP A7"):
                 engine.register("m", object(), ex, **{call: object()})
