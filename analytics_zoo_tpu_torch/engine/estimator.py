@@ -69,9 +69,14 @@ plain one, as the JAX package's is on a one-device mesh. A context mesh
 (``init_nncontext(mesh_shape=...)``) reaches training through the layers
 (``sequence_parallel`` attention over its ``seq`` slots).
 
+Pipeline-parallel training (``train_pipelined``) splits the layer stack
+into stages by a :class:`~analytics_zoo_tpu_torch.pipeline.plan.StagePlan`
+and streams microbatches through them on a 1F1B or GPipe schedule
+(:mod:`analytics_zoo_tpu_torch.pipeline.trainer`), with stage-owned
+two-phase sharded checkpoints.
+
 Not ported yet: data and tensor parallelism of ``train`` over the slots of
-an in-process mesh, and ``train_pipelined``, which raises
-``NotImplementedError`` (ROADMAP A7).
+an in-process mesh (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -181,6 +186,16 @@ def _masked_mean(ps, mask):
         return ps.mean(), torch.tensor(float(ps.shape[0]), device=ps.device)
     count = mask.sum()
     return (ps * mask).sum() / torch.clamp_min(count, 1.0), count
+
+
+def _loss_sum(losses, y, mask):
+    """The distributed and pipelined steps' loss contract: ``(sum of the
+    valid rows' per-sample losses, valid-row count)``; a scalar-only
+    criterion's batch mean counts as exact over every row."""
+    if losses.dim():
+        return (losses * mask).sum(), mask.sum().float()
+    rows = float(tree_leaves(y)[0].shape[0])
+    return losses * rows, torch.tensor(rows, device=losses.device)
 
 
 def _dense_grads(grads, leaves, trainable):
@@ -553,10 +568,29 @@ class Estimator:
         self._profile = (log_dir, int(start_iteration), int(num_iterations))
         return self
 
-    def train_pipelined(self, *args, **kwargs):
-        raise NotImplementedError(
-            "train_pipelined is not ported yet (ROADMAP A7: stage plans "
-            "and microbatch schedules)")
+    def train_pipelined(self, train_set, criterion: Callable, stage_plan,
+                        num_microbatches: int = 1, schedule: str = "1f1b",
+                        end_trigger: Optional[trig.Trigger] = None,
+                        checkpoint_trigger: Optional[trig.Trigger] = None,
+                        batch_size: int = 32,
+                        auto_resume: bool = False) -> "Estimator":
+        """Pipeline-parallel training: ``stage_plan`` (a
+        :class:`~analytics_zoo_tpu_torch.pipeline.plan.StagePlan`)
+        partitions the layer stack into K stages, each run as its own
+        program, and a microbatch schedule (``"1f1b"`` or ``"gpipe"``)
+        streams ``num_microbatches`` slices of every global batch through
+        them. Checkpoints are stage-owned two-phase sharded commits in the
+        JAX package's format; ``auto_resume=True`` restores the newest
+        committed one bitwise, also after a mid-schedule kill. See
+        :mod:`analytics_zoo_tpu_torch.pipeline.trainer` for the parity
+        contract."""
+        from analytics_zoo_tpu_torch.pipeline import trainer
+
+        return trainer.train_pipelined(
+            self, train_set, criterion, stage_plan,
+            num_microbatches=num_microbatches, schedule=schedule,
+            end_trigger=end_trigger, checkpoint_trigger=checkpoint_trigger,
+            batch_size=batch_size, auto_resume=auto_resume)
 
     def _tx(self):
         if self.optim_method is None:
@@ -582,8 +616,12 @@ class Estimator:
                 return opt.update(clip(grads), state, params)
 
             if hasattr(opt.update, "optax_leaves"):
-                # optax's clip transforms keep no state
+                # optax's clip transforms keep no state; the JAX package
+                # chains the clip first, so the optimizer's own state sits
+                # at chain index 1
                 clipped.optax_leaves = opt.update.optax_leaves
+                clipped.optax_paths = tuple(
+                    "1/" + p for p in opt.update.optax_paths)
             tx = GradientTransformation(opt.init, clipped)
         if self.gradient_accumulation > 1:
             # clipping applies to the window's mean gradient, as in the
@@ -754,23 +792,29 @@ class Estimator:
     # -- the train step --------------------------------------------------
 
     def _make_forward(self, criterion: Callable,
-                      device_transform: Optional[Callable] = None
-                      ) -> Callable:
+                      device_transform: Optional[Callable] = None,
+                      apply: Optional[Callable] = None) -> Callable:
         """``forward(params, model_state, xs, y, per_sample, rng) ->
         (losses, new_model_state)``: the training forward
         (``device_transform`` first) and the criterion, the one loss
-        contract of the plain and the distributed step. ``losses`` is a
-        per-sample vector when ``per_sample`` and the criterion has a
-        per-sample form, or when the criterion returns rows (each averaged
-        to one value); else the criterion's scalar."""
+        contract of the plain, the distributed and the pipelined step.
+        ``losses`` is a per-sample vector when ``per_sample`` and the
+        criterion has a per-sample form, or when the criterion returns rows
+        (each averaged to one value); else the criterion's scalar.
+        ``apply(params, model_state, xs, rng) -> (pred, new_state)``
+        replaces the whole model's cast forward (the pipelined trainer's
+        last stage)."""
         model, cast = self.model, self._cast_for_compute
         ps_criterion = objectives_lib.get_per_sample(criterion)
+        if apply is None:
+            def apply(params, model_state, xs, rng):
+                return model.apply(cast(params), model_state, cast(xs),
+                                   training=True, rng=rng)
 
         def forward(params, model_state, xs, y, per_sample, rng):
             if device_transform is not None:
                 xs = device_transform(xs)
-            pred, new_state = model.apply(cast(params), model_state,
-                                          cast(xs), training=True, rng=rng)
+            pred, new_state = apply(params, model_state, xs, rng)
             if isinstance(pred, torch.Tensor):
                 # a multi-output model's list stays as it is, as in the
                 # JAX package
@@ -1084,14 +1128,7 @@ class Estimator:
             with torch.enable_grad():
                 losses, new_state = forward(tree, model_state, xs, y, True,
                                             generator)
-                if losses.dim():
-                    loss_sum, count = (losses * mask).sum(), mask.sum()
-                else:
-                    # a scalar-only criterion: the batch mean counts as
-                    # exact
-                    rows = float(tree_leaves(y)[0].shape[0])
-                    loss_sum = losses * rows
-                    count = torch.tensor(rows, device=losses.device)
+                loss_sum, count = _loss_sum(losses, y, mask)
                 grads = torch.autograd.grad(loss_sum, leaves,
                                             allow_unused=True)
                 reg = model.regularization(tree)
@@ -1101,8 +1138,7 @@ class Estimator:
             with torch.no_grad():
                 gvec = flat(grads, leaves)
                 rvec = None if greg is None else flat(greg, leaves)
-            return (gvec, rvec, loss_sum.detach(), count.float(),
-                    new_state)
+            return gvec, rvec, loss_sum.detach(), count, new_state
 
         return grad_step, update_mask
 

@@ -33,8 +33,8 @@ online-learning flywheel's kill sites (:data:`FLYWHEEL_POINTS`) have the
 hard-death semantics and environment arming of the batch points. The
 two-phase sharded commit of :mod:`analytics_zoo_tpu_torch.ft.distributed`
 has its own kill sites (:data:`DIST_POINTS`), armed in one host process's
-environment only. The JAX package's pipeline-parallel point belongs to a
-tier the port does not have yet (ROADMAP A7).
+environment only. The pipeline trainer's kill site
+(:data:`PIPELINE_POINTS`) fires between two microbatch schedule events.
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ from typing import Dict, Optional
 
 __all__ = ["FAILURE_POINTS", "BATCH_POINTS", "DIST_POINTS",
            "FRONTDOOR_POINTS",
-           "FLYWHEEL_POINTS", "FLEET_POINTS", "EXIT_CODE", "active_point",
+           "FLYWHEEL_POINTS", "FLEET_POINTS", "PIPELINE_POINTS",
+           "EXIT_CODE", "active_point",
            "should_fail", "fail", "maybe_fail", "reset",
            "SERVING_POINTS", "ChaosPredictError", "ChaosForwardError",
            "FlushThreadDeath",
@@ -128,6 +129,17 @@ FRONTDOOR_POINTS = ("frontdoor_worker_exit",)
 #:   segment cleanly).
 FLYWHEEL_POINTS = ("capture_writer_torn", "flywheel_mid_retrain_kill",
                    "label_writer_torn")
+
+#: The pipeline trainer's kill site (same ``os._exit`` semantics and
+#: environment arming as :data:`FAILURE_POINTS`):
+#:
+#: - ``pipeline_mid_schedule_kill``: death between two microbatch schedule
+#:   events (a forward, backward or last-stage fused op of one (stage,
+#:   microbatch) cell), after ``AZOO_FT_CHAOS_SKIP`` survivals: mid-step,
+#:   so the gradient pieces and activation-slot leases die in flight. Only
+#:   two-phase-committed stage-sharded checkpoints survive; a restart with
+#:   ``auto_resume=True`` must finish bitwise an uninterrupted run.
+PIPELINE_POINTS = ("pipeline_mid_schedule_kill",)
 
 #: Exit status of a chaos kill, distinguishable from a real crash.
 EXIT_CODE = 43
@@ -293,7 +305,7 @@ def active_point() -> Optional[str]:
     """The failure point armed via ``AZOO_FT_CHAOS`` (None = chaos off)."""
     point = os.environ.get("AZOO_FT_CHAOS")
     known = (FAILURE_POINTS + BATCH_POINTS + DIST_POINTS + FRONTDOOR_POINTS
-             + FLYWHEEL_POINTS)
+             + FLYWHEEL_POINTS + PIPELINE_POINTS)
     if point and point not in known:
         raise ValueError(f"AZOO_FT_CHAOS={point!r} is not a failure point; "
                          f"known: {known}")

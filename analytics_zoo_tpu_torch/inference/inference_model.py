@@ -94,8 +94,18 @@ its slots, the rest once per slot device) and each slot's program gathers
 them before use, so a plan changes where rows and bytes live, not what a
 row computes. The LRU and the warm-up accounting count (bucket, slot)
 cells. Sequence programs (:meth:`InferenceModel.compile_program`) are
-single-device and raise under a plan, as in the JAX package. Stage plans
-(``set_stage_plan``) are not ported yet (ROADMAP A7).
+single-device and raise under a plan, as in the JAX package.
+
+**Stage plans.** With a :class:`~analytics_zoo_tpu_torch.pipeline.plan
+.StagePlan` attached (:meth:`InferenceModel.set_stage_plan`), a predict
+chains K per-stage programs: stage *s* runs its layer segment
+(:meth:`StagePlan.split`) through a program of its own, built by
+:meth:`InferenceModel.compile_program` with the stage index in its key,
+so two stages of equal shape never share an executable; on the card that
+is one CUDA graph per (bucket, stage). Stage *s*'s float32 output is stage
+*s + 1*'s argument, cast back to the compute dtype inside the next graph:
+exact for bfloat16, so the chain is bitwise the unsplit predict. A stage
+plan and a sharding plan exclude each other, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -503,6 +513,11 @@ class InferenceModel:
         self.sharding_plan = sharding_plan
         self._placed = None       # (placed params, placed state)
         self._placed_gen = -1     # generation _placed belongs to
+        # with a StagePlan: one executable per (bucket, stage), the plan's
+        # split of the model cached per generation
+        self.stage_plan = None
+        self._segments = None
+        self._segments_gen = -1
         self.executable_cache_size = executable_cache_size
         self._compiled: "collections.OrderedDict[Tuple, Any]" = \
             collections.OrderedDict()
@@ -556,6 +571,12 @@ class InferenceModel:
                 raise TypeError(
                     f"sharding_plan must be a ShardingPlan or None, got "
                     f"{type(plan).__name__}")
+            if self.stage_plan is not None:
+                raise NotImplementedError(
+                    "a StagePlan is attached — stage-split serving "
+                    "composes per-stage single-device programs and does "
+                    "not lower through a ShardingPlan (detach one plan "
+                    "first; docs/known-issues.md)")
         with self._lock:
             self._gen += 1
             self._compiled.clear()
@@ -563,6 +584,99 @@ class InferenceModel:
             self._placed = None
             self.sharding_plan = plan
         return self
+
+    def set_stage_plan(self, plan) -> "InferenceModel":
+        """Attach (or with ``None`` detach) a
+        :class:`~analytics_zoo_tpu_torch.pipeline.plan.StagePlan`. Later
+        predicts chain K per-stage programs: one executable per (bucket,
+        stage) cell, the stage index in its key so that equal-shaped
+        stages never share one.
+
+        Validation is complete before any mutation: the plan must
+        partition this model's layer stack
+        (:class:`~analytics_zoo_tpu_torch.pipeline.plan.StageAssignmentError`
+        names the offending layer or rule otherwise), and a rejected
+        attach leaves the model, its generation and its executables as
+        they were. A successful attach bumps the generation: a
+        whole-model executable never serves a stage-split predict, nor
+        the reverse."""
+        if plan is not None:
+            from analytics_zoo_tpu_torch.pipeline.plan import StagePlan
+
+            if not isinstance(plan, StagePlan):
+                raise TypeError(
+                    f"stage_plan must be a StagePlan or None, got "
+                    f"{type(plan).__name__}")
+            if self.model is None:
+                raise RuntimeError(
+                    "No model loaded — call do_load / do_load_keras "
+                    "before set_stage_plan")
+            if self.sharding_plan is not None:
+                raise NotImplementedError(
+                    "a ShardingPlan is attached — stage-split serving "
+                    "composes per-stage single-device programs and does "
+                    "not lower through a ShardingPlan (detach one plan "
+                    "first; docs/known-issues.md)")
+            plan.split(self.model)  # full validation, before any mutation
+        with self._lock:
+            self._gen += 1
+            self._compiled.clear()
+            self._warmed.clear()
+            self._segments = None
+            self.stage_plan = plan
+        return self
+
+    def _stage_segments(self):
+        """The attached StagePlan's split of the current model, cached
+        per generation (a reload splits again)."""
+        with self._lock:
+            if (self._segments is not None
+                    and self._segments_gen == self._gen):
+                return self._segments
+            plan, model, gen = self.stage_plan, self.model, self._gen
+        segments = plan.split(model)
+        with self._lock:
+            if self._gen == gen:
+                self._segments = segments
+                self._segments_gen = gen
+        return segments
+
+    @staticmethod
+    def _segment_inner(segment):
+        """One stage's inference forward over its layer slice: the
+        stage-split mirror of the whole model's ``apply(...,
+        training=False, rng=None)``."""
+        layers = segment.layers
+
+        def inner(params, state, x):
+            for layer in layers:
+                p = params.get(layer.name, {})
+                if layer.has_state:
+                    x, _ = layer.call(p, x, state=state.get(layer.name, {}),
+                                      training=False, rng=None)
+                else:
+                    x = layer.call(p, x, training=False, rng=None)
+            return x
+
+        return inner
+
+    def _staged_run(self, x, warm: bool = False):
+        """Run (building as needed) the attached StagePlan's chained
+        per-stage programs on ``x`` (host arrays): stage s's output is
+        stage s+1's argument. Returns the last stage's device output. A
+        load or release that raced a stage's lookup sends the whole chain
+        back for the current model's programs."""
+        while True:
+            out, gen = x, self._gen
+            for seg in self._stage_segments():
+                fn, params, state = self.compile_program(
+                    f"stage{seg.stage}_predict", self._segment_inner(seg),
+                    (out,), warm=warm, stage=seg.stage)
+                if fn.gen != gen:
+                    break
+                out = fn(params, state, out)
+            else:
+                return out
 
     def _placed_args(self, plan, params, state, gen):
         """``(params, state)`` placed by ``plan``, once per generation: a
@@ -879,6 +993,8 @@ class InferenceModel:
         as :class:`_RowShards`). An executable of an older generation is
         never replayed: a load or release that raced the lookup sends the
         call back for the current model's executables."""
+        if self.stage_plan is not None:
+            return self._staged_run(x)
         while True:
             plan = self.sharding_plan
             if plan is None:
@@ -922,6 +1038,9 @@ class InferenceModel:
         x = ([np.asarray(a) for a in example_input]
              if isinstance(example_input, (list, tuple))
              else np.asarray(example_input))
+        if self.stage_plan is not None:  # every (bucket, stage) cell
+            self._staged_run(x, warm=True)
+            return self
         plan = self.sharding_plan
         if plan is not None:  # every (bucket, data slot) cell
             for _, _, key in self._slot_cells(plan, x):
@@ -964,7 +1083,8 @@ class InferenceModel:
             for a in leaves)
 
     def compile_program(self, tag: str, inner, example_args,
-                        warm: bool = False, cast: bool = True):
+                        warm: bool = False, cast: bool = True,
+                        stage: Optional[int] = None):
         """Build (or fetch) the executable of ``inner(params, model_state,
         *args)`` for ``example_args``' signature (shapes, dtypes and
         structure; values do not matter): the sequence tier's prefill,
@@ -980,7 +1100,9 @@ class InferenceModel:
         dtype (``cast=False``: they stay float32, as a detector's
         post-process over its forward's float32 output needs; ``tag``
         names one program, so one tag keeps one ``cast``) and floating
-        outputs come back float32.
+        outputs come back float32. ``stage`` marks the program as one
+        pipeline stage's: the index joins the key, so equal-shaped stages
+        of one model never share an executable.
 
         Returns ``(program, params, model_state)``; call
         ``program(params, model_state, *args)``."""
@@ -990,6 +1112,8 @@ class InferenceModel:
                 "sequence serving is single-device (detach the plan or "
                 "serve this model through do_predict)")
         key = ("__prog__", tag, self._args_key(example_args))
+        if stage is not None:
+            key = key + (("__stage__", int(stage)),)
         fn = self._get_executable(key, inner, example_args,
                                   f"{tag}:{key[2][1:]}", cast)
         if warm:

@@ -15,7 +15,10 @@ bitwise those of ``remat=False``. ``sequence_parallel="ring"`` or
 ``"ulysses"`` runs the attention body through
 :mod:`analytics_zoo_tpu_torch.parallel.ring_attention` when the context's
 slot mesh has a ``seq`` axis longer than 1 (the standard path otherwise,
-as in the JAX package). Pipeline parallelism raises (ROADMAP A7).
+as in the JAX package). ``TransformerLayer(pipeline_parallel=True)`` runs
+its block stack as GPipe stages over the context mesh's ``pipe`` axis
+(:mod:`analytics_zoo_tpu_torch.parallel.pipeline`) when the mesh has one
+longer than 1, and the sequential loop otherwise.
 """
 
 from __future__ import annotations
@@ -55,12 +58,6 @@ def _maybe_dropout(x, rate: float, training: bool, rng):
     if training and rate > 0 and rng is not None:
         return dropout(x, rate, rng)
     return x
-
-
-def _not_yet(feature: str, value) -> None:
-    if value:
-        raise NotImplementedError(
-            f"{feature} is not ported yet (ROADMAP A7)")
 
 
 def _armed_mesh(axis_name: str):
@@ -375,7 +372,17 @@ class TransformerBlock(KerasLayer):
 
 class TransformerLayer(KerasLayer):
     """GPT-style transformer over token ids: ids (B, S) or [ids, mask] ->
-    (B, S, H); causal unless ``bidirectional``."""
+    (B, S, H); causal unless ``bidirectional``.
+
+    ``pipeline_parallel=True`` shards the BLOCK STACK over the context
+    mesh's ``pipe_mesh_axis`` when it has one longer than 1 (GPipe
+    fill-and-drain, :mod:`analytics_zoo_tpu_torch.parallel.pipeline`):
+    n_block / p consecutive blocks a stage, ``pipe_microbatches``
+    microbatches (default: the largest count up to 4 x p that keeps each
+    microbatch's rows divisible over a ``data`` axis). On any other mesh
+    the layer runs the sequential loop. Dropout cannot take a per-block
+    generator through the stage ring, so training with dropout raises
+    once the pipe engages, as in the JAX package."""
 
     def __init__(self, vocab: int, seq_len: int, n_block: int = 12,
                  hidden_size: int = 768, n_head: int = 12,
@@ -384,9 +391,15 @@ class TransformerLayer(KerasLayer):
                  activation: str = "gelu", remat: bool = False,
                  sequence_parallel: Optional[str] = None,
                  pipeline_parallel: bool = False,
+                 pipe_mesh_axis: str = "pipe",
+                 pipe_microbatches: Optional[int] = None,
                  input_shape=None, name=None):
         super().__init__(input_shape, name or unique_name("transformer"))
-        _not_yet("pipeline_parallel", pipeline_parallel)
+        self.pipeline_parallel = bool(pipeline_parallel)
+        self.pipe_mesh_axis = pipe_mesh_axis
+        self.pipe_microbatches = pipe_microbatches
+        self.hidden_drop = hidden_drop
+        self.attn_drop = attn_drop
         self.vocab = vocab
         self.seq_len = seq_len
         self.n_block = n_block
@@ -420,6 +433,76 @@ class TransformerLayer(KerasLayer):
                 else input_shape)
         return (base[0], base[1], self.hidden_size)
 
+    def _pipe_mesh(self):
+        if not self.pipeline_parallel:
+            return None
+        return _armed_mesh(self.pipe_mesh_axis)
+
+    def _call_pipelined(self, params, h, mesh, training, mask):
+        """The blocks as GPipe stages over the mesh's pipe axis: stage i
+        runs n_block / p consecutive blocks on pipe slot i; activations
+        ride slot-to-slot copies, and gradients flow back through them
+        (:func:`~analytics_zoo_tpu_torch.parallel.pipeline
+        .pipeline_apply`)."""
+        from analytics_zoo_tpu_torch.parallel.pipeline import (
+            pipeline_apply,
+            stack_stage_params,
+        )
+
+        p = mesh.shape[self.pipe_mesh_axis]
+        n = len(self.blocks)
+        if n % p != 0:
+            raise ValueError(
+                f"pipeline_parallel: n_block ({n}) must divide by the "
+                f"'{self.pipe_mesh_axis}' mesh axis size ({p})")
+        if mask is not None:
+            raise NotImplementedError(
+                "pipeline_parallel does not thread an attention mask "
+                "through the stage ring; use causal attention")
+        if training and (self.hidden_drop > 0 or self.attn_drop > 0):
+            raise NotImplementedError(
+                "pipeline_parallel cannot thread per-block dropout rngs "
+                "through the stage ring — set hidden_drop/attn_drop to 0")
+        if self.blocks[0].attn._sp_mesh() is not None:
+            raise NotImplementedError(
+                "pipeline_parallel + sequence_parallel on one mesh would "
+                "nest shard_map inside shard_map — use one or the other "
+                "(pp over layers, or sp over the sequence)")
+        k = n // p
+        template = self.blocks[0]
+        # stage i holds blocks [i*k, (i+1)*k); all blocks share one
+        # structure, so a stage's parameters are a k-list of block dicts
+        stacked = stack_stage_params(
+            [[params[self.blocks[i * k + j].name] for j in range(k)]
+             for i in range(p)])
+
+        def stage_fn(sp, t):
+            for j in range(k):
+                t = template.call(sp[j], t, training=training, rng=None)
+            return t
+
+        fn = stage_fn
+        if training and self.remat:
+            def fn(sp, t):
+                return checkpoint(stage_fn, sp, t, use_reentrant=False)
+        # GPipe's bubble is (S-1)/(M+S-1), so M >> S is the efficient
+        # direction, but one-row microbatches starve the matmuls: target
+        # M ~ 4*S without shrinking a microbatch below the data-sharded
+        # rows; pipe_microbatches overrides
+        b = h.shape[0]
+        data_ax = "data" if ("data" in mesh.axis_names
+                             and mesh.shape["data"] > 1) else None
+        min_rows = mesh.shape[data_ax] if data_ax else 1
+        want = self.pipe_microbatches or 4 * p
+        m = 1
+        for cand in range(min(want, b // min_rows or 1), 0, -1):
+            if b % cand == 0 and (b // cand) % min_rows == 0:
+                m = cand
+                break
+        return pipeline_apply(fn, stacked, h, mesh, n_microbatches=m,
+                              pipe_axis=self.pipe_mesh_axis,
+                              data_axis=data_ax)
+
     def call(self, params, x, training=False, rng=None, **kw):
         if isinstance(x, (list, tuple)):
             ids, mask = x[0], x[1]
@@ -428,6 +511,9 @@ class TransformerLayer(KerasLayer):
         h = (_embed(params["word_embed"], ids)
              + params["pos_embed"][None, :ids.shape[1]])
         h = _maybe_dropout(h, self.embedding_drop, training, rng)
+        pipe_mesh = self._pipe_mesh()
+        if pipe_mesh is not None:
+            return self._call_pipelined(params, h, pipe_mesh, training, mask)
         return _run_blocks(self.blocks, params, h, training, rng, mask,
                            self.remat)
 

@@ -72,8 +72,22 @@ def optax_leaves(tx: GradientTransformation) -> Optional[Tuple[str, ...]]:
     return getattr(tx.update, "optax_leaves", None)
 
 
-def _declare(update: Callable, *entries: str) -> Callable:
+def optax_paths(tx: GradientTransformation) -> Optional[Tuple[str, ...]]:
+    """Where each of :func:`optax_leaves`' entries sits in optax's state
+    tree for the JAX package's same optimizer: ``"<chain index>/.<field>"``
+    (``"0/.mu"`` for Adam's first moment, ``"1/.count"`` for a schedule's
+    count), the JAX package's checkpoint key of that entry below
+    ``opt_state/``. None for an optimizer that does not declare it."""
+    return getattr(tx.update, "optax_paths", None)
+
+
+def _declare(update: Callable, *entries: str,
+             chain: Sequence[int]) -> Callable:
+    """Declare ``update``'s optax leaf layout: the entries in optax's leaf
+    order and, per entry, the index of the optax chain element that holds
+    it."""
     update.optax_leaves = tuple(entries)
+    update.optax_paths = tuple(f"{c}/.{e}" for e, c in zip(entries, chain))
     return update
 
 
@@ -209,7 +223,10 @@ def SGD(lr: float = 0.01, momentum: float = 0.0, decay: float = 0.0,
         return (tree_unflatten(grads, u),
                 {"trace": _tree(grads, trace), "count": state["count"] + 1})
 
-    _declare(update, *(("trace",) if momentum else ()), *_schedule_count(sched))
+    # optax.sgd: trace (or nothing), then the learning rate
+    _declare(update, *(("trace",) if momentum else ()),
+             *_schedule_count(sched),
+             chain=(0,) * bool(momentum) + (1,))
     return GradientTransformation(init, update)
 
 
@@ -246,7 +263,8 @@ def Adam(lr: float = 1e-3, beta_1: float = 0.9, beta_2: float = 0.999,
                                           "nu": _tree(grads, nu),
                                           "count": count}
 
-    _declare(update, "count", "mu", "nu", *_schedule_count(sched))
+    _declare(update, "count", "mu", "nu", *_schedule_count(sched),
+             chain=(0, 0, 0, 1))
     return GradientTransformation(_adam_state, update)
 
 
@@ -287,7 +305,9 @@ def AdamWeightDecay(lr: float = 1e-3, warmup_portion: float = -1.0,
                                           "nu": _tree(grads, nu),
                                           "count": count}
 
-    _declare(update, "count", "mu", "nu", *_schedule_count(schedule))
+    # optax.adamw: scale_by_adam, add_decayed_weights, the learning rate
+    _declare(update, "count", "mu", "nu", *_schedule_count(schedule),
+             chain=(0, 0, 0, 2))
     return GradientTransformation(_adam_state, update)
 
 
@@ -323,7 +343,8 @@ def RMSprop(lr: float = 0.001, rho: float = 0.9, epsilon: float = 1e-8,
     # optax: scale_by_rms (nu) or scale_by_stddev (mu, nu), the learning
     # rate (a count for a schedule), then the momentum trace
     _declare(update, *(("mu", "nu") if centered else ("nu",)),
-             *_schedule_count(sched), "trace")
+             *_schedule_count(sched), "trace",
+             chain=(0,) * (1 + centered) + (1,) * callable(sched) + (2,))
     return GradientTransformation(init, update)
 
 
@@ -348,7 +369,8 @@ def Adagrad(lr: float = 0.01, epsilon: float = 1e-8, decay: float = 0.0,
         return tree_unflatten(grads, u), {
             "sum_of_squares": _tree(grads, s), "count": state["count"] + 1}
 
-    _declare(update, "sum_of_squares", *_schedule_count(sched))
+    _declare(update, "sum_of_squares", *_schedule_count(sched),
+             chain=(0, 1))
     return GradientTransformation(init, update)
 
 
@@ -376,7 +398,8 @@ def Adadelta(lr: float = 1.0, rho: float = 0.95, epsilon: float = 1e-8,
             "e_g": _tree(grads, e_g), "e_x": _tree(grads, e_x),
             "count": state["count"] + 1}
 
-    _declare(update, "e_g", "e_x")
+    # optax.adadelta: add_decayed_weights, then scale_by_adadelta
+    _declare(update, "e_g", "e_x", chain=(1, 1))
     return GradientTransformation(init, update)
 
 
@@ -398,7 +421,7 @@ def Adamax(lr: float = 0.002, beta_1: float = 0.9, beta_2: float = 0.999,
                                           "nu": _tree(grads, nu),
                                           "count": count}
 
-    _declare(update, "count", "mu", "nu")
+    _declare(update, "count", "mu", "nu", chain=(0, 0, 0))
     return GradientTransformation(_adam_state, update)
 
 

@@ -1,9 +1,13 @@
 """Parallel layers and layouts (port of ``analytics_zoo_tpu.parallel``) on
 the in-process slot mesh: the sharding helpers, ring and Ulysses sequence
-parallelism, and the top-1 mixture-of-experts FFN. Pipeline stages
-(``parallel/pipeline.py``) are not ported yet (ROADMAP A7)."""
+parallelism, GPipe stages over a ``pipe`` axis and the top-1
+mixture-of-experts FFN."""
 
 from analytics_zoo_tpu_torch.parallel.moe import init_moe_params, moe_ffn
+from analytics_zoo_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    stack_stage_params,
+)
 from analytics_zoo_tpu_torch.parallel.ring_attention import (
     ring_attention,
     ulysses_attention,
@@ -34,6 +38,8 @@ __all__ = [
     "ShardedTensor",
     "ring_attention",
     "ulysses_attention",
+    "pipeline_apply",
+    "stack_stage_params",
     "init_moe_params",
     "moe_ffn",
 ]

@@ -29,9 +29,11 @@ committed checkpoint of a training run as a new version
 
 Mesh serving: ``register(sharding_plan=ShardingPlan(...))`` validates the
 bucket ladder against the plan's ``data`` axis before it touches the model,
-attaches the plan and warms every (bucket, data slot) cell. Not ported yet,
-and raising ``NotImplementedError`` that names the ROADMAP item:
-``register(stage_plan=...)`` (A7).
+attaches the plan and warms every (bucket, data slot) cell.
+``register(stage_plan=StagePlan(...))`` validates the ladder for every
+(bucket, stage) cell before it touches the model, attaches the plan and
+warms one executable per (bucket, stage) cell; a predict chains the
+stages in order.
 
 Resilience is on by default: a
 :class:`~analytics_zoo_tpu_torch.serving.resilience.ResilienceConfig` gives
@@ -199,6 +201,9 @@ class ModelEntry:
         plan = getattr(self.model, "sharding_plan", None)
         if plan is not None:
             out["sharding"] = plan.describe()
+        splan = getattr(self.model, "stage_plan", None)
+        if splan is not None:
+            out["stages"] = splan.describe()
         return out
 
 
@@ -361,12 +366,19 @@ class ServingEngine:
         it was. Sequence serving is single-device: combining ``sequence``
         with a sharding plan raises ``NotImplementedError`` at warmup.
 
-        ``stage_plan`` is not ported yet: passing one raises
-        ``NotImplementedError`` (ROADMAP A7) before anything is touched.
+        ``stage_plan``: a
+        :class:`~analytics_zoo_tpu_torch.pipeline.plan.StagePlan` to attach
+        to the model before warmup; warmup then builds one executable per
+        (bucket, stage) cell (on the card, a CUDA graph each) and
+        ``predict`` chains the stages in order. The ladder is validated
+        against the plan first
+        (:meth:`~analytics_zoo_tpu_torch.pipeline.plan.StagePlan
+        .validate_ladder`: a
+        :class:`~analytics_zoo_tpu_torch.pipeline.plan.StageLadderError`
+        names the offending (bucket, stage) before the model is touched).
+        Stage-split serving and a sharding plan exclude each other
+        (``NotImplementedError``).
         """
-        if stage_plan is not None:
-            raise NotImplementedError(
-                "stage plans are not ported yet (ROADMAP A7)")
         cfg = config or BatcherConfig()
         rows = _example_rows(example_input)
         multi = isinstance(example_input, (list, tuple))
@@ -383,8 +395,23 @@ class ServingEngine:
             # leave the model mutated (plan set, executables dropped)
             plan.validate_ladder(
                 cfg.ladder(), context=f"model '{name}' bucket ladder")
+        if stage_plan is not None and not hasattr(model, "set_stage_plan"):
+            raise TypeError(
+                f"model for '{name}' does not accept a stage plan "
+                "(no set_stage_plan) — duck-typed models must handle "
+                "their own stage partitioning")
+        splan = (stage_plan if stage_plan is not None
+                 else getattr(model, "stage_plan", None))
+        if splan is not None:
+            # same discipline as sharding: validate the ladder BEFORE
+            # attaching so a rejected register leaves the model untouched
+            splan.validate_ladder(
+                cfg.ladder(), sharding_plan=plan,
+                context=f"model '{name}' bucket ladder")
         if sharding_plan is not None:
             model.set_sharding_plan(sharding_plan)
+        if stage_plan is not None:
+            model.set_stage_plan(stage_plan)
         entry_t0 = time.perf_counter()
         if warmup and hasattr(model, "do_optimize"):
             from analytics_zoo_tpu_torch.common.observability import get_tracer

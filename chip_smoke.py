@@ -300,10 +300,10 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    register split into eager warm-up and capture per bucket;
 12. the front door, the fleet and batch scoring
    (``scripts/torch_frontdoor_batch_phase.py``, run as a process of its
-   own, which also runs it alone): BERT-base at full width (128 tokens,
-   bf16, weights from the seed saved once) behind a 2-worker
-   ``FrontDoor`` whose workers each capture the ladder 1-32 (each graph's
-   12 flash nodes read in the worker): replicas bitwise each other and
+   own, which also runs it alone): BERT at BERT-base's widths cut to 2
+   blocks (128 tokens, bf16, weights from the seed saved once) behind a
+   2-worker ``FrontDoor`` whose workers each capture the ladder 1-32 (each
+   graph's 2 flash nodes read in the worker): replicas bitwise each other and
    the phase's own replay, sticky and keyless routing, merged metrics and
    trace, quota charged once, requests/s at 4 clients with 2 and 1
    workers beside a direct HTTP engine, ``scale_to``, chaos exit, SIGKILL
@@ -316,10 +316,11 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    resumed bitwise, and ``scripts/torch_batch_predict.py`` on NeuralCF
    killed and resumed bitwise;
 13. the online-learning flywheel (``flywheel_phase``; alone:
-   ``scripts/torch_flywheel_phase.py``): BERT-base (bench.py's
-   configuration: 128 tokens, bf16 compute, 2 classes, weights from the
-   seed) trained 2 steps as the incumbent and served over HTTP (buckets 1,
-   8, 32) behind a 2-rung rollout ladder with a drift gate, a
+   ``scripts/torch_flywheel_phase.py``): BERT at bench.py's BERT-base
+   configuration cut to 2 blocks (128 tokens, bf16 compute, 2 classes,
+   weights from the seed) trained 2 steps as the incumbent and served
+   over HTTP (buckets 1, 8, 32) behind a 2-rung rollout ladder with a
+   drift gate, a
    ``CaptureTap``, a ``LabelStore`` and a ``PredictionTracker``; requests/s
    and p50/p90 at 4 clients with the tap off and on; 13a: 96 captured
    requests, their seeded ground truth POSTed to ``:outcome``, the
@@ -328,8 +329,9 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    ``FlywheelController.run_cycle`` (retrain through ``Estimator.train``
    over ``Pipeline.from_labeled_capture``, register, canary) under 4
    background clients: promoted in outcome mode with 0 client errors, the
-   retrain's dq and dk/dv launched 12 times a step (the forward at least
-   that), 12 flash nodes in each of the candidate's graphs; 13b: 13a's
+   retrain's dq and dk/dv launched 2 times a step (once a block; the
+   forward at least that), 2 flash nodes in each of the candidate's
+   graphs; 13b: 13a's
    retrain (deterministic algorithms) over a copy of its incumbent and
    segments, killed in-process at ``flywheel_mid_retrain_kill`` after a
    mid-epoch checkpoint and resumed by a fresh trainer, bitwise 13a's
@@ -434,7 +436,30 @@ It builds the port's CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` (one
    graph, every bucket and 5 and 13 rows within ``MESH_SERVE_BOUND`` with
    equal argmax, ``BatchPredictJob`` over 1,024 rows sharded against
    plain, and a (4, 6) ladder refused before the model changes.
-   The script prints its own seconds at the end.
+18. pipeline parallelism (``pipeline_phase``; alone
+   ``scripts/torch_pipeline_phase.py``; right after phase 17), under
+   ``torch.use_deterministic_algorithms``, bf16 compute, f32 master
+   weights, 16 x 128 tokens: 18a ``TransformerLayer(pipeline_parallel=
+   True)`` at BERT-base widths and depth (causal, dropout 0) on a (1, 4)
+   data x pipe mesh of the card (3 blocks a stage, 4 microbatches) against
+   the same weights on one slot: the forward within
+   ``PIPE_LAYER_BOUND["forward"]``, 3 SGD steps within its loss and update
+   bounds, 48/0/0 launches a forward and 48/48/48 a step (12/0/0 and
+   12/12/12 plain); 18b ``train_pipelined`` of an Embedding, 12
+   TransformerBlocks, a pool and a head with ``StagePlan(4)``, Adam, 3
+   steps, K=1/M=1, K=4/M=1, K=4/M=4 1F1B and GPipe: K=4/M=1 bitwise
+   K=1/M=1, 1F1B bitwise GPipe, K=4/M=4 within ``PIPE_MB_BOUND`` of
+   K=1/M=1, each run's launches (each ``B`` event runs its stage's forward
+   again: M x 21 forward, M x 12 dq and dk/dv a step at K=4), a commit of
+   4 ``stage`` shards after step 2, and a fresh Estimator's
+   ``auto_resume`` giving step 3 bitwise; 18c the trained model served
+   plain and under the StagePlan, ladder (8, 16, 32): each staged response
+   bitwise the plain one, 12 (bucket, stage) graphs of 3 flash nodes each,
+   0 misses after register, and a refused ladder leaving the staged model
+   as it was. No path calls ``F.scaled_dot_product_attention``.
+   The script prints its own seconds at the end, and then every phase's
+   seconds (``phase seconds: {...}``; "1" the build, "tail" the kernels
+   line's assembly).
 
 The build phase prints each kernel's ptxas registers and spills and, for
 the wgmma kernels, the SASS's top register and local-memory instructions
@@ -459,7 +484,8 @@ counted in ``launches``; ``keras_encoder_launches`` its wrapper launches
 over phase 15a, counted in ``launches``; ``dist_launches`` its wrapper
 launches in phase 16's host processes (16a on both hosts and 16b),
 counted in ``launches``; ``mesh_launches`` its wrapper launches over
-phase 17, counted in ``launches``;
+phase 17, counted in ``launches``; ``pipeline_launches`` its wrapper
+launches over phase 18, counted in ``launches``;
 ``ms`` is its device time under torch.profiler and ``event_ms`` CUDA-event
 time over back-to-back calls; ``plain_ms`` is event time; the backward
 rows add the whole backward's times and bound and each bf16 route's tiles
@@ -1163,20 +1189,27 @@ def check_step_routes(fa, net, cached):
 PROFILE_ATTEMPTS = 3  # traces taken before device_ms fails on an empty one
 
 
-def device_ms(fn, calls: int = 20):
+def device_ms(fn, calls: int = 20, host: bool = True):
     """Device time of one ``fn()``: the summed durations of the kernels and
     memsets that ``calls`` back-to-back calls run on the card (under
     torch.profiler), over ``calls``; and their names. Unlike ``cuda_ms`` it
     leaves out the gaps in which the card waits on the host. A trace that
     holds no device record at all (torch.profiler drops one now and then,
-    PERF.md §7) is taken again, up to PROFILE_ATTEMPTS traces."""
+    PERF.md §7) is taken again, up to PROFILE_ATTEMPTS traces.
+    ``host=False`` traces device activity alone, for an eager train step
+    whose host ops (tens of thousands in a recurrent model's step) take
+    tens of seconds to collect; the kernels line keeps host activity on
+    (device activity alone read the (32, 512) forward 40% lower, PERF.md
+    §7)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -1232,8 +1265,12 @@ def traced_launches(fn, kernel: str = "flash_fwd_"):
     """``fn()`` under torch.profiler. Returns its result and how many times
     the card ran a kernel whose name holds ``kernel`` (by default the
     forward's ``flash_fwd_wgmma`` and ``flash_fwd_f32``), the kernels of
-    CUDA graph replays included: the launches that no wrapper sees."""
-    out, names = profiler_records(fn)
+    CUDA graph replays included: the launches that no wrapper sees.
+    Device activity alone: the host's ops are not read, and a trace of
+    serving traffic holds many."""
+    from torch.profiler import ProfilerActivity
+
+    out, names = profiler_records(fn, [ProfilerActivity.CUDA])
     if not names:
         fail("torch.profiler recorded no kernel")
     return out, sum(kernel in n for n in names)
@@ -2113,8 +2150,9 @@ SERVE_LADDER = (1, 2, 4, 8, 16, 32)
 SERVE_WAIT_MS = 2.0
 SERVE_SEQ = 128
 SERVE_CLIENTS = (1, 4)
-SERVE_BERT_REQUESTS, SERVE_BERT_ROWS = 64, 8
-SERVE_RESNET_REQUESTS, SERVE_RESNET_ROWS = 32, 4
+# (64 and 32 requests a client until phase 18 needed the time)
+SERVE_BERT_REQUESTS, SERVE_BERT_ROWS = 32, 8
+SERVE_RESNET_REQUESTS, SERVE_RESNET_ROWS = 16, 4
 SERVE_LATENCY_REQUESTS = 10  # graph replay vs eager, per model, sequential
 SERVE_RELOAD_BERT = dict(BERT_BASE, n_block=2)  # the reload check's models
 
@@ -2686,10 +2724,11 @@ def time_replay_vs_eager(models, rng):
 # 20000 words), with a random embedding matrix in place of GloVe.
 TEXT_CFG = dict(class_num=20, embedding=200, sequence_length=500,
                 encoder_output_dim=256, vocab_size=20000)
-# 1024 rows: 8 fit steps (2048 until phase 17 needed the time: the lstm and
-# gru fits took 11.5 and 10.5 s, PERF.md §6); the timed steps and the
-# predict/evaluate rows come from the first batches either way.
-TEXT_ROWS, TEXT_BATCH, TEXT_EPOCHS = 1024, 128, 1
+# 512 rows: 4 fit steps (2048 until phase 17 needed the time: the lstm and
+# gru fits took 11.5 and 10.5 s, PERF.md §6; 1024 until phase 18 did: 5.6
+# s each); the timed steps and the predict/evaluate rows come from the
+# first batches either way.
+TEXT_ROWS, TEXT_BATCH, TEXT_EPOCHS = 512, 128, 1
 TEXT_TIMED_STEPS = 3  # Estimator steps timed after the fit (5 before)
 # Seq2seq at scripts/seq_serving_bench.py's FULL_SIZE, LSTM, bridge pass,
 # trained 2 epochs on a copy task (Adam at SEQ_LR: at 0.01 the loss stays
@@ -3481,7 +3520,9 @@ LENET_ACCURACY = 0.9
 IMAGE_SERVE_LADDER = (1, 2, 4, 8)
 IMAGE_SERVE_MODELS = ("inception-v1", "mobilenet-v2")
 IMAGE_LATENCY_REQUESTS = 5  # replay vs eager per bucket, in turns
-IMAGE_PROFILE_STEPS = 2  # train steps traced for the kernel-class shares
+# train steps traced for the kernel-class shares (2 until phase 18 needed
+# the time: a host-op trace of a batch-norm step takes seconds to collect)
+IMAGE_PROFILE_STEPS = 1
 
 
 class ColumnFrame:
@@ -4088,7 +4129,7 @@ DET_IMAGES, DET_BATCH, DET_EPOCHS, DET_LR = 1024, 32, 8, 2e-4
 DET_MAX_BOXES, DET_EVAL_IMAGES, DET_EVAL_IOU = 16, 256, 0.4
 DET_LOSS_FALL, DET_MAP_GAIN = 0.7, 0.2
 DET_COLOURS = ((220, 40, 40), (40, 220, 40), (50, 90, 230), (230, 220, 40))
-DET_PROFILE_STEPS = 3
+DET_PROFILE_STEPS = 2  # 3 until phase 18 needed the time
 # (c) predict_detections served: the trained SSD at these batches,
 # frcnn-vgg16 at 1 and 4; forward and post-process each one CUDA graph per
 # batch, replays bitwise their eager runs, the card's detections against
@@ -4767,7 +4808,7 @@ def busy_share(label, est, criterion, batch, p50, calls=5):
     def run():
         est.tstate, _ = step(est.tstate, xs, y, mask)
 
-    ms, _ = device_ms(run, calls=calls)
+    ms, _ = device_ms(run, calls=calls, host=False)
     est._write_back()
     print(f"{label}: train step device time {ms:.3f} ms (torch.profiler, "
           f"{calls} steps); busy share {ms / p50:.3f} of the step p50",
@@ -7006,6 +7047,11 @@ def frontdoor_batch_phase(seed):
 
 FLY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_flywheel"
 FLY_MODEL = "bert"
+# BERT-base (bench.py's configuration, 128 tokens) cut to 2 blocks (12
+# until phase 18 needed the time: every cycle saved, restored and captured
+# the whole model; the flywheel machinery under test is the same at any
+# depth, and phases 3-5 and 11 serve the full depth)
+FLY_BERT = dict(TRAIN_BERT, n_block=2)
 FLY_SEQ = 128
 FLY_LADDER = (1, 8, 32)  # the served buckets of every version
 FLY_CLIENTS = 4
@@ -7242,9 +7288,9 @@ def fly_check_replay(seg, labels_dir, sent, truth, seed):
 
 
 def flywheel_phase(fa, seed):
-    """Phase 13: BERT-base (bf16 compute, 128 tokens, seeded weights)
-    served over HTTP behind a rollout ladder with a drift gate, a capture
-    tap, a label store and a prediction tracker; 13a an outcome cycle
+    """Phase 13: BERT (``FLY_BERT``: bf16 compute, 128 tokens, seeded
+    weights) served over HTTP behind a rollout ladder with a drift gate, a
+    capture tap, a label store and a prediction tracker; 13a an outcome cycle
     (capture, labels POSTed, retrain through ``Estimator.train`` over the
     labelled ``Pipeline``, canary promotion, the retrain under
     deterministic algorithms); 13b the same retrain killed at
@@ -7284,7 +7330,7 @@ def flywheel_phase(fa, seed):
 
     t_phase = time.perf_counter()
     smi = smi_line()
-    n_block = TRAIN_BERT["n_block"]
+    n_block = FLY_BERT["n_block"]
     shutil.rmtree(FLY_DIR, ignore_errors=True)
     ckpt_dir, cap_root = FLY_DIR / "ckpts", FLY_DIR / "capture"
     labels_dir = cap_root / FLY_MODEL / "labels"
@@ -7296,7 +7342,7 @@ def flywheel_phase(fa, seed):
     # replaces with the incumbent checkpoint's
     t0 = time.perf_counter()
     net = BERTClassifierNet(num_classes=2, hidden_drop=0.0, attn_drop=0.0,
-                            **TRAIN_BERT)
+                            **FLY_BERT)
     net.params, net.model_state = net.init(
         torch.Generator().manual_seed(seed))
     estimators = []
@@ -7306,7 +7352,7 @@ def flywheel_phase(fa, seed):
         estimators.append(est)
         return est
 
-    x0 = make_request(rng, FLY_INCUMBENT_ROWS, FLY_SEQ, TRAIN_BERT["vocab"])
+    x0 = make_request(rng, FLY_INCUMBENT_ROWS, FLY_SEQ, FLY_BERT["vocab"])
     y0 = rng.integers(0, 2, FLY_INCUMBENT_ROWS).astype(np.int32)
     est = build_est()
     est.set_checkpoint(str(ckpt_dir), keep_last=4, asynchronous=False)
@@ -7314,7 +7360,8 @@ def flywheel_phase(fa, seed):
     base_step = est.run_state.iteration
     estimators.clear()
     del est
-    print(f"flywheel: BERT-base built and the incumbent trained "
+    print(f"flywheel: BERT ({FLY_BERT['n_block']} blocks) built and the "
+          f"incumbent trained "
           f"{base_step} steps and committed as ckpt_{base_step} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -7322,7 +7369,7 @@ def flywheel_phase(fa, seed):
 
     def build_model(path):
         m = BERTClassifierNet(num_classes=2, hidden_drop=0.0, attn_drop=0.0,
-                              **TRAIN_BERT)
+                              **FLY_BERT)
         flat, _meta = atomic.read_checkpoint(path)
         m.params, m.model_state = fill_from_flat(m, flat, ".params",
                                                  ".model_state")
@@ -7646,7 +7693,7 @@ def flywheel_phase(fa, seed):
         tags = (b"canary_errors", f"'{FLY_MODEL}@{armed[0]}'".encode())
         stray = [r for r in errs if not any(t in r.body for t in tags)]
         follow = ctrl.run_cycle(timeout_s=60)
-        x = make_request(rng, 1, FLY_SEQ, TRAIN_BERT["vocab"])
+        x = make_request(rng, 1, FLY_SEQ, FLY_BERT["vocab"])
         import http.client
 
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
@@ -9682,6 +9729,461 @@ def mesh_phase(fa, seed):
     return total
 
 
+# -- phase 18: pipeline parallelism -------------------------------------------
+# 18a: TransformerLayer(pipeline_parallel=True) at BERT-base widths and
+# depth (causal, dropout 0, bf16 compute) under a global-average pool and
+# a 2-class softmax head, on a (1, PIPE_SLOTS) data x pipe context mesh (4
+# pipe slots of the one card, 3 blocks a stage, PIPE_MICRO microbatches of
+# 4 rows), against the same weights with pipeline_parallel=False on one
+# slot: a forward, then PIPE_STEPS steps of SGD over the same batches.
+# 18b: train_pipelined of the stack model (Embedding, 12 TransformerBlocks,
+# the pool and the head) with StagePlan(4) (PIPE_RULES), Adam PIPE_LR,
+# PIPE_STEPS steps of PIPE_BATCH x 128 tokens, four ways: K=1/M=1,
+# K=4/M=1, K=4/M=4 1F1B (with a stage-sharded commit after step 2) and
+# K=4/M=4 GPipe; a fresh Estimator resumes the commit. 18c: the trained
+# stack model served plain and under the same StagePlan, ladder
+# PIPE_LADDER x 128.
+PIPE_LAYER = dict(vocab=30522, seq_len=128, n_block=12, hidden_size=768,
+                  n_head=12)
+PIPE_SLOTS = 4  # the pipe axis of 18a's mesh, all on the one card
+PIPE_MICRO = 4  # microbatches a step in 18a and 18b's M=4 runs
+PIPE_BATCH, PIPE_STEPS = 16, 3
+PIPE_SGD_LR = 1e-4  # 18a: SGD, momentum 0.9 (17b's)
+PIPE_LR = 1e-5  # 18b: Adam (epsilon 1e-8), phase 16's
+PIPE_RULES = ((r"^embed$", 0), (r"^block_[0-2]$", 0), (r"^block_[3-5]$", 1),
+              (r"^block_[6-8]$", 2), (r".", 3))
+PIPE_LADDER = (8, 16, 32)
+# Bounds written before the first run on the card (PERF.md, PR 20). 18a:
+# 4-row microbatches run the same bf16 GEMMs at a quarter of the rows,
+# which cuBLAS may tile and sum in another order: a bf16 ulp of some
+# activations (2^-8 relative), carried through 12 blocks, so the layer
+# output within a few ulps of its largest value (forward, relative) and
+# the loss and the update as 17b's ring against one slot (MESH_STEP_BOUND).
+# 18b: M=4 against M=1 sums four microbatch gradients in another order
+# and Adam's sign-like first steps turn bf16 rounding into whole steps
+# (phase 16's 3.405e-02 for a two-way split): the update's gap within
+# 1e-1 of its norm, the loss within 1e-2.
+PIPE_LAYER_BOUND = {"forward": 5e-2, "loss": 1e-2, "update": 1e-1}
+PIPE_MB_BOUND = {"loss": 1e-2, "update": 1e-1}
+PIPE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_pipeline"
+
+
+class _SdpaCounter:
+    """Counts calls of ``F.scaled_dot_product_attention`` while installed:
+    phase 18's paths must reach attention through the flash wrappers
+    only."""
+
+    def __init__(self):
+        self.calls, self._orig = 0, None
+
+    def __enter__(self):
+        self._orig = F.scaled_dot_product_attention
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self._orig(*a, **kw)
+
+        torch.nn.functional.scaled_dot_product_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch.nn.functional.scaled_dot_product_attention = self._orig
+
+
+def pipe_layer_phase(fa, seed):
+    """18a: see the constants. Gates: the layer's forward within
+    ``PIPE_LAYER_BOUND["forward"]`` of the plain one's (relative to its
+    largest value), each step's loss and update within the bound's
+    ``loss`` and ``update``, and the flash launches: 48/0/0 for the
+    pipelined forward and 48/48/48 a pipelined step (12 blocks x 4
+    microbatches, only the active (tick, stage) cells run), 12/0/0 and
+    12/12/12 plain. Returns the launches (forward, dq, dk/dv)."""
+    from analytics_zoo_tpu_torch.common import nncontext
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.engine.triggers import MaxIteration
+    from analytics_zoo_tpu_torch.keras import layers as L
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
+    from analytics_zoo_tpu_torch.keras.optimizers import SGD
+
+    rng = np.random.default_rng(seed)
+    s, n_block = PIPE_LAYER["seq_len"], PIPE_LAYER["n_block"]
+    rows = PIPE_BATCH * PIPE_STEPS
+    ids = rng.integers(1, PIPE_LAYER["vocab"], (rows, s)).astype(np.int32)
+    y = rng.integers(0, 2, rows).astype(np.int32)
+    per = {True: n_block * PIPE_MICRO, False: n_block}
+    saved = nncontext.get_nncontext()
+    runs, init, launches = {}, None, [0, 0, 0]
+    try:
+        for pp in (False, True):
+            nncontext.stop_nncontext()
+            mesh = (dict(mesh_shape=(1, PIPE_SLOTS),
+                         mesh_axis_names=("data", "pipe")) if pp else {})
+            nncontext.init_nncontext(seed=seed, device=str(saved.device),
+                                     **mesh)
+            layer = L.TransformerLayer(
+                embedding_drop=0.0, hidden_drop=0.0, attn_drop=0.0,
+                pipeline_parallel=pp, pipe_microbatches=PIPE_MICRO,
+                input_shape=(s,), name="pipe_t", **PIPE_LAYER)
+            model = Sequential([layer, L.GlobalAveragePooling1D(),
+                                L.Dense(2, activation="softmax",
+                                        name="pipe_head")])
+            model.compute_dtype = "bfloat16"
+            if init is None:
+                init = model.init(torch.Generator().manual_seed(seed))[0]
+            model.params = tree_map(torch.clone, init)
+            model.model_state = {}
+            est = Estimator(model, SGD(lr=PIPE_SGD_LR, momentum=0.9))
+            est._ensure_state()
+            before = read_launches(fa)
+            with torch.no_grad():
+                p = est._cast_for_compute(est.tstate.params["pipe_t"])
+                out = layer.call(p, torch.tensor(ids[:PIPE_BATCH],
+                                                 device=saved.device))
+            fwd = [b - a for a, b in zip(before, read_launches(fa))]
+            launches = [a + b for a, b in zip(launches, fwd)]
+            want_fwd = [per[pp], 0, 0]
+            print(f"pipeline 18a: pipeline_parallel={pp}: forward launches "
+                  f"{fwd} (want {want_fwd})", flush=True)
+            if fwd != want_fwd:
+                fail(f"pipeline 18a: the forward (pipeline_parallel={pp}) "
+                     f"launched {fwd}, not {want_fwd}")
+            data = ArrayFeatureSet(ids, y).cache_device()
+            steps = []
+            for k in range(1, PIPE_STEPS + 1):
+                before = read_launches(fa)
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                est.train(data, objectives.sparse_categorical_crossentropy,
+                          end_trigger=MaxIteration(k), batch_size=PIPE_BATCH)
+                t1.record()
+                step = [b - a for a, b in zip(before, read_launches(fa))]
+                launches = [a + b for a, b in zip(launches, step)]
+                steps.append((float(est.train_losses[-1]),
+                              [t.detach().clone() for t in tree_leaves(
+                                  est.tstate.params)],
+                              t0.elapsed_time(t1), step))
+            print(f"pipeline 18a: pipeline_parallel={pp}: losses "
+                  f"{[st[0] for st in steps]}; step ms "
+                  f"{[round(st[2], 3) for st in steps]} (CUDA events around "
+                  f"each Estimator.train step; step 1 also warms up); "
+                  f"flash launches a step {[st[3] for st in steps]} (want "
+                  f"{[per[pp]] * 3})", flush=True)
+            if any(st[3] != [per[pp]] * 3 for st in steps):
+                fail(f"pipeline 18a: a step (pipeline_parallel={pp}) did "
+                     f"not launch {[per[pp]] * 3} flash kernels")
+            if not all(math.isfinite(st[0]) for st in steps):
+                fail(f"pipeline 18a: a non-finite loss ({pp})")
+            runs[pp] = (out.float(), steps)
+            del est, model, data
+            torch.cuda.empty_cache()
+    finally:
+        nncontext.stop_nncontext()
+        nncontext._GLOBAL_CONTEXT = saved
+    ref = runs[False][0]
+    rel = float((runs[True][0] - ref).abs().max() / ref.abs().max())
+    print(f"pipeline 18a: forward max |pipelined - plain| / max |plain| "
+          f"{rel:.3e} (bound {PIPE_LAYER_BOUND['forward']:g})", flush=True)
+    if not rel <= PIPE_LAYER_BOUND["forward"]:
+        fail("pipeline 18a: the pipelined forward left the plain one's bound")
+    init_leaves = [t.to(saved.device) for t in tree_leaves(init)]
+    for k, (a, b) in enumerate(zip(runs[True][1], runs[False][1]), start=1):
+        gap = _update_gap(a[1], b[1], init_leaves)
+        dloss = abs(a[0] - b[0])
+        print(f"pipeline 18a: step {k}: |loss pipelined - loss plain| "
+              f"{dloss:.3e} (bound {PIPE_LAYER_BOUND['loss']:g}); |update "
+              f"gap| / |update plain| {gap:.3e} (bound "
+              f"{PIPE_LAYER_BOUND['update']:g})", flush=True)
+        if not (dloss <= PIPE_LAYER_BOUND["loss"]
+                and gap <= PIPE_LAYER_BOUND["update"]):
+            fail(f"pipeline 18a: step {k} left the plain run's bounds")
+    return launches
+
+
+def pipe_stack(L, Sequential):
+    """18b's stack model: Embedding(30522, 768), 12 TransformerBlocks of
+    12 heads (intermediate 3072) named block_0..block_11, a global-average
+    pool and a 2-class softmax head, bf16 compute."""
+    h, s = PIPE_LAYER["hidden_size"], PIPE_LAYER["seq_len"]
+    model = Sequential(
+        [L.Embedding(PIPE_LAYER["vocab"], h, input_shape=(s,), name="embed")]
+        + [L.TransformerBlock(PIPE_LAYER["n_head"], intermediate_size=4 * h,
+                              name=f"block_{i}")
+           for i in range(PIPE_LAYER["n_block"])]
+        + [L.GlobalAveragePooling1D(name="pool"),
+           L.Dense(2, activation="softmax", name="head")])
+    model.compute_dtype = "bfloat16"
+    return model
+
+
+def _blocks_before_last_stage(plan, model):
+    """TransformerBlocks in stages 0..K-2: the blocks whose forward a
+    ``B`` event runs again."""
+    segs = plan.split(model)
+    return sum(name.startswith("block_") for seg in segs[:-1]
+               for name in seg.names)
+
+
+def pipe_train_phase(fa, seed, root):
+    """18b: see the constants. Gates: K=4/M=1 bitwise K=1/M=1 (losses and
+    parameters after the 3 steps), 1F1B bitwise GPipe, K=4/M=4 within
+    ``PIPE_MB_BOUND`` of K=1/M=1, the flash launches of each run (M x (12
+    + the blocks of stages 0..K-2) forward, since each ``B`` event runs
+    its stage's forward again; M x 12 dq and dk/dv a step), the commit
+    after step 2 with 4 ``stage`` shards, and a fresh Estimator's
+    ``auto_resume`` reproducing step 3 bitwise. Returns the launches and
+    the 1F1B run's trained model."""
+    from analytics_zoo_tpu_torch.common.tree import tree_leaves, tree_map
+    from analytics_zoo_tpu_torch.data.feature_set import ArrayFeatureSet
+    from analytics_zoo_tpu_torch.engine.estimator import Estimator
+    from analytics_zoo_tpu_torch.engine.triggers import (
+        MaxIteration,
+        SeveralIteration,
+    )
+    from analytics_zoo_tpu_torch.ft import atomic
+    from analytics_zoo_tpu_torch.keras import layers as L
+    from analytics_zoo_tpu_torch.keras import objectives
+    from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
+    from analytics_zoo_tpu_torch.keras.optimizers import Adam
+    from analytics_zoo_tpu_torch.pipeline import StagePlan
+
+    rng = np.random.default_rng(seed)
+    s, n_block = PIPE_LAYER["seq_len"], PIPE_LAYER["n_block"]
+    rows = PIPE_BATCH * PIPE_STEPS
+    ids = rng.integers(1, PIPE_LAYER["vocab"], (rows, s)).astype(np.int32)
+    y = rng.integers(0, 2, rows).astype(np.int32)
+    criterion = objectives.sparse_categorical_crossentropy
+    init = pipe_stack(L, Sequential).init(
+        torch.Generator().manual_seed(seed))[0]
+    plans = {1: StagePlan(1, rules=((r".", 0),)),
+             4: StagePlan(4, rules=PIPE_RULES)}
+    ckpt = os.path.join(root, "ckpt")
+    launches, runs = [0, 0, 0], {}
+
+    def run(k, m, mode, **kw):
+        model = pipe_stack(L, Sequential)
+        model.params = tree_map(lambda t: t.clone(), init)
+        model.model_state = {}
+        est = Estimator(model, Adam(lr=PIPE_LR))
+        est.time_steps = True
+        if kw.get("checkpoint"):
+            est.set_checkpoint(ckpt)
+        before = read_launches(fa)
+        t0 = time.perf_counter()
+        est.train_pipelined(
+            ArrayFeatureSet(ids, y), criterion, plans[k], num_microbatches=m,
+            schedule=mode, end_trigger=MaxIteration(PIPE_STEPS),
+            checkpoint_trigger=(SeveralIteration(2) if kw.get("checkpoint")
+                                else None),
+            batch_size=PIPE_BATCH, auto_resume=bool(kw.get("resume")))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [b - a for a, b in zip(before, read_launches(fa))]
+        steps = PIPE_STEPS - (2 if kw.get("resume") else 0)
+        fwd = m * (n_block + _blocks_before_last_stage(plans[k], model))
+        want = [fwd * steps, m * n_block * steps, m * n_block * steps]
+        ev = est.step_events
+        ms = [round(a.elapsed_time(b), 3) for a, b in zip(ev, ev[1:])]
+        print(f"pipeline 18b: K={k} M={m} {mode}"
+              f"{' resumed' if kw.get('resume') else ''}: losses "
+              f"{est.train_losses}; {wall:.2f} s for {steps} step(s), ms "
+              f"between step-end events {ms}; flash launches {got} (want "
+              f"{want}: {fwd}/{m * n_block}/{m * n_block} a step)",
+              flush=True)
+        if got != want:
+            fail(f"pipeline 18b: K={k} M={m} {mode} launched {got}, not "
+                 f"{want}")
+        if not all(math.isfinite(v) for v in est.train_losses):
+            fail(f"pipeline 18b: a non-finite loss (K={k} M={m} {mode})")
+        for i in range(3):
+            launches[i] += got[i]
+        return est
+
+    for key in ((1, 1, "1f1b"), (4, 1, "1f1b"), (4, 4, "gpipe")):
+        est = run(*key)
+        runs[key] = (list(est.train_losses),
+                     [t.detach().clone() for t in
+                      tree_leaves(est.tstate.params)])
+        del est
+    t0 = time.perf_counter()
+    main = run(4, 4, "1f1b", checkpoint=True)
+    t_ckpt = time.perf_counter() - t0
+    runs[4, 4, "1f1b"] = (list(main.train_losses),
+                          [t.detach().clone() for t in
+                           tree_leaves(main.tstate.params)])
+
+    def same(a, b):
+        return runs[a][0] == runs[b][0] and all(
+            torch.equal(p, q) for p, q in zip(runs[a][1], runs[b][1]))
+
+    split, sched = (same((4, 1, "1f1b"), (1, 1, "1f1b")),
+                    same((4, 4, "1f1b"), (4, 4, "gpipe")))
+    print(f"pipeline 18b: K=4/M=1 bitwise K=1/M=1: {split}; 1F1B bitwise "
+          f"GPipe: {sched}", flush=True)
+    if not (split and sched):
+        fail("pipeline 18b: a bitwise contract of train_pipelined broke")
+    init_leaves = [t.to(main.ctx.device) for t in tree_leaves(init)]
+    gap = _update_gap(runs[4, 4, "1f1b"][1], runs[1, 1, "1f1b"][1],
+                      init_leaves)
+    dloss = max(abs(a - b) for a, b in zip(runs[4, 4, "1f1b"][0],
+                                           runs[1, 1, "1f1b"][0]))
+    print(f"pipeline 18b: K=4/M=4 against K=1/M=1: max |loss gap| "
+          f"{dloss:.3e} (bound {PIPE_MB_BOUND['loss']:g}); |update gap| / "
+          f"|update| {gap:.3e} (bound {PIPE_MB_BOUND['update']:g})",
+          flush=True)
+    if not (dloss <= PIPE_MB_BOUND["loss"]
+            and gap <= PIPE_MB_BOUND["update"]):
+        fail("pipeline 18b: K=4/M=4 left K=1/M=1's bounds")
+    committed = atomic.committed_checkpoints(ckpt)
+    path = committed[-1][1] if committed else None
+    manifest = atomic.read_manifest(path) if path else {}
+    stages = [h.get("stage") for h in
+              manifest.get("shards", {}).get("hosts", [])]
+    print(f"pipeline 18b: commits {[st for st, _ in committed]}; shard "
+          f"stages {stages}; the checkpointed run took {t_ckpt:.2f} s",
+          flush=True)
+    if [st for st, _ in committed] != [2] or stages != [0, 1, 2, 3]:
+        fail("pipeline 18b: no stage-sharded commit of 4 stages after "
+             "step 2")
+    t0 = time.perf_counter()
+    resumed = run(4, 4, "1f1b", checkpoint=True, resume=True)
+    ok = all(torch.equal(p, q) for p, q in zip(
+        tree_leaves(resumed.tstate.params), runs[4, 4, "1f1b"][1]))
+    print(f"pipeline 18b: auto_resume from step 2 (restore and step 3 in "
+          f"{time.perf_counter() - t0:.2f} s): step 3 bitwise {ok}",
+          flush=True)
+    if not ok or resumed.run_state.iteration != PIPE_STEPS:
+        fail("pipeline 18b: the resumed step 3 is not bitwise the run's")
+    return launches, main.model
+
+
+def pipe_serve_phase(fa, net):
+    """18c: ``net`` (18b's trained stack model) in one ``ServingEngine``
+    twice, plain and under StagePlan(4) (PIPE_RULES), ladder PIPE_LADDER x
+    128. Gates: each bucket's staged response bitwise the plain one, 12
+    (bucket, stage) graphs each holding its stage's 3 flash forward nodes,
+    0 misses after register, and a ladder the plan refuses leaves the
+    staged model serving as before. Returns the wrappers' launches."""
+    from analytics_zoo_tpu_torch.inference import InferenceModel
+    from analytics_zoo_tpu_torch.mesh import MeshConfig
+    from analytics_zoo_tpu_torch.pipeline import StageLadderError, StagePlan
+    from analytics_zoo_tpu_torch.serving import BatcherConfig, ServingEngine
+
+    before = read_launches(fa)
+    engine = ServingEngine()
+    try:
+        s, vocab = PIPE_LAYER["seq_len"], PIPE_LAYER["vocab"]
+        plan = StagePlan(4, rules=PIPE_RULES)
+        plain = InferenceModel().do_load_keras(net)
+        staged = InferenceModel().do_load_keras(net)
+        cfg = BatcherConfig(max_batch_size=PIPE_LADDER[-1],
+                            buckets=PIPE_LADDER, max_wait_ms=1.0)
+        rng = np.random.default_rng(18)
+        example = rng.integers(1, vocab, (1, s)).astype(np.int32)
+        t0 = time.perf_counter()
+        engine.register("plain", plain, example, config=cfg)
+        t1 = time.perf_counter()
+        engine.register("staged", staged, example, config=cfg,
+                        stage_plan=plan)
+        t2 = time.perf_counter()
+        blocks = [sum(n.startswith("block_") for n in seg.names)
+                  for seg in plan.split(net)]
+        nodes = {(k[2][1][0][0], k[-1][1]): sum(
+            kind == "kernel" and "flash_fwd_" in name
+            for kind, name in graph_nodes(fn.graph))
+            for k, fn in staged._compiled.items()}
+        print(f"pipeline 18c: registered plain {len(plain._compiled)} "
+              f"graphs in {t1 - t0:.2f} s, staged {len(staged._compiled)} "
+              f"(bucket, stage) graphs in {t2 - t1:.2f} s; flash forward "
+              f"nodes by (rows, stage) {nodes} (want {blocks} by stage)",
+              flush=True)
+        if (len(nodes) != len(PIPE_LADDER) * 4
+                or any(v != blocks[st] for (_, st), v in nodes.items())):
+            fail("pipeline 18c: the (bucket, stage) graphs are not 12 with "
+                 "their stages' flash nodes")
+        misses = (plain.cache_stats["misses"], staged.cache_stats["misses"])
+        answers = {}
+        for rows in PIPE_LADDER:
+            x = rng.integers(1, vocab, (rows, s)).astype(np.int32)
+            a = np.asarray(engine.predict("plain", x))
+            b = np.asarray(engine.predict("staged", x))
+            answers[rows] = (x, b)
+            print(f"pipeline 18c: {rows} rows: staged bitwise plain "
+                  f"{np.array_equal(a, b)} (max |diff| "
+                  f"{float(np.abs(a - b).max()):.3e})", flush=True)
+            if a.shape != (rows, 2) or not np.array_equal(a, b):
+                fail(f"pipeline 18c: the staged response at {rows} rows is "
+                     "not bitwise the plain one")
+        gen = staged._gen
+        try:
+            engine.register("refused", staged, example,
+                            config=BatcherConfig(max_batch_size=18,
+                                                 buckets=(8, 18)),
+                            stage_plan=StagePlan(
+                                4, rules=PIPE_RULES,
+                                mesh=MeshConfig.from_spec("data=4,stage=4")))
+        except StageLadderError as e:
+            print(f"pipeline 18c: ladder (8, 18) refused: {e}", flush=True)
+        else:
+            fail("pipeline 18c: a ladder of (8, 18) on data=4 registered")
+        x, b = answers[PIPE_LADDER[0]]
+        again = np.asarray(engine.predict("staged", x))
+        after = (plain.cache_stats["misses"], staged.cache_stats["misses"])
+        print(f"pipeline 18c: after the refusal the staged model answers "
+              f"bitwise as before {np.array_equal(again, b)}; generation "
+              f"{gen} -> {staged._gen}; misses after register "
+              f"{after[0] - misses[0]} plain, {after[1] - misses[1]} staged",
+              flush=True)
+        if (not np.array_equal(again, b) or staged._gen != gen
+                or staged.stage_plan is not plan or after != misses):
+            fail("pipeline 18c: the refused register changed the staged "
+                 "model, or serving built an executable after register")
+    finally:
+        engine.shutdown()
+    return [b - a for a, b in zip(before, read_launches(fa))]
+
+
+def pipeline_phase(fa, seed):
+    """Phase 18: pipeline parallelism on the one card, under
+    ``torch.use_deterministic_algorithms`` (``warn_only``, as phases 3e
+    and 16: ``F.embedding``'s backward is otherwise not repeatable): 18a
+    the GPipe TransformerLayer, 18b ``train_pipelined``, 18c stage-split
+    serving. No path may call ``F.scaled_dot_product_attention``. Returns
+    the flash wrappers' launches (forward, dq, dk/dv) over the phase."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = PIPE_DIR / f"run_{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with _SdpaCounter() as sdpa:
+            a = pipe_layer_phase(fa, seed)
+            t_a = time.perf_counter()
+            b, net = pipe_train_phase(fa, seed + 1, str(root))
+            t_b = time.perf_counter()
+            c = pipe_serve_phase(fa, net)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    total = [x + y + z for x, y, z in zip(a, b, c)]
+    print(f"pipeline: phase 18 took {time.perf_counter() - t_phase:.1f} s "
+          f"(18a {t_a - t_phase:.1f}, 18b {t_b - t_a:.1f}, 18c "
+          f"{time.perf_counter() - t_b:.1f}); flash wrapper launches "
+          f"forward, dq, dk/dv {total} (18a {a}, 18b {b}, 18c {c}); "
+          f"F.scaled_dot_product_attention calls {sdpa.calls} "
+          f"({smi_line()})", flush=True)
+    if sdpa.calls:
+        fail("pipeline: a phase 18 path called "
+             "F.scaled_dot_product_attention")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9695,6 +10197,14 @@ def main(argv=None) -> int:
     if args.resume_child:
         return resume_child(args.resume_child, args.seed)
     t_script = time.perf_counter()
+    # each phase's wall seconds, printed before the last lines
+    phase_s = {}
+    mark = [t_script]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark[0], 1)
+        mark[0] = now
 
     from analytics_zoo_tpu_torch import init_nncontext
     from analytics_zoo_tpu_torch.inference import InferenceModel
@@ -9723,6 +10233,7 @@ def main(argv=None) -> int:
     ctx = init_nncontext(seed=args.seed)
     device = ctx.device
     gen = torch.Generator().manual_seed(args.seed)
+    lap("1")
 
     # -- 2. kernels vs plain versions --------------------------------------
     check_key_tiles(fa)
@@ -9730,6 +10241,7 @@ def main(argv=None) -> int:
     serve_err = check_kernels(fa, device, gen, FWD_CASES)
     dq_err, dkv_err = check_backward_kernels(fa, device, gen)
     check_kernels(fa, device, gen, FWD_CASES_AFTER_BWD)
+    lap("2")
 
     # -- 14. remat, ONNX and foreign weights, transfer learning ---------------
     # Run here, on a card that holds only the kernels: after phase 13 the
@@ -9738,17 +10250,25 @@ def main(argv=None) -> int:
     # back after it, so phases 3-13 draw what they drew without it.
     draws = (ctx.generator.get_state(), ctx.step_generator.get_state())
     remat = foreign_phase(fa, args.seed + 14)
+    lap("14")
     # -- 15. the TensorFlow importers: a Keras encoder, a frozen graph ---------
     # (also on the nearly empty card, for the same reason)
     kenc = tf_phase(fa, args.seed + 15)
+    lap("15")
     # -- 16. multi-host data-parallel training: two host processes ------------
     t0 = time.perf_counter()
     dist = dist_phase(args.seed + 16)
     print(f"dist: phase 16 took {time.perf_counter() - t0:.1f} s; flash "
           f"launches by the hosts' wrappers {dist}", flush=True)
+    lap("16")
     # -- 17. the in-process mesh: ring and Ulysses attention on the kernels,
     # long-context training with the ring, sharded serving ------------------
     mesh = mesh_phase(fa, args.seed + 17)
+    lap("17")
+    # -- 18. pipeline parallelism: the GPipe layer, train_pipelined,
+    # stage-split serving --------------------------------------------------
+    pipe = pipeline_phase(fa, args.seed + 18)
+    lap("18")
     ctx.generator.set_state(draws[0])
     ctx.step_generator.set_state(draws[1])
     torch.cuda.empty_cache()
@@ -9826,6 +10346,7 @@ def main(argv=None) -> int:
         fail("a resume-phase BERT step did not launch each attention "
              "kernel once per layer")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    lap("3")
 
     # -- 4. times -----------------------------------------------------------
     fwd = time_forward(fa, device, gen)
@@ -9848,36 +10369,47 @@ def main(argv=None) -> int:
     time_resnet(resnet_est, resnet_cached, resnet_batch, resnet_im,
                 resnet_requests)
 
+    lap("4")
+
     # -- 5. the serving tier: BERT-base and ResNet-50 behind one engine -----
     t0 = time.perf_counter()
     serve_launches, serve_replayed, serve_traced = serve_tier(
         fa, net, resnet, rng)
     print(f"serve: phase 5 took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    lap("5")
 
     # -- 6. the text model family and sequence serving ----------------------
     text_phase(fa, args.seed + 6)
+    lap("6")
 
     # -- 7. the image catalog, nnframes, tfpark and ImageSet ----------------
     image_phase(fa, args.seed + 7)
+    lap("7")
 
     # -- 8. object detection: SSD trained, SSD and Faster-RCNN served -------
     detection_launches = detection_phase(fa, args.seed + 8)
+    lap("8")
 
     # -- 9. the tagging and ranking zoo, tfpark's BERTClassifier ------------
     zoo_launches = text_zoo_phase(fa, args.seed + 9)
+    lap("9")
 
     # -- 10. the layer library: ConvLSTM, autograd, the layer sweep ----------
     layer_launches = layer_library_phase(fa, args.seed + 10)
+    lap("10")
 
     # -- 11. int8 serving, hot reload, the watchdog, profiling ---------------
     int8_launches, int8_replayed = int8_reload_phase(fa, args.seed + 11)
+    lap("11")
 
     # -- 12. the front door, the fleet, batch scoring ------------------------
     fdb = frontdoor_batch_phase(args.seed + 12)
+    lap("12")
 
     # -- 13. the online-learning flywheel -------------------------------------
     fly = flywheel_phase(fa, args.seed + 13)
+    lap("13")
 
     bwd_src = "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu"
     bwd_pair = ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
@@ -9926,7 +10458,7 @@ def main(argv=None) -> int:
         "launches": (launches + train_launches[0] + resume_launches[0]
                      + serve_launches + zoo_launches[0] + int8_launches[0]
                      + fdb["launches"][0] + fly[0] + remat[0] + kenc[0]
-                     + dist[0] + mesh[0]),
+                     + dist[0] + mesh[0] + pipe[0]),
         # the kernel's runs on the card in CUDA graph replays, which no
         # wrapper sees, in phase 3's traffic and phase 5's traced run:
         # the flash nodes of each bucket's graph (read through the driver)
@@ -9947,12 +10479,12 @@ def main(argv=None) -> int:
     }, bwd_row("dq", 0, "analytics_zoo_tpu/ops/flash_attention.py:323",
                train_launches[1] + resume_launches[1] + zoo_launches[1]
                + int8_launches[1] + fdb["launches"][1] + fly[1] + remat[1]
-               + kenc[1] + dist[1] + mesh[1],
+               + kenc[1] + dist[1] + mesh[1] + pipe[1],
                dq_err),
         bwd_row("dkv", 1, "analytics_zoo_tpu/ops/flash_attention.py:369",
                 train_launches[2] + resume_launches[2] + zoo_launches[2]
                 + int8_launches[2] + fdb["launches"][2] + fly[2] + remat[2]
-                + kenc[2] + dist[2] + mesh[2],
+                + kenc[2] + dist[2] + mesh[2] + pipe[2],
                 dkv_err)]
     for row, n, z, lib, q in zip(kernels, detection_launches, zoo_launches,
                                  layer_launches, int8_launches):
@@ -9994,8 +10526,15 @@ def main(argv=None) -> int:
     # 17c the registers' warm-ups and captures), counted in launches
     for row, n in zip(kernels, mesh):
         row["mesh_launches"] = n
+    # phase 18's (18a the GPipe layer's forwards and steps, 18b the
+    # pipelined runs and the resume, 18c the registers' warm-ups and
+    # captures), counted in launches
+    for row, n in zip(kernels, pipe):
+        row["pipeline_launches"] = n
+    lap("tail")
     print(f"chip_smoke: the whole script took "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
+    print("phase seconds: " + json.dumps(phase_s), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

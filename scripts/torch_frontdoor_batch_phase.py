@@ -3,9 +3,9 @@
 the preforked front door with card workers, the fleet fabric, then
 resumable batch scoring over the streaming pipeline.
 
-BERT-base at full width (vocab 30522, hidden 768, 12 blocks, 12 heads,
-intermediate 3072; 2 classes, bf16 compute) with random weights from
-``--seed``, written once with ``KerasNet.save_weights``: every worker and
+BERT at BERT-base's widths cut to 2 blocks (vocab 30522, hidden 768, 12
+heads, intermediate 3072; 2 classes, bf16 compute) with random weights
+from ``--seed``, written once with ``KerasNet.save_weights``: every worker and
 the phase's own model load that file. Each worker serves the ladder 1-32
 at 128 tokens from its own CUDA graphs.
 
@@ -67,8 +67,12 @@ PHASE_DIR = ROOT / "build" / "frontdoor_batch_phase"
 SPEC = f"{Path(__file__).resolve()}:build_worker_engine"
 ENV_KEY = "AZOO_PHASE12"
 
-# BERT-base as bench.py's serving record builds it, at 128 tokens
-BERT = dict(cs.BERT_BASE, seq_len=128)
+# BERT-base as bench.py's serving record builds it, at 128 tokens, cut to
+# 2 blocks (12 until phase 18 of chip_smoke.py needed the time: each worker
+# boot loaded and placed the whole model, and 12c scored 6,000 rows about
+# ten times; the front door, fleet and batch machinery under test is the
+# same at any depth, and phases 3-5 serve the full depth)
+BERT = dict(cs.BERT_BASE, seq_len=128, n_block=2)
 LADDER = (1, 2, 4, 8, 16, 32)
 CLIENTS, LOAD_SECONDS = 4, 1.5
 # 12c: the batch job
@@ -107,7 +111,7 @@ def _process_seconds() -> float:
 
 
 def build_worker_engine():
-    """A front-door worker's engine: BERT-base from the phase's weights,
+    """A front-door worker's engine: BERT (2 blocks) from the phase's weights,
     one CUDA graph per ladder bucket, the result cache on for the fleet.
     After ``register`` it writes what it holds (flash nodes per bucket
     graph read through libcuda, wrapper launches, register seconds, card
@@ -910,7 +914,7 @@ def output_bytes(out):
 
 
 def load_bert(weights):
-    """BERT-base from the phase's weights, on the card."""
+    """BERT (2 blocks) from the phase's weights, on the card."""
     from analytics_zoo_tpu_torch.inference import InferenceModel
 
     net = build_net(BERT)
@@ -1019,12 +1023,12 @@ def traced_pass(fn):
     copies: the union of their intervals), those records' summed ms, and
     their names. The records are read from the profiler's raw results,
     without its event tree: on an H100 a scoring pass with its trace took
-    18.8 s with the tree and 13.0 s without."""
+    18.8 s with the tree and 13.0 s without. Device activity alone: the
+    host's ops are not read."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

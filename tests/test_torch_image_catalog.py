@@ -91,6 +91,20 @@ SMALL = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work. The suite runs
+    several worker processes side by side on the machine's cores, and
+    PyTorch's thread pools, each as wide as the machine, then slow one
+    another down many times over (this module's CPU-bound training
+    tests most of all). The thread count goes back for the modules the
+    worker runs next."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def _port_context():
     port.init_nncontext(device="cpu")

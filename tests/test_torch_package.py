@@ -154,6 +154,27 @@ def test_distributed_modules_load_no_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_pipeline_modules_load_no_jax():
+    """Pipeline parallelism (``pipeline`` with its lazy
+    ``train_pipelined``, ``pipeline.trainer``, ``parallel.pipeline``)
+    imports neither jax nor the JAX package, nor optax."""
+    code = ("import sys\n"
+            "import analytics_zoo_tpu_torch.pipeline as p\n"
+            "import analytics_zoo_tpu_torch.pipeline.plan\n"
+            "import analytics_zoo_tpu_torch.pipeline.schedule\n"
+            "import analytics_zoo_tpu_torch.pipeline.buffers\n"
+            "import analytics_zoo_tpu_torch.pipeline.trainer\n"
+            "import analytics_zoo_tpu_torch.parallel.pipeline\n"
+            "assert callable(p.train_pipelined)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+            "'analytics_zoo_tpu', 'optax')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_init_nncontext_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port.stop_nncontext()

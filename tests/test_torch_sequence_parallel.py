@@ -192,8 +192,20 @@ def test_sequence_parallel_gates_like_jax():
     mha.call(params, x, training=False)  # no dropout in inference
     with pytest.raises(ValueError, match="sequence_parallel"):
         tatt.MultiHeadAttention(4, sequence_parallel="tree")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tatt.TransformerLayer(vocab=10, seq_len=8, pipeline_parallel=True)
+    # pipeline and sequence parallelism on one mesh: the JAX package's
+    # refusal, once both axes are there
+    port.stop_nncontext()
+    port.init_nncontext(device="cpu", mesh_shape=(2, 4),
+                        mesh_axis_names=("pipe", "seq"))
+    both = tatt.TransformerLayer(vocab=10, seq_len=8, n_block=2,
+                                 hidden_size=16, n_head=4,
+                                 pipeline_parallel=True,
+                                 sequence_parallel="ring")
+    both.ensure_built((None, 8))
+    with pytest.raises(NotImplementedError,
+                       match=r"pipeline_parallel \+ sequence_parallel"):
+        both.call(both.init_params(torch.Generator().manual_seed(0)),
+                  torch.zeros((2, 8), dtype=torch.long))
     # without a seq axis the same config runs the standard path, dropout
     # and all
     port.stop_nncontext()

@@ -315,10 +315,10 @@ def test_engine_host_behaviour_split_queue_full_deadline():
                                   "watch_checkpoints", "sequence",
                                   "sharding_plan", "stage_plan"])
 def test_unported_surfaces_raise_naming_the_roadmap(call):
-    """The stage plan is not ported and raises naming its ROADMAP item; a
-    sharding plan given with a model that cannot take one raises the JAX
-    package's ``TypeError`` (``tests/test_torch_mesh.py`` and
-    ``tests/test_torch_serving_mesh.py`` drive the plan). Generation and
+    """A sharding or stage plan given with a model that cannot take one
+    raises the JAX package's ``TypeError`` (``tests/test_torch_mesh.py``,
+    ``tests/test_torch_serving_mesh.py`` and
+    ``tests/test_torch_pipeline.py`` drive the plans). Generation and
     hot reload are ported
     (``tests/test_torch_sequence_serving.py`` and
     ``tests/test_torch_hot_reload.py`` drive them); their cases here hold
@@ -344,11 +344,8 @@ def test_unported_surfaces_raise_naming_the_roadmap(call):
                                match="no persistent executable cache"):
                 engine.watch_checkpoints("m", "/nonexistent", None, ex,
                                          aot_cache_dir="/nonexistent")
-        elif call == "sharding_plan":
-            with pytest.raises(TypeError, match="set_sharding_plan"):
-                engine.register("m", object(), ex, sharding_plan=object())
         else:
-            with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            with pytest.raises(TypeError, match=f"set_{call}"):
                 engine.register("m", object(), ex, **{call: object()})
         assert engine.model_names() == []
     finally:

@@ -56,6 +56,7 @@ from analytics_zoo_tpu_torch.keras.engine.base import reset_name_counts
 from analytics_zoo_tpu_torch.keras.engine.topology import Sequential
 from analytics_zoo_tpu_torch.keras.layers import Dense
 from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+from analytics_zoo_tpu_torch.pipeline import StagePlan
 from analytics_zoo_tpu_torch.tfpark.bert import BERTClassifierNet
 
 CFG = dict(vocab=128, hidden_size=64, n_block=2, n_head=2, seq_len=128,
@@ -79,6 +80,20 @@ BF16_UPDATE_TOL = 0.2
 # - class probabilities, 2e-2 absolute: a few bf16 ulps of logits that
 #   differ as the losses do; measured 9.3e-3.
 BF16_PRED_TOL = 2e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work. The suite runs
+    several worker processes side by side on the machine's cores, and
+    PyTorch's thread pools, each as wide as the machine, then slow one
+    another down many times over (this module's CPU-bound training
+    tests most of all). The thread count goes back for the modules the
+    worker runs next."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)
@@ -552,15 +567,18 @@ def test_float64_inputs_are_made_float32(surface):
     lambda e: InferenceModel().set_aot_cache("/nonexistent"),
     lambda e: e.set_l2_norm_gradient_clipping(1.0).train_distributed(
         None, None),
-    lambda e: e.train_pipelined(None, None)])
+    lambda e: test_.Estimator(e.model, gradient_accumulation=2)
+    .train_pipelined(None, None, StagePlan(1, rules=((".", 0),)))])
 def test_unported_surfaces_raise(call):
-    """Pipelined training and the AOT executable cache raise (the port
-    keeps none), and so do the surfaces ``train_distributed`` refuses as
-    the JAX package does: ``zero1`` (superseded by its sharded update) and
+    """The AOT executable cache raises (the port keeps none), and so do
+    the surfaces ``train_distributed`` and ``train_pipelined`` refuse as
+    the JAX package does: ``zero1`` (superseded by the sharded update),
     L2-norm clipping (the global norm needs every gradient before the
-    update is sliced). ZeRO-1 itself and ``train_distributed`` are ported
-    (``tests/test_torch_dist_training.py``); profiling and the step
-    watchdog are driven by ``tests/test_torch_trace_tools.py``."""
+    update is sliced) and gradient accumulation under a microbatch
+    schedule. ZeRO-1 itself, ``train_distributed`` and
+    ``train_pipelined`` are ported (``tests/test_torch_dist_training.py``,
+    ``tests/test_torch_pipeline.py``); profiling and the step watchdog
+    are driven by ``tests/test_torch_trace_tools.py``."""
     est = test_.Estimator(BERTClassifierNet(num_classes=2, **CFG))
     with pytest.raises(NotImplementedError):
         call(est)
